@@ -1,0 +1,125 @@
+"""Port kernels against their plain PyTorch versions on the GPU.
+
+These tests need a CUDA card and ``nvcc``; elsewhere they skip. They import
+no JAX, so on a GPU host without JAX run them without the JAX test
+configuration:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
+                                              group_norm_plain)
+from vae_npvc_tpu_torch.ops.vq_fused import vq_fused, vq_fused_plain
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _near_tie_free(z, emb, rel=1e-5):
+    """Rows whose two best distances differ by more than ``rel``*|d|."""
+    d = ((emb.double() ** 2).sum(1)[None] - 2 * z.double() @ emb.double().T)
+    top2 = torch.topk(d, 2, dim=1, largest=False).values
+    return (top2[:, 1] - top2[:, 0]) > rel * top2[:, 0].abs().clamp(min=1.0)
+
+
+@pytest.mark.parametrize("N,stats", [(2048, False), (4096, False),
+                                     (256, False), (32768, True),
+                                     (1000, True), (65, True)])
+def test_vq_kernel_matches_plain(dev, N, stats):
+    rng = np.random.default_rng(N)
+    z = torch.tensor(rng.normal(size=(N, 128)), dtype=torch.float32,
+                     device=dev)
+    emb = torch.tensor(rng.normal(size=(512, 128)), dtype=torch.float32,
+                       device=dev)
+    got = vq_fused(z, emb, stats=stats)
+    ref = vq_fused_plain(z, emb, stats=stats)
+    torch.cuda.synchronize()
+    ok = _near_tie_free(z, emb)
+    assert torch.equal(got.idx[ok], ref.idx[ok])
+    if stats:
+        same = got.idx == ref.idx
+        assert torch.equal(got.z_q[same], ref.z_q[same])
+        # counts are exact; sums differ only by summation order
+        ids = got.idx.long()
+        cnt = torch.bincount(ids, minlength=512).float()
+        assert torch.equal(got.batch_elem, cnt)
+        abs_sum = torch.zeros_like(got.batch_sum).index_add_(0, ids, z.abs())
+        ref_sum = torch.zeros_like(got.batch_sum, dtype=torch.float64) \
+            .index_add_(0, ids, z.double())
+        assert ((got.batch_sum.double() - ref_sum).abs()
+                <= 1e-5 * abs_sum.double() + 1e-6).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("C,G,glu", [(512, 1, False), (1024, 2, True),
+                                     (96, 3, False)])
+def test_groupnorm_kernel_matches_plain(dev, dtype, masked, C, G, glu):
+    rng = np.random.default_rng(C + G)
+    B, T = 8, 256
+    x = torch.tensor(rng.normal(2.0, 3.0, size=(B, T, C)), device=dev) \
+        .to(dtype)
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                        device=dev)
+    lengths = (torch.tensor([256, 1, 0, 17, 100, 255, 128, 200],
+                            dtype=torch.int32, device=dev)
+               if masked else None)
+    got = fused_group_norm(x, scale, bias, G, lengths=lengths, glu=glu)
+    ref = group_norm_plain(x, scale, bias, G, lengths=lengths, glu=glu)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        # two bf16 roundings may land one ulp apart (2^-8 relative)
+        torch.testing.assert_close(got.float(), ref.float(), atol=2 ** -7,
+                                   rtol=2 ** -6)
+
+
+@pytest.mark.parametrize("B,C,G,glu,lengths", [
+    (8, 1024, 2, True, [512, 300, 511, 257, 1, 450, 512, 512]),
+    (1, 512, 1, False, [397])])
+def test_groupnorm_kernel_512_bucket(dev, B, C, G, glu, lengths):
+    """The serving path's 512-frame bucket: 64 statistics chunks a row."""
+    rng = np.random.default_rng(B + C)
+    T = 512
+    x = torch.tensor(rng.normal(2.0, 3.0, size=(B, T, C)), device=dev) \
+        .to(torch.bfloat16)
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                        device=dev)
+    n = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = fused_group_norm(x, scale, bias, G, lengths=n, glu=glu)
+    ref = group_norm_plain(x, scale, bias, G, lengths=n, glu=glu)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    torch.testing.assert_close(got.float(), ref.float(), atol=2 ** -7,
+                               rtol=2 ** -6)
+
+
+def test_wrappers_count_launches(dev):
+    x = torch.ones((1, 16, 8), device=dev)
+    s = torch.ones(8, device=dev)
+    n0 = fused_group_norm.launches
+    fused_group_norm(x, s, s * 0, 1)
+    assert fused_group_norm.launches == n0 + 1
+    v0 = vq_fused.launches
+    vq_fused(torch.ones((4, 8), device=dev), torch.ones((3, 8), device=dev),
+             stats=False)
+    assert vq_fused.launches == v0 + 1

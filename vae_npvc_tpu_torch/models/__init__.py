@@ -1,0 +1,49 @@
+"""Model registry, keyed by the same dotted ``model_type`` strings as the
+JAX package (``vae_npvc_tpu/models/__init__.py``)."""
+
+from __future__ import annotations
+
+from ..utils.device import compute_dtype, resolve_device
+from . import vqvae as _vqvae
+
+_REGISTRY = {
+    "vae_npvc.model.vqvae": _vqvae.Model,
+    "vqvae": _vqvae.Model,
+}
+
+# families of the JAX package not ported yet -> the ROADMAP item that ports
+# them
+_NOT_PORTED = {
+    "vqvae2": "Queue A, hierarchical family",
+    "vqvae2a": "Queue A, hierarchical family",
+    "vqvae2b": "Queue A, hierarchical family",
+    "vae": "Queue A, other families and trainers",
+    "token_tts": "Queue A, token TTS",
+}
+
+
+def get_model_cls(model_type: str):
+    """Resolve a model_type string (dotted reference path or short name)."""
+    key = model_type.split(":")[0]
+    short = key.rsplit(".", 1)[-1]
+    cls = _REGISTRY.get(key) or _REGISTRY.get(short)
+    if cls is not None:
+        return cls
+    if short in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model_type {model_type!r} is not ported to PyTorch yet "
+            f"(ROADMAP {_NOT_PORTED[short]})")
+    raise KeyError(f"unknown model_type {model_type!r}; known: "
+                   f"{sorted(_REGISTRY)}")
+
+
+def build_model(config, device="cuda", dtype=None):
+    """Build the model of a flat experiment config on ``device``.
+
+    ``dtype`` (torch dtype or name) defaults to the config's
+    ``compute_dtype``. Parameters stay fp32; the compute dtype applies to
+    activations. Raises when ``device`` is CUDA and no GPU is present.
+    """
+    dev = resolve_device(device)
+    cls = get_model_cls(config.get("model_type", "vae_npvc.model.vqvae"))
+    return cls(config, dtype=compute_dtype(config, dtype)).to(dev)

@@ -1,0 +1,243 @@
+"""Flat speaker-conditioned VQ-VAE: inference entry points.
+
+Counterpart of ``vae_npvc_tpu/models/vqvae.py`` (``Encoder``, ``Decoder``,
+``Model.encode/decode/infer``, lines 36-347), same config keys, same
+channels-last layout, same casts. Stride-1 encoders and decoders only:
+the strided (hierarchical) layers raise until that slice is ported. The
+training forward and loss belong to the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..nn.blocks import (Conditions, ConvResStack, GLUResSkip, WNConv1d,
+                         init_parameters, length_mask)
+from ..ops import vq as vq_ops
+
+_STRIDED = ("strided conv layers are not ported yet (ROADMAP Queue A, "
+            "hierarchical family)")
+
+
+class Encoder(nn.Module):
+    """Conv encoder: per scale [conv -> res-stack x n -> LReLU], final 1x1."""
+
+    def __init__(self, arch, dtype=torch.float32):
+        super().__init__()
+        a = dict(arch)
+        in_channels = a.get("in_channels", [513, 1024, 512, 256])
+        out_channels = a.get("out_channels", [1024, 512, 256, 128])
+        scales = a.get("downsample_scales", [1] * len(in_channels))
+        kernel_size = a.get("kernel_size", 3)
+        dilation = a.get("dilation", True)
+        stack_kernel = a.get("stack_kernel_size", 3)
+        stack_layers = a.get("stack_layers", 2)
+        stacks = a.get("stacks", [3] * len(in_channels))
+        use_wn = a.get("use_weight_norm", True)
+        if any(ds != 1 for ds in scales):
+            raise NotImplementedError(_STRIDED)
+        self.stacks = list(stacks)
+        ch = in_channels[0]
+        for i, (out_ch, n_stack) in enumerate(zip(out_channels, stacks)):
+            setattr(self, f"conv_{i}", WNConv1d(
+                ch, out_ch, kernel_size, use_weight_norm=use_wn, dtype=dtype))
+            for j in range(n_stack):
+                setattr(self, f"stack_{i}_{j}", ConvResStack(
+                    out_ch, stack_kernel, stack_layers,
+                    dilation=2 ** j if dilation else 1,
+                    use_weight_norm=use_wn, dtype=dtype))
+            ch = out_ch
+        self.proj = WNConv1d(ch, a.get("z_channels", 128), 1,
+                             use_weight_norm=use_wn, dtype=dtype)
+        self.dtype = dtype
+
+    @staticmethod
+    def out_lengths(arch, lengths):
+        """Frame-count transform (torch conv length formula, clamped >= 1
+        per downsampling step); numpy arrays or tensors."""
+        for ds in arch.get("downsample_scales",
+                           [1] * len(arch.get("in_channels", [1]))):
+            if ds != 1:
+                p = ds // 2 + ds % 2
+                lengths = ((lengths + 2 * p - 2 * ds) // ds + 1).clip(min=1)
+        return lengths
+
+    @staticmethod
+    def min_input_frames(archs):
+        """Smallest T whose padded time stays >= 1 through every level."""
+        t = 1
+        for arch in reversed(list(archs)):
+            for ds in reversed(arch.get(
+                    "downsample_scales",
+                    [1] * len(arch.get("in_channels", [1])))):
+                if ds != 1:
+                    p = ds // 2 + ds % 2
+                    t = (t - 1) * ds + 2 * ds - 2 * p
+        return t
+
+    def forward(self, x, lengths=None):
+        h = x
+        mask = None
+        if lengths is not None:
+            mask = length_mask(lengths, h.shape[1])
+            h = h * mask.to(h.dtype)
+        for i, n_stack in enumerate(self.stacks):
+            h = getattr(self, f"conv_{i}")(h)
+            if mask is not None:
+                h = h * mask.to(h.dtype)
+            for j in range(n_stack):
+                h = getattr(self, f"stack_{i}_{j}")(h, lengths)
+            h = F.leaky_relu(h, 0.2)
+        h = self.proj(h)
+        if mask is not None:
+            h = h * mask.to(h.dtype)
+        return h
+
+
+class Decoder(nn.Module):
+    """Decoder with speaker-conditioned GLU res-skip stacks; the skips are
+    summed, scaled by sqrt(1/total_layers), then ReLU/1x1/ReLU/1x1."""
+
+    def __init__(self, arch, dtype=torch.float32):
+        super().__init__()
+        a = dict(arch)
+        in_channels = a.get("in_channels", [128, 256, 512, 1024])
+        out_channels = a.get("out_channels", [256, 512, 1024, 513])
+        scales = a.get("upsample_scales", [1] * len(in_channels))
+        cond = a.get("cond_channels", 128)
+        skip = a.get("skip_channels", 80)
+        kernel_size = a.get("kernel_size", 5)
+        dilation = a.get("dilation", True)
+        stack_kernel = a.get("stack_kernel_size", 3)
+        stacks = a.get("stacks", [3] * len(in_channels))
+        use_wn = a.get("use_weight_norm", True)
+        if any(us != 1 for us in scales):
+            raise NotImplementedError(_STRIDED)
+        self.stacks = list(stacks)
+        self.total_layers = len(in_channels) + sum(stacks)
+        ch = in_channels[0]
+        for i, (out_ch, n_stack) in enumerate(zip(out_channels, stacks)):
+            setattr(self, f"up_{i}", WNConv1d(
+                ch, out_ch, kernel_size, use_weight_norm=use_wn, wn_dim="in",
+                dtype=dtype))
+            for j in range(n_stack):
+                setattr(self, f"stack_{i}_{j}", GLUResSkip(
+                    out_ch, cond, skip, stack_kernel,
+                    dilation=2 ** j if dilation else 1,
+                    use_weight_norm=use_wn, dtype=dtype))
+            ch = out_ch
+        self.final_0 = WNConv1d(skip, skip, 1, use_weight_norm=use_wn,
+                                dtype=dtype)
+        self.final_1 = WNConv1d(skip, a.get("final_channels", 80), 1,
+                                use_weight_norm=use_wn, dtype=dtype)
+
+    @staticmethod
+    def out_lengths(arch, lengths):
+        for us in arch.get("upsample_scales",
+                           [1] * len(arch.get("in_channels", [1]))):
+            if us != 1:
+                lengths = lengths * us
+        return lengths
+
+    def forward(self, z, c, lengths=None):
+        h = z
+        mask = None
+        if lengths is not None:
+            mask = length_mask(lengths, h.shape[1])
+            h = h * mask.to(h.dtype)
+        skip_sum = None
+        for i, n_stack in enumerate(self.stacks):
+            h = getattr(self, f"up_{i}")(h)
+            if mask is not None:
+                h = h * mask.to(h.dtype)
+            for j in range(n_stack):
+                h, skip = getattr(self, f"stack_{i}_{j}")(h, c, lengths)
+                skip_sum = skip if skip_sum is None else skip_sum + skip
+        h = skip_sum * (1.0 / self.total_layers) ** 0.5
+        h = self.final_0(F.relu(h))
+        h = self.final_1(F.relu(h))
+        if mask is not None:
+            h = h * mask.to(h.dtype)
+        return h
+
+
+class EmaQuantizer(nn.Module):
+    """The EMA codebook as buffers (the JAX ``ema`` collection's
+    ``quantizer`` leaf: ``initted``, ``emb``, ``emb_sum``, ``emb_elem``)."""
+
+    def __init__(self, num_codes, dim):
+        super().__init__()
+        self.register_buffer("initted", torch.zeros((), dtype=torch.bool))
+        self.register_buffer("emb", torch.zeros(num_codes, dim))
+        self.register_buffer("emb_sum", torch.zeros(num_codes, dim))
+        self.register_buffer("emb_elem", torch.ones(num_codes))
+
+    def state(self):
+        return vq_ops.EmaVqState(self.initted, self.emb, self.emb_sum,
+                                 self.emb_elem)
+
+
+class Model(nn.Module):
+    """Flat VQ-VAE with speaker conditioning (inference entry points).
+
+    ``arch`` is the flat experiment config (model keys at the top level).
+      encode(x, lengths)            -> (B, T') int32 ids
+      decode(ids, y_idx, lengths)   -> (B, T, D) fp32 mel
+      infer(x, y_idx, lengths)      -> (B, T, D) fp32 mel
+    """
+
+    def __init__(self, arch, dtype=torch.float32):
+        super().__init__()
+        a = dict(arch)
+        self.arch = a
+        self.dtype = dtype
+        self.encoder = Encoder(a.get("encoder", {}), dtype=dtype)
+        self.decoder = Decoder(a.get("decoder", {}), dtype=dtype)
+        self.embeds = Conditions(a.get("y_num", 10), a.get("y_dim", 128),
+                                 normalize=False, dtype=dtype)
+        self.use_ema = a.get("use_ema", False)
+        self.embed_norm = a.get("embed_norm", True)
+        z_num, z_dim = a.get("z_num", 512), a.get("z_dim", 128)
+        if self.use_ema:
+            self.quantizer = EmaQuantizer(z_num, z_dim)
+        else:
+            self.quantizer_embedding = nn.Parameter(torch.empty(z_num, z_dim))
+
+    def init_random(self, seed):
+        """Seeded random weights (the codebook stays as initialized)."""
+        init_parameters(self, seed)
+        if not self.use_ema:
+            gen = torch.Generator().manual_seed(int(seed) + 1)
+            with torch.no_grad():
+                self.quantizer_embedding.copy_(torch.randn(
+                    self.quantizer_embedding.shape, generator=gen))
+        return self
+
+    def encode(self, x, lengths=None):
+        """Mel (B, T, D) -> code ids (B, T'); ids beyond the transformed
+        length are garbage."""
+        z = self.encoder(x.to(self.dtype), lengths).float()
+        if self.use_ema:
+            return vq_ops.ema_vq_encode(self.quantizer.state(), z)
+        return vq_ops.vq_encode(self.quantizer_embedding, z,
+                                normalize=self.embed_norm)
+
+    def decode(self, z_idx, y_idx, lengths=None):
+        """Code ids (B, T') + speaker ids (B,) or (B, K) -> mel; the flat
+        model uses the first target."""
+        y_idx = y_idx.reshape(y_idx.shape[0], -1)[:, 0]
+        y = self.embeds(y_idx)[:, None, :]
+        if self.use_ema:
+            z_vq = vq_ops.ema_vq_decode(self.quantizer.state(), z_idx)
+        else:
+            z_vq = vq_ops.vq_decode(self.quantizer_embedding, z_idx,
+                                    normalize=self.embed_norm)
+        return self.decoder(z_vq.to(self.dtype), y, lengths).float()
+
+    def infer(self, x, y_idx, lengths=None):
+        z_lengths = (Encoder.out_lengths(self.arch.get("encoder", {}),
+                                         lengths)
+                     if lengths is not None else None)
+        return self.decode(self.encode(x, lengths), y_idx, z_lengths)

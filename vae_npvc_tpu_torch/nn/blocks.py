@@ -1,0 +1,223 @@
+"""Building blocks, channels-last (B, T, C), as torch ``nn.Module``s.
+
+Counterpart of ``vae_npvc_tpu/nn/blocks.py``. Parameter names and shapes
+are the flax ones (``v`` (K, in, out), ``g``, ``b``; ``scale``/``bias``;
+``embedding``), so a ``state_dict`` maps one to one onto the JAX variable
+tree (utils/bridge.py). Convolutions transpose to PyTorch's (B, C, T)
+inside and back.
+
+Casts follow the JAX package: weight norm in fp32 as a channel scale, the
+conv in the compute dtype, ``(y + b)`` in fp32 then cast to the compute
+dtype; GroupNorm statistics in fp32 with the output cast before the mask
+and the GLU. The stride-1 "ConvTranspose" layers of the reference are
+forward convs with the input-side weight-norm scale (``wn_dim="in"``),
+as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.groupnorm import fused_group_norm
+
+
+def length_mask(lengths, T, dtype=torch.float32):
+    """(B,) lengths -> (B, T, 1) {0, 1} mask."""
+    t = torch.arange(T, device=lengths.device)
+    return (t[None, :] < lengths[:, None]).to(dtype)[:, :, None]
+
+
+def group_norm(x, scale, bias, num_groups, eps=1e-5, lengths=None,
+               glu=False):
+    """Torch-semantics GroupNorm of (B, T, C) with statistics over the valid
+    frames ``t < lengths[b]`` and an optional tanh*sigmoid GLU epilogue.
+
+    The JAX function takes a (B, T, 1) mask; the port takes the lengths
+    that mask is made from. CPU tensors take the plain version, CUDA
+    tensors the kernel (ops/groupnorm.py).
+    """
+    return fused_group_norm(x, scale, bias, num_groups, eps, lengths=lengths,
+                            glu=glu)
+
+
+class GroupNorm(nn.Module):
+    """Affine GroupNorm (optionally masked; ``glu=True`` appends the
+    channel-halves tanh*sigmoid gate)."""
+
+    def __init__(self, num_groups, num_channels, eps=1e-5, glu=False):
+        super().__init__()
+        self.num_groups, self.eps, self.glu = num_groups, eps, glu
+        self.scale = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def init_(self, gen):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x, lengths=None):
+        return group_norm(x, self.scale, self.bias, self.num_groups, self.eps,
+                          lengths, glu=self.glu)
+
+
+class WNConv1d(nn.Module):
+    """Weight-normalized 1-D conv, (B, T, C) -> (B, T', C').
+
+    ``v`` (K, in, out), ``g`` per output channel (``wn_dim="out"``, torch
+    ``Conv1d``) or per input channel (``wn_dim="in"``, torch
+    ``ConvTranspose1d``), ``b`` (out,). The weight norm is a channel scale:
+    ``conv(x, v) * g/||v||`` on the output side, or ``conv(x * g/||v||, v)``
+    on the input side, the same function of (v, g) as ``g*v/||v||``.
+    """
+
+    def __init__(self, in_channels, features, kernel_size, stride=1,
+                 dilation=1, padding="SAME_TORCH", use_weight_norm=True,
+                 wn_dim="out", dtype=torch.float32):
+        super().__init__()
+        if wn_dim not in ("out", "in"):
+            raise ValueError(f"wn_dim must be 'out' or 'in', got {wn_dim!r}")
+        self.kernel_size, self.stride, self.dilation = (kernel_size, stride,
+                                                        dilation)
+        self.padding, self.wn_dim, self.dtype = padding, wn_dim, dtype
+        self.v = nn.Parameter(torch.empty(kernel_size, in_channels, features))
+        if use_weight_norm:
+            self.g = nn.Parameter(torch.empty(
+                in_channels if wn_dim == "in" else features))
+        else:
+            self.register_parameter("g", None)
+        self.b = nn.Parameter(torch.empty(features))
+
+    def init_(self, gen):
+        """Torch-default uniform init (the JAX package's ``_kaiming_v_init``
+        and ``_torch_bias_init``), ``g`` = ||v|| along the chosen axis."""
+        k, cin, _ = self.v.shape
+        bound = 1.0 / math.sqrt(k * cin)
+        with torch.no_grad():
+            self.v.copy_(torch.rand(self.v.shape, generator=gen) * 2 * bound
+                         - bound)
+            self.b.copy_(torch.rand(self.b.shape, generator=gen) * 2 * bound
+                         - bound)
+            if self.g is not None:
+                self.g.copy_(self._norm(self.v))
+
+    def _norm(self, v):
+        dims = (0, 2) if self.wn_dim == "in" else (0, 1)
+        return torch.sqrt(torch.sum(v * v, dim=dims))
+
+    def forward(self, x):
+        scale = None
+        if self.g is not None:
+            scale = self.g / self._norm(self.v)
+            if self.wn_dim == "in":
+                x = x * scale.to(x.dtype)
+                scale = None
+        w = self.v.to(self.dtype).permute(2, 1, 0)          # (out, in, K)
+        xc = x.to(self.dtype).transpose(1, 2)               # (B, C, T)
+        if self.padding == "SAME_TORCH":
+            pad = (self.kernel_size - 1) // 2 * self.dilation
+        else:
+            xc = F.pad(xc, tuple(self.padding))
+            pad = 0
+        y = F.conv1d(xc, w, stride=self.stride, padding=pad,
+                     dilation=self.dilation).transpose(1, 2)
+        if scale is not None:
+            y = y * scale.to(y.dtype)
+        return (y + self.b).to(self.dtype)
+
+
+class ConvResStack(nn.Module):
+    """LReLU -> dilated conv -> GN(1) (x layers) + 1x1 skip."""
+
+    def __init__(self, channels, kernel_size=3, layers=2, dilation=1,
+                 use_weight_norm=True, dtype=torch.float32):
+        super().__init__()
+        self.layers = layers
+        for i in range(layers):
+            setattr(self, f"conv_{i}", WNConv1d(
+                channels, channels, kernel_size,
+                dilation=dilation if i == 0 else 1,
+                use_weight_norm=use_weight_norm, dtype=dtype))
+            setattr(self, f"norm_{i}", GroupNorm(1, channels))
+        self.skip = WNConv1d(channels, channels, 1,
+                             use_weight_norm=use_weight_norm, dtype=dtype)
+
+    def forward(self, x, lengths=None):
+        h = x
+        for i in range(self.layers):
+            h = F.leaky_relu(h, 0.2)
+            h = getattr(self, f"conv_{i}")(h)
+            h = getattr(self, f"norm_{i}")(h, lengths)
+        out = h + self.skip(x)
+        if lengths is not None:
+            out = out * length_mask(lengths, out.shape[1], out.dtype)
+        return out
+
+
+class GLUResSkip(nn.Module):
+    """Dilated conv -> + 1x1(cond) -> GN(2) -> tanh*sigmoid GLU -> 1x1
+    res+skip. Returns ``(x + res, skip)``; ``c`` is (B, 1, cond) or
+    (B, T, cond)."""
+
+    def __init__(self, channels, cond_channels, skip_channels, kernel_size=3,
+                 dilation=1, use_weight_norm=True, dtype=torch.float32):
+        super().__init__()
+        C = channels
+        self.channels = C
+        self.conv_in = WNConv1d(C, 2 * C, kernel_size, dilation=dilation,
+                                use_weight_norm=use_weight_norm, wn_dim="in",
+                                dtype=dtype)
+        if cond_channels and cond_channels > 0:
+            self.conv_cond = WNConv1d(cond_channels, 2 * C, 1,
+                                      use_weight_norm=use_weight_norm,
+                                      dtype=dtype)
+        else:
+            self.conv_cond = None
+        self.norm = GroupNorm(2, 2 * C, glu=True)
+        self.res_skip = WNConv1d(C, C + skip_channels, 1,
+                                 use_weight_norm=use_weight_norm, dtype=dtype)
+
+    def forward(self, x, c, lengths=None):
+        h = self.conv_in(x)
+        if self.conv_cond is not None:
+            h = h + self.conv_cond(c)
+        h = self.norm(h, lengths)
+        rs = self.res_skip(h)
+        if lengths is not None:
+            rs = rs * length_mask(lengths, rs.shape[1], rs.dtype)
+        C = self.channels
+        return x + rs[..., :C], rs[..., C:]
+
+
+class Conditions(nn.Module):
+    """Speaker/condition embedding table; ``normalize`` renormalizes rows
+    to unit L2 norm at lookup time."""
+
+    def __init__(self, num, dim, normalize=False, dtype=torch.float32):
+        super().__init__()
+        self.normalize, self.dtype = normalize, dtype
+        self.embedding = nn.Parameter(torch.empty(num, dim))
+
+    def init_(self, gen):
+        with torch.no_grad():
+            self.embedding.copy_(torch.randn(self.embedding.shape,
+                                             generator=gen))
+
+    def forward(self, idx):
+        table = self.embedding
+        if self.normalize:
+            table = table / torch.linalg.vector_norm(table, dim=1,
+                                                     keepdim=True)
+        return table[idx.long()].to(self.dtype)
+
+
+def init_parameters(module, seed):
+    """Seeded random init of every block in ``module`` (CPU generator, so
+    the same seed gives the same weights on any device)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for m in module.modules():
+        if hasattr(m, "init_"):
+            m.init_(gen)

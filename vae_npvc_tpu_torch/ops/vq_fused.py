@@ -1,0 +1,121 @@
+"""Fused vector-quantization pass: nearest code ids, gathered code rows and
+EMA cluster statistics.
+
+Replaces the TPU kernel ``vae_npvc_tpu/ops/vq_pallas.py`` ``vq_fused``
+(``_vq_kernel``): ``dist = ||e||^2 - 2 z.e^T`` in fp32, argmin with ties to
+the lowest index, ``z_q = emb[idx]``, and per-code ``batch_sum (K, D)`` /
+``batch_elem (K,)`` over the N rows.
+
+- :func:`vq_fused_plain` is the plain PyTorch version (the CPU path and the
+  kernel's oracle).
+- :func:`vq_fused` is the wrapper: a CPU tensor takes the plain version; a
+  CUDA tensor launches the kernel of ``csrc/vq.cu`` or raises.
+  ``vq_fused.launches`` counts kernel launches.
+
+``stats=False`` is the ids-only mode of inference (no z_q, no statistics);
+its fields come back as ``None``. On the H100 the kernel is bound by its
+fp32 products; the source note in ``csrc/vq.cu`` gives the design.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import _build
+
+
+class VqOut(NamedTuple):
+    idx: torch.Tensor                      # (N,) int32
+    z_q: Optional[torch.Tensor]            # (N, D) fp32
+    batch_sum: Optional[torch.Tensor]      # (K, D) fp32
+    batch_elem: Optional[torch.Tensor]     # (K,) fp32
+
+
+def nearest_code(z_flat, emb):
+    """(N, D), (K, D) fp32 -> (N,) int32 nearest-code ids (first on ties)."""
+    dots = z_flat @ emb.T
+    dist = (emb * emb).sum(dim=1)[None, :] - 2.0 * dots
+    return torch.argmin(dist, dim=1).to(torch.int32)
+
+
+def vq_fused_plain(z_flat, emb, *, stats=True):
+    idx = nearest_code(z_flat, emb)
+    if not stats:
+        return VqOut(idx, None, None, None)
+    K = emb.shape[0]
+    z_q = emb[idx.long()]
+    one_hot = torch.nn.functional.one_hot(idx.long(), K).to(z_flat.dtype)
+    return VqOut(idx, z_q, one_hot.T @ z_flat, one_hot.sum(dim=0))
+
+
+def _lib():
+    lib = _build.library("vq")
+    if not getattr(lib, "_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.vq_fused_launch.argtypes = [P, P, I, I, I, P, P, P, P, P, P, P,
+                                        P, I, P]
+        lib.vq_fused_launch.restype = I
+        lib.vq_scratch_argmin_words.argtypes = [I, I, I]
+        lib.vq_scratch_argmin_words.restype = I
+        lib.vq_scratch_sum_floats.argtypes = [I, I]
+        lib.vq_scratch_sum_floats.restype = I
+        lib.vq_scratch_cnt_floats.argtypes = [I]
+        lib.vq_scratch_cnt_floats.restype = I
+        lib.vq_max_dim.restype = I
+        lib._typed = True
+    return lib
+
+
+def vq_fused(z_flat, emb, *, stats=True):
+    """Fused VQ of ``z_flat`` (N, D) against ``emb`` (K, D), both fp32.
+
+    Returns :class:`VqOut`; with ``stats=False`` only ``idx`` is computed.
+    CPU tensors take :func:`vq_fused_plain`; CUDA tensors the kernel.
+    """
+    if not z_flat.is_cuda:
+        return vq_fused_plain(z_flat, emb, stats=stats)
+    if z_flat.dtype != torch.float32 or emb.dtype != torch.float32:
+        raise TypeError("vq_fused takes fp32 z and codebook, got "
+                        f"{z_flat.dtype} and {emb.dtype}")
+    N, D = z_flat.shape
+    K = emb.shape[0]
+    if emb.shape != (K, D) or not emb.is_cuda:
+        raise ValueError(f"codebook must be a CUDA ({K}, {D}) tensor")
+    if N < 1 or K < 1:
+        raise ValueError(f"empty input: N={N}, K={K}")
+    lib = _lib()
+    if D > lib.vq_max_dim():
+        raise ValueError(f"D={D} exceeds the kernel's {lib.vq_max_dim()}")
+    z_flat = z_flat.contiguous()
+    emb = emb.contiguous()
+    dev = z_flat.device
+    idx = torch.empty((N,), dtype=torch.int32, device=dev)
+    n_part = lib.vq_scratch_argmin_words(N, K, dev.index or 0)
+    pbest = torch.empty((n_part,), dtype=torch.float32, device=dev)
+    pidx = torch.empty((n_part,), dtype=torch.int32, device=dev)
+    z_q = bsum = belem = psum = pcnt = None
+    if stats:
+        z_q = torch.empty((N, D), dtype=torch.float32, device=dev)
+        bsum = torch.empty((K, D), dtype=torch.float32, device=dev)
+        belem = torch.empty((K,), dtype=torch.float32, device=dev)
+        psum = torch.empty((lib.vq_scratch_sum_floats(K, D),),
+                           dtype=torch.float32, device=dev)
+        pcnt = torch.empty((lib.vq_scratch_cnt_floats(K),),
+                           dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    code = lib.vq_fused_launch(
+        z_flat.data_ptr(), emb.data_ptr(), N, K, D, idx.data_ptr(), ptr(z_q),
+        pbest.data_ptr(), pidx.data_ptr(), ptr(psum), ptr(pcnt), ptr(bsum),
+        ptr(belem), dev.index or 0, _build.stream_of(z_flat))
+    _build.check(code, lib, "vq_error_string", "vq_fused")
+    vq_fused.launches += 1
+    return VqOut(idx, z_q, bsum, belem)
+
+
+vq_fused.launches = 0

@@ -1,0 +1,314 @@
+"""Online conversion engine: wav in -> converted wav out, batched.
+
+Counterpart of ``vae_npvc_tpu/serve/engine.py``. Per request:
+
+    resample -> log-mel fbank (device) -> CMVN (host)
+    -> Converter.infer (device, masked + bucketed, coalesced by _InferBatcher)
+    -> reverse CMVN -> Griffin-Lim (device) or mel only
+
+Every device stage runs on the engine's device or raises; there is no
+retry on another device. The JAX package's native vocoder (``jpwg``),
+exported bundles and data-parallel serving are not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..data import cmvn as cmvn_mod
+from ..data import features
+from ..infer.convert import Converter, _bucket
+
+logger = logging.getLogger("vae_npvc_tpu_torch.serve")
+
+# the vcc20 recipe's front-end settings (egs/vcc20/vae1/run.sh:13-18)
+DEFAULT_FEATURE = {
+    "fs": 24000, "n_fft": 1024, "n_shift": 256, "n_mels": 80,
+    "fmin": 80.0, "fmax": 7600.0, "win_length": None,
+}
+
+
+class _InferBatcher:
+    """Coalesces concurrent same-bucket requests into one batched call.
+
+    One worker thread drains a queue of ``(feats (T_pad, D), length,
+    target, Future)`` items, groups them by padded length, waits up to
+    ``window_ms`` for more (stopping at ``max_batch``), pads the batch axis
+    to the next power of two (first item repeated; rows are independent)
+    and runs ``runner(feats, targets, lengths)`` once per group. The single
+    worker also serializes device calls.
+    """
+
+    def __init__(self, runner, max_batch: int = 8, window_ms: float = 5.0):
+        self.runner = runner
+        self.max_batch = int(max_batch)
+        self.window_s = float(window_ms) / 1e3
+        self._q: queue.Queue = queue.Queue()
+        self.calls = 0                       # batched device calls
+        self.items = 0                       # requests served
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="vae-npvc-infer-batcher")
+        self._thread.start()
+
+    def submit(self, feats, length, target) -> Future:
+        fut: Future = Future()
+        self._q.put((feats, int(length), int(target), fut))
+        return fut
+
+    def close(self):
+        self._q.put(None)
+        self._thread.join(timeout=5)
+
+    def _take_group(self, first):
+        group, stash = [first], []
+        deadline = time.monotonic() + self.window_s
+        T_pad = first[0].shape[0]
+        while len(group) < self.max_batch:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                break
+            try:
+                item = self._q.get(timeout=timeout)
+            except queue.Empty:
+                break
+            if item is None:
+                stash.append(item)
+                break
+            if item[0].shape[0] == T_pad:
+                group.append(item)
+            else:
+                stash.append(item)
+        for item in stash:
+            self._q.put(item)
+        return group
+
+    def _loop(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            group = self._take_group(item)
+            B = len(group)
+            B_pad = min(1 << (B - 1).bit_length(), self.max_batch)
+            pad = [group[0]] * (B_pad - B)
+            feats = np.stack([g[0] for g in group] + [p[0] for p in pad])
+            lengths = np.asarray([g[1] for g in group]
+                                 + [p[1] for p in pad], np.int32)
+            tgts = np.asarray([g[2] for g in group]
+                              + [p[2] for p in pad], np.int32)
+            try:
+                out = self.runner(feats, tgts, lengths)
+            except Exception as e:  # noqa: BLE001 — deliver to every waiter
+                for g in group:
+                    g[3].set_exception(e)
+                continue
+            self.calls += 1
+            self.items += B
+            for b, g in enumerate(group):
+                g[3].set_result(np.asarray(out[b]))
+
+
+class ConversionEngine:
+    """Warm end-to-end voice-conversion engine for online serving.
+
+    ``config`` is the experiment dict or a YAML path, ``checkpoint`` the
+    JAX package's msgpack checkpoint, ``cmvn`` a Kaldi stats ark path or the
+    (2, D+1) stats array. ``vocoder`` is ``"gl"`` (Griffin-Lim) or
+    ``"none"`` (mel only). ``device`` defaults to the GPU and raises when
+    there is none.
+    """
+
+    def __init__(self, config, checkpoint, cmvn, *, bundle=None,
+                 feature=None, spk2spk_id=None, vocoder="gl", gl_iters=64,
+                 bucket_frames=None, max_batch=8, batch_window_ms=5.0,
+                 seed=0, data_parallel=False, device="cuda"):
+        if bundle is not None:
+            raise NotImplementedError("serving bundles are not ported yet "
+                                      "(ROADMAP Queue A, serving)")
+        if data_parallel:
+            raise NotImplementedError("data-parallel serving is not ported "
+                                      "yet (ROADMAP Queue A, parallel)")
+        if vocoder == "jpwg":
+            raise NotImplementedError("the jpwg vocoder is not ported yet "
+                                      "(ROADMAP Queue A, vocoder)")
+        if vocoder not in ("gl", "none"):
+            raise ValueError(f"unknown vocoder {vocoder!r}")
+        if config is None or checkpoint is None:
+            raise ValueError("pass config + checkpoint")
+        if not isinstance(config, dict):
+            import yaml
+
+            with open(config) as f:
+                config = yaml.safe_load(f)
+        self.config = config
+        self.converter = Converter(config, device=device)
+        self.device = self.converter.device
+        self.iteration = self.converter.load_checkpoint(checkpoint)
+        self._min_frames = self.converter.min_frames
+        self.feature = dict(DEFAULT_FEATURE, **(feature or {}))
+        self.fs = int(self.feature["fs"])
+        self.n_shift = int(self.feature["n_shift"])
+        self.stats = (cmvn if isinstance(cmvn, np.ndarray)
+                      else cmvn_mod.read_stats(cmvn))
+        self.spk_map = None
+        if spk2spk_id is not None:
+            if isinstance(spk2spk_id, (str, Path)):
+                from ..data import kaldi_io
+                spk2spk_id = {k: int(v) for k, v in kaldi_io.load_dict_data(
+                    spk2spk_id).items()}
+            self.spk_map = dict(spk2spk_id)
+        self.bucket_frames = int(bucket_frames
+                                 or config.get("decode_bucket_size", 256))
+        self.gl_iters = int(gl_iters)
+        self.seed = int(seed)
+        self.vocoder = vocoder
+        # speaker-id bound for resolve_target's range guard (an
+        # out-of-range id would index past the embedding table)
+        self._y_bound = int(config.get("y_num", 0))
+        if not self._y_bound and self.spk_map:
+            self._y_bound = max(int(v) for v in self.spk_map.values()) + 1
+        if not self._y_bound:
+            logger.warning("speaker-id range unknown (no y_num in config, no "
+                           "spk2spk_id map): out-of-range numeric target ids "
+                           "cannot be rejected")
+        self.batcher = _InferBatcher(self.converter.infer,
+                                     max_batch=max_batch,
+                                     window_ms=batch_window_ms)
+        self._stats_lock = threading.Lock()
+        self.n_requests = 0
+        self.latency_ms: list = []           # rolling (last 1024)
+
+    # ------------------------------------------------------------ helpers
+    def close(self):
+        self.batcher.close()
+
+    def speakers(self):
+        if self.spk_map is not None:
+            return dict(self.spk_map)
+        return {str(i): i for i in range(int(self.config.get("y_num", 0)))}
+
+    def resolve_target(self, target):
+        if self.spk_map is not None and str(target) in self.spk_map:
+            return self.spk_map[str(target)]
+        try:
+            idx = int(target)
+        except (TypeError, ValueError):
+            raise KeyError(
+                f"unknown target speaker {target!r}; known: "
+                f"{sorted(self.speakers())}") from None
+        if self._y_bound and not 0 <= idx < self._y_bound:
+            raise KeyError(f"target speaker id {idx} out of range "
+                           f"[0, {self._y_bound})")
+        return idx
+
+    def _front_kw(self):
+        return {k: v for k, v in self.feature.items() if k != "fs"}
+
+    def _mel_batch(self, xp):
+        """(B, N) host waveform -> (B, T, M) host log-mel, on the device."""
+        with torch.inference_mode():
+            x = torch.as_tensor(xp, device=self.device)
+            return features.logmelspectrogram(
+                x, fs=self.fs, **self._front_kw()).cpu().numpy()
+
+    def _pick_pad(self, T_true):
+        return _bucket(max(T_true, self._min_frames), self.bucket_frames)
+
+    def _infer_mel(self, feats, T_true, tgt):
+        out = self.batcher.submit(feats, T_true, tgt).result()
+        T_out = min(T_true, out.shape[0])
+        return cmvn_mod.apply(out[:T_out], self.stats, reverse=True)
+
+    def _count_request(self, t0):
+        with self._stats_lock:
+            self.n_requests += 1
+            self.latency_ms.append((time.monotonic() - t0) * 1e3)
+            if len(self.latency_ms) > 1024:
+                del self.latency_ms[:512]
+
+    # ------------------------------------------------------------ pipeline
+    def convert(self, wav, sr, target, *, return_mel=False):
+        """Convert a waveform to ``target``'s voice. Returns ``(wav_out,
+        fs)``, or ``(mel_out (T, M), fs)`` with ``return_mel``."""
+        t0 = time.monotonic()
+        tgt = self.resolve_target(target)
+        x = features.resample(np.asarray(wav, np.float32).ravel(), int(sr),
+                              self.fs)
+        if x.size == 0:
+            raise ValueError("empty waveform")
+        T_true = features.num_frames(x.size, self.n_shift)
+        T_pad = self._pick_pad(T_true)
+        # largest sample count giving exactly T_pad frames (1 + n // shift)
+        xp = np.zeros((1, T_pad * self.n_shift - 1), np.float32)
+        xp[0, :x.size] = x
+        mel = self._mel_batch(xp)[0]                      # (T_pad, M)
+        feats = np.zeros_like(mel)
+        feats[:T_true] = cmvn_mod.apply(mel[:T_true], self.stats)
+        mel_out = self._infer_mel(feats, T_true, tgt)
+        if return_mel or self.vocoder == "none":
+            result = mel_out.astype(np.float32)
+        else:
+            result = self._vocode(mel_out, T_pad)
+        self._count_request(t0)
+        return result, self.fs
+
+    def _vocode(self, mel_out, T_pad):
+        """Griffin-Lim on the bucket shape (valid mel in a log-mel-silence
+        canvas), cut to the true length afterwards."""
+        T_out = mel_out.shape[0]
+        canvas = np.full((T_pad, mel_out.shape[1]), np.log10(features.EPS),
+                         np.float32)
+        canvas[:T_out] = mel_out
+        with torch.inference_mode():
+            wav = features.griffin_lim(
+                torch.as_tensor(canvas[None], device=self.device),
+                fs=self.fs, **self._front_kw(), n_iter=self.gl_iters,
+                seed=self.seed)[0].cpu().numpy()
+        return wav[:T_out * self.n_shift].astype(np.float32)
+
+    def warmup(self, n_buckets=1):
+        """Run the first ``n_buckets`` bucket shapes end to end, then the
+        coalesced batch shapes of the first bucket."""
+        tgt = next(iter(self.speakers().values()), 0)
+        pads = [i * self.bucket_frames for i in range(1, n_buckets + 1)]
+        for T_pad in pads:
+            n = (T_pad - 1) * self.n_shift
+            self.convert(np.zeros((max(n, self.n_shift),), np.float32),
+                         self.fs, tgt)
+        if pads:
+            T_pad, D = pads[0], int(self.feature["n_mels"])
+            B = 1
+            while B < self.batcher.max_batch:
+                B = min(B * 2, self.batcher.max_batch)
+                self.batcher.runner(np.zeros((B, T_pad, D), np.float32),
+                                    np.full((B,), tgt, np.int32),
+                                    np.full((B,), T_pad, np.int32))
+        with self._stats_lock:       # warmup doesn't count as traffic
+            self.n_requests = 0
+            self.latency_ms.clear()
+        logger.info("warmup done: %d bucket(s)", len(pads))
+
+    def stats_snapshot(self):
+        with self._stats_lock:
+            lat = np.asarray(self.latency_ms, np.float64)
+            return {
+                "requests": self.n_requests,
+                "infer_calls": self.batcher.calls,
+                "infer_items": self.batcher.items,
+                "mean_batch": (self.batcher.items / self.batcher.calls
+                               if self.batcher.calls else 0.0),
+                "latency_ms_p50": float(np.percentile(lat, 50)) if lat.size
+                else None,
+                "latency_ms_p99": float(np.percentile(lat, 99)) if lat.size
+                else None,
+                "iteration": self.iteration,
+                "vocoder": self.vocoder,
+            }
