@@ -10,16 +10,23 @@ golden fixture, then serves conversion requests over HTTP with the flagship
 flat EMA VQ-VAE (``egs/vcc20/vae1/conf/train_vqvae.yaml`` widths, bf16,
 seeded random weights), checks the kernels ran on that path, and holds the
 served weights in fp32 at a full 512-frame batch on the card against the
-same weights on the CPU. Each phase
-prints one JSON line; any failure exits non-zero. The last lines are the
-kernel summary, the card's name and power limit as ``nvidia-smi`` gives
-them, and ``{"ok": true, "device": {...}}``.
+same weights on the CPU. Then the training path: every parameter gradient
+of the full-width model in fp32 on the card against the CPU
+(``grad_fp32``), the port's ``Trainer`` against the committed JAX training
+fixture (``train_golden``), and some twenty optimizer steps of the recipe's
+model at its step shape (B = 128, T = 256, bf16) through ``Trainer`` on a
+synthetic corpus staged on the device (``train``), with the launch counts
+of the three kernels read per step. Each phase prints one JSON line; any
+failure exits non-zero. The last lines are the kernel summary, the card's
+name and power limit as ``nvidia-smi`` gives them, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -63,6 +70,21 @@ FP32_OPS_PER_S = 67e12
 L2_COLD_BYTES = 100 * 2 ** 20
 
 K2_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 2 ** -6)}
+# the GroupNorm backward against its plain version, relative to each
+# output's peak: fp32 differs by summation order only (dx 2e-5; the
+# parameter sums run over up to 32,768 frames: 1e-4); a bf16 dx may also
+# land one bf16 ulp (2^-7 relative) from the plain version's
+K3_TOL_DX, K3_TOL_PARAM, K3_TOL_BF16_ULP = 2e-5, 1e-4, 2 ** -7
+
+# training keys of egs/vcc20/vae1/conf/train_vqvae.yaml
+TRAIN = {
+    "trainer_type": "vae_npvc.trainer.basic", "seed": 777,
+    "batch_size": 128, "crop_length": 256, "optim_type": "Adam",
+    "learning_rate": 0.001, "max_grad_norm": 10, "lr_scheduler": "StepLR",
+    "lr_param": {"step_size": 100000, "gamma": 0.5},
+    "steps_per_call": 8, "device_resident": True,
+}
+TRAIN_STEPS = 20
 
 
 def emit(obj):
@@ -107,22 +129,38 @@ def timed(torch, fn, arg_sets, iters=50, warmup=3):
 
 def l2_cold(args, iters=53):
     """Copies of the tensors in ``args``, enough that more than
-    ``L2_COLD_BYTES`` pass between two uses of one copy: each call of
-    :func:`timed` then reads its inputs from HBM, as the bound assumes."""
+    ``L2_COLD_BYTES`` pass between two uses of one copy (at least two
+    copies): each call of :func:`timed` then reads its inputs from HBM, as
+    the bound assumes."""
     nbytes = sum(a.numel() * a.element_size() for a in args
                  if hasattr(a, "numel"))
-    n = min(iters, -(-L2_COLD_BYTES // nbytes))
+    n = min(iters, max(2, -(-L2_COLD_BYTES // nbytes)))
     return [tuple(a.clone() if hasattr(a, "clone") else a for a in args)
             for _ in range(n)]
 
 
-def vq_bound_ms(N, K, D):
-    """Least time for the ids-only VQ: max(bytes, fp32 operations)."""
+def _bound(byt, ops):
+    t_bytes, t_ops = byt / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, (
+        "bytes" if t_bytes > t_ops else "operations")
+
+
+def vq_bound_ms(N, K, D, stats=False):
+    """Least time for the fused VQ: max(bytes, fp32 operations). The ids
+    mode reads z and the codebook and writes the ids; the statistics mode
+    also writes z_q, the per-code sums and the counts."""
     byt = 4 * (N * D + K * D + N)
-    ops = 2 * N * K * D
-    return max(byt / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3, (
-        "bytes" if byt / HBM_BYTES_PER_S > ops / FP32_OPS_PER_S
-        else "operations")
+    if stats:
+        byt += 4 * (N * D + K * D + K)
+    return _bound(byt, 2 * N * K * D)
+
+
+def gnb_bound_ms(B, T, C, itemsize, glu):
+    """Least time for the GroupNorm(+GLU) backward: one read of x and of
+    the cotangent, one write of dx, ~20 fp32 operations per element."""
+    n = B * T * C
+    byt = 2 * n * itemsize + (n // 2 if glu else n) * itemsize + 16 * C
+    return _bound(byt, 20 * n)
 
 
 def gn_bound_ms(B, T, C, itemsize, glu):
@@ -131,9 +169,7 @@ def gn_bound_ms(B, T, C, itemsize, glu):
     byt = B * T * C * itemsize + B * T * (C // 2 if glu else C) * itemsize \
         + 8 * C + 4 * B
     ops = 8 * B * T * C + (4 * B * T * C // 2 if glu else 0)
-    return max(byt / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3, (
-        "bytes" if byt / HBM_BYTES_PER_S > ops / FP32_OPS_PER_S
-        else "operations")
+    return _bound(byt, ops)
 
 
 # ------------------------------------------------------------------ phases
@@ -201,8 +237,7 @@ def _vq_case(torch, N, stats, rng):
     case["plain_ms"], case["plain_ms_events"] = timed(
         torch, lambda z, e: vq_fused_plain(z, e, stats=stats), [(z, emb)])
     case["library_ms"] = None
-    if not stats:
-        case["bound_ms"], case["bound_by"] = vq_bound_ms(N, K, D)
+    case["bound_ms"], case["bound_by"] = vq_bound_ms(N, K, D, stats)
     return case
 
 
@@ -261,6 +296,92 @@ def _gn_case(torch, B, T, C, G, glu, masked, dtype, rng):
     return case
 
 
+def _gnb_case(torch, B, T, C, G, glu, masked, dtype, rng, iters=50):
+    """The GroupNorm(+GLU) backward kernel against its plain version;
+    ``masked`` as in :func:`_gn_case`. The cotangent is non-contiguous, as
+    a convolution's backward hands it over."""
+    import torch.nn.functional as F
+
+    from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm_backward,
+                                                  group_norm_backward_plain)
+
+    dev = torch.device("cuda")
+    Cout = C // 2 if glu else C
+    x = torch.tensor(rng.normal(0.5, 2.0, size=(B, T, C)), device=dev) \
+        .to(dtype)
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                        device=dev)
+    g = torch.tensor(rng.normal(size=(B, Cout, T)), device=dev).to(dtype) \
+        .transpose(1, 2)
+    lengths = None
+    if masked is True:
+        masked = np.linspace(T, 1, B).round().astype(np.int32).tolist()
+    if masked:
+        lengths = torch.tensor(masked, dtype=torch.int32, device=dev)
+    got = fused_group_norm_backward(x, scale, bias, g, G, lengths=lengths,
+                                    glu=glu)
+    again = fused_group_norm_backward(x, scale, bias, g, G, lengths=lengths,
+                                      glu=glu)
+    ref = group_norm_backward_plain(x, scale, bias, g, G, lengths=lengths,
+                                    glu=glu)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    what = (f"fused_group_norm_backward {B}x{T}x{C} G={G} glu={glu} "
+            f"masked={masked} {name}")
+    errs = {}
+    for key, a, b in zip(("dx", "dscale", "dbias"), got, ref):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{what}: {key} shape/dtype differ from the plain version")
+        a, b = a.float(), b.float()
+        peak = float(b.abs().max()) or 1.0
+        if key == "dx":
+            tol = K3_TOL_DX * peak
+            if dtype == torch.bfloat16:
+                tol = 1e-4 * peak + K3_TOL_BF16_ULP * b.abs()
+        else:
+            tol = K3_TOL_PARAM * peak
+        err = (a - b).abs()
+        check(bool((err <= tol).all()),
+              f"{what}: {key} max err {float(err.max())} (peak {peak})")
+        errs[key] = float(err.max()) / peak
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two runs differ in their bits")
+    if lengths is not None:
+        pad = torch.arange(T, device=dev)[None] >= lengths[:, None]
+        check(bool((got[0][pad] == 0).all()), f"{what}: dx beyond lengths")
+    case = {"B": B, "T": T, "C": C, "G": G, "glu": glu, "masked": masked,
+            "dtype": name, "max_abs_err": float((got[0].float()
+                                                 - ref[0].float()).abs().max()),
+            "err_over_peak": errs, "bit_equal_runs": True}
+    args = (x, scale, bias, g, lengths)
+
+    def kernel(x, s, b, g, n):
+        return fused_group_norm_backward(x, s, b, g, G, lengths=n, glu=glu)
+
+    case["ms"], case["ms_events"] = timed(torch, kernel, [args], iters)
+    case["ms_l2_cold"], _ = timed(torch, kernel, l2_cold(args), iters)
+    case["plain_ms"], case["plain_ms_events"] = timed(
+        torch, lambda x, s, b, g, n: group_norm_backward_plain(
+            x, s, b, g, G, lengths=n, glu=glu), [args], iters)
+    case["library_ms"] = None
+    if not masked and not glu:
+        # autograd's backward of F.group_norm on the same values
+        xt = x.transpose(1, 2).contiguous().requires_grad_(True)
+        s = scale.to(dtype).requires_grad_(True)
+        b = bias.to(dtype).requires_grad_(True)
+        y = F.group_norm(xt, G, s, b, 1e-5)
+        gt = g.transpose(1, 2).contiguous()
+        case["library_ms"], case["library_ms_events"] = timed(
+            torch, lambda: torch.autograd.grad(y, (xt, s, b), gt,
+                                               retain_graph=True), [()],
+            iters)
+    case["bound_ms"], case["bound_by"] = gnb_bound_ms(
+        B, T, C, x.element_size(), glu)
+    return case
+
+
 def phase_kernels(torch):
     rng = np.random.default_rng(0)
     # ids mode at the serving path's row counts: B=8 x bucket 256, B=8 x
@@ -282,8 +403,26 @@ def phase_kernels(torch):
                        rng))
     gn.append(_gn_case(torch, 1, 512, 512, 1, False, [397], torch.bfloat16,
                        rng))
-    emit({"phase": "kernels", "vq_fused": vq, "fused_group_norm": gn})
-    return vq, gn
+    # the training step's shapes: B = 128, T = 256, unmasked
+    gn.append(_gn_case(torch, 128, 256, 512, 1, False, False, torch.bfloat16,
+                       rng))
+    gn.append(_gn_case(torch, 128, 256, 1024, 2, True, False, torch.bfloat16,
+                       rng))
+    gnb = []
+    for dtype in (torch.float32, torch.bfloat16):
+        gnb.append(_gnb_case(torch, 128, 256, 512, 1, False, False, dtype,
+                             rng, iters=20))
+        gnb.append(_gnb_case(torch, 128, 256, 1024, 2, True, False, dtype,
+                             rng, iters=20))
+        gnb.append(_gnb_case(torch, 8, 512, 1024, 2, True,
+                             [512, 300, 511, 257, 1, 450, 0, 512], dtype,
+                             rng))
+        gnb.append(_gnb_case(torch, 1, 512, 512, 1, False, [397], dtype, rng))
+    gnb.append(_gnb_case(torch, 3, 77, 96, 3, False, [77, 5, 40],
+                         torch.float32, rng))       # ragged T, odd widths
+    emit({"phase": "kernels", "vq_fused": vq, "fused_group_norm": gn,
+          "fused_group_norm_backward": gnb})
+    return vq, gn, gnb
 
 
 def phase_golden(torch):
@@ -435,10 +574,16 @@ def phase_serve(torch):
 
 
 def _kernel_class(name):
+    """Class of a device kernel by its name. The statistics kernel
+    ``gn_partial`` is shared by the GroupNorm forward and backward and
+    counts as the forward's here; ``device_ms_by_operator`` splits the two
+    by the autograd Function that launched them."""
     n = name.lower()
-    for key, cls in (("::gn_", "fused_group_norm"), ("::vq_", "vq_fused"),
+    for key, cls in (("::gn_bwd", "fused_group_norm_backward"),
+                     ("::gn_", "fused_group_norm"), ("::vq_", "vq_fused"),
                      ("fft", "fft"), ("memcpy", "memcpy"),
-                     ("fprop", "conv"), ("conv", "conv"),
+                     ("fprop", "conv"), ("dgrad", "conv"), ("wgrad", "conv"),
+                     ("conv", "conv"),
                      ("nchwtonhwc", "layout"), ("nhwctonchw", "layout"),
                      ("gemm", "matmul"), ("cutlass", "matmul"),
                      ("col2im", "overlap_add"), ("reduce_kernel", "reduce"),
@@ -470,6 +615,10 @@ def _profiled(torch, fn):
         by_class[c] = by_class.get(c, 0.0) + ms
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
     busy = sum(by_class.values())
+    # device time by the PyTorch operator that launched the kernels
+    by_op = {a.key: a.self_device_time_total / 1e3
+             for a in prof.key_averages() if a.self_device_time_total > 0
+             and a.device_type != torch.autograd.DeviceType.CUDA}
 
     def top(d, k):
         return dict(sorted(d.items(), key=lambda kv: -kv[1])[:k])
@@ -477,7 +626,8 @@ def _profiled(torch, fn):
     return {"wall_ms": wall_ms, "device_ms": busy, "device_events": n,
             "idle_share": (1 - busy / wall_ms) if n else None,
             "device_ms_by_class": top(by_class, 10),
-            "top_kernels_ms": top(by_name, 8)}
+            "top_kernels_ms": top(by_name, 8),
+            "device_ms_by_operator": top(by_op, 12)}
 
 
 def phase_profile(torch, engine, wav):
@@ -554,6 +704,281 @@ def phase_wide_fp32(torch, state):
           f"wide_fp32: mel differs from the CPU by {err} (peak {peak})")
 
 
+GRAD_TOL = 2e-3   # max |grad_gpu - grad_cpu| over each gradient's peak
+
+
+def _set_codebook(torch, model, seed):
+    """A seeded normal codebook at the scale of the encoder's output (a
+    fresh EMA codebook is all zeros and would be drawn from the batch)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        z = model.encoder(torch.tensor(
+            rng.normal(size=(2, 64, 80)), dtype=torch.float32,
+            device=model.quantizer.emb.device).to(model.dtype))
+        q = model.quantizer
+        emb = torch.tensor(rng.normal(size=q.emb.shape), dtype=torch.float32,
+                           device=q.emb.device) * z.float().std()
+        q.set_state((torch.ones_like(q.initted), emb, emb,
+                     torch.ones_like(q.emb_elem)))
+
+
+def phase_grad_fp32(torch):
+    """The full-width model in fp32 at B = 4, T = 256: the training loss and
+    every parameter gradient on the card (fused VQ in its statistics mode,
+    GroupNorm forward and backward kernels) against the same weights on
+    the CPU (plain versions), within ``GRAD_TOL`` of each gradient's peak."""
+    from vae_npvc_tpu_torch.models import build_model
+    from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
+                                                  fused_group_norm_backward)
+    from vae_npvc_tpu_torch.ops.vq_fused import vq_fused
+
+    cfg = dict(FLAGSHIP, compute_dtype="float32")
+    rng = np.random.default_rng(3)
+    B, T, D = 4, 256, cfg["encoder"]["in_channels"][0]
+    t = np.linspace(0, 1, T)[None, :, None]
+    feats = (np.sin(2 * np.pi * (rng.uniform(1, 4, (B, 1, D)) * t
+                                 + rng.uniform(0, 1, (B, 1, D))))
+             + 0.3 * rng.normal(size=(B, T, D))).astype(np.float32)
+    spks = np.array([0, 5, 116, 33], np.int64)
+    cpu = build_model(cfg, device="cpu").init_random(0)
+    _set_codebook(torch, cpu, 0)
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    counts0 = (vq_fused.launches, fused_group_norm.launches,
+               fused_group_norm_backward.launches)
+    runs = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        gen = torch.Generator(device=dev).manual_seed(0)
+        _, loss, detail = model(torch.as_tensor(feats, device=dev),
+                                torch.as_tensor(spks, device=dev), True,
+                                gen=gen)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        with torch.no_grad():
+            ids = model.encode(torch.as_tensor(feats, device=dev)).cpu()
+        runs[name] = (float(loss.detach()), [g.cpu() for g in grads], ids,
+                      {k: float(v.detach()) for k, v in detail.items()})
+    launched = (vq_fused.launches - counts0[0],
+                fused_group_norm.launches - counts0[1],
+                fused_group_norm_backward.launches - counts0[2])
+    (loss_d, grads_d, ids_d, det_d), (loss_c, grads_c, ids_c, det_c) = \
+        runs["cuda"], runs["cpu"]
+    worst, worst_name = 0.0, None
+    for (name, _), a, b in zip(cpu.named_parameters(), grads_d, grads_c):
+        check(bool(torch.isfinite(a).all()), f"grad_fp32: {name} not finite")
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+        if rel > worst:
+            worst, worst_name = rel, name
+    emit({"phase": "grad_fp32", "B": B, "T": T, "parameters": len(grads_c),
+          "loss_gpu": loss_d, "loss_cpu": loss_c,
+          "ids_differ": int((ids_d != ids_c).sum()),
+          "worst_grad_err_over_peak": worst, "worst_grad": worst_name,
+          "tolerance": GRAD_TOL, "used_curr_gpu": det_d["used_curr"],
+          "used_curr_cpu": det_c["used_curr"],
+          "launches_vq_gn_gnbwd": list(launched)})
+    # one training forward (statistics mode, 20 norms, 20 backward) + one
+    # encode (ids mode, the encoder's 10 norms)
+    check(launched == (2, 30, 20), f"grad_fp32: launches {launched}")
+    check(abs(loss_d - loss_c) <= 1e-4 * abs(loss_c),
+          f"grad_fp32: loss {loss_d} on the card, {loss_c} on the CPU")
+    check(worst <= GRAD_TOL,
+          f"grad_fp32: gradient of {worst_name} differs by {worst} of its "
+          "peak")
+
+
+GOLDEN_LOSS_RTOL = 1e-4           # per-step Total, VQ loss, X like, grad_norm
+GOLDEN_STATE_TOL = (2e-5, 1e-3)   # final state: atol, rtol per leaf
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def phase_train_golden(torch):
+    """The port's ``Trainer`` on the card, from the committed JAX checkpoint
+    over the fixture's batches: JAX's per-step losses and gradient norm,
+    then its final parameters, EMA state and Adam moments (fp32; every code
+    stays alive, so no step uses a random draw)."""
+    from vae_npvc_tpu_torch.train import build_trainer
+    from vae_npvc_tpu_torch.utils import msgpack_io
+
+    cfg = json.loads((FIXTURES / "train_golden_config.json").read_text())
+    g = np.load(FIXTURES / "train_golden.npz")
+    steps = len(g["detail/Total"])
+    tr = build_trainer(cfg, device="cuda")
+    tr.load_checkpoint(FIXTURES / "train_golden.msgpack")
+    worst = {}
+    for i in range(steps):
+        detail = tr.train_step((g[f"feats_{i}"], g[f"spks_{i}"]))
+        for k in ("Total", "VQ loss", "X like", "grad_norm"):
+            want = float(g["detail/" + k][i])
+            rel = abs(float(detail[k]) - want) / max(abs(want), 1e-12)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            check(rel <= GOLDEN_LOSS_RTOL,
+                  f"train_golden: step {i + 1} {k} {float(detail[k])}, JAX "
+                  f"{want}")
+        check(float(detail["usage"]) == cfg["z_num"]
+              and float(detail["skipped_nonfinite"]) == 0.0,
+              f"train_golden: step {i + 1} usage/skip differ from JAX")
+    with tempfile.TemporaryDirectory() as tmp:
+        tr.save_checkpoint(Path(tmp) / "final")
+        got = _leaves(msgpack_io.msgpack_restore(
+            (Path(tmp) / "final").read_bytes()))
+    want = _leaves(msgpack_io.msgpack_restore(
+        (FIXTURES / "train_golden_final.msgpack").read_bytes()))
+    check(set(got) == set(want), "train_golden: checkpoint trees differ")
+    atol, rtol = GOLDEN_STATE_TOL
+    state_err = 0.0
+    for k in want:
+        a, b = got[k].astype(np.float64), want[k].astype(np.float64)
+        check(a.shape == b.shape, f"train_golden: {k} shape {a.shape}")
+        err = np.abs(a - b)
+        state_err = max(state_err, float(err.max()) if err.size else 0.0)
+        check(bool(np.all(err <= atol + rtol * np.abs(b))),
+              f"train_golden: {k} differs from JAX by {float(err.max())}")
+    emit({"phase": "train_golden", "steps": steps,
+          "worst_rel_err": worst, "loss_rtol": GOLDEN_LOSS_RTOL,
+          "state_leaves": len(want), "state_max_abs_err": state_err,
+          "state_atol_rtol": list(GOLDEN_STATE_TOL)})
+
+
+def _synthetic_corpus(root, n_utts, seed):
+    """A Kaldi data dir of smooth mel-like utterances (a few slow
+    sinusoids per band on a speaker-dependent offset, plus noise), written
+    with the port's ark writer."""
+    from vae_npvc_tpu_torch.data import kaldi_io
+
+    rng = np.random.default_rng(seed)
+    D = FLAGSHIP["encoder"]["in_channels"][0]
+    band = np.linspace(0, 1, D)[None, :]
+    spk_offset = rng.normal(0, 0.5, size=(FLAGSHIP["y_num"], D))
+    lens, spks = [], []
+    with kaldi_io.ArkWriter(root / "feats.ark", root / "feats.scp") as w:
+        for i in range(n_utts):
+            n = int(rng.integers(280, 520))
+            spk = int(rng.integers(0, FLAGSHIP["y_num"]))
+            t = np.arange(n)[:, None] / 100.0
+            mel = sum(rng.uniform(0.3, 1.0)
+                      * np.sin(2 * np.pi * (rng.uniform(0.5, 4.0) * t
+                                            + rng.uniform(0.5, 3.0) * band
+                                            + rng.uniform()))
+                      for _ in range(4))
+            mel = mel + spk_offset[spk] + 0.1 * rng.normal(size=(n, D))
+            w.write(f"utt{i:04d}", mel.astype(np.float32))
+            lens.append(n)
+            spks.append(spk)
+    (root / "utt2num_frames").write_text(
+        "".join(f"utt{i:04d} {n}\n" for i, n in enumerate(lens)))
+    (root / "utt2spk_id").write_text(
+        "".join(f"utt{i:04d} {s}\n" for i, s in enumerate(spks)))
+
+
+def phase_train(torch):
+    """The recipe's model at full width, bf16, B = 128, T = 256 through
+    ``Trainer`` on a synthetic corpus staged on the device: the lazy
+    codebook init and ``TRAIN_STEPS`` optimizer steps in the recipe's
+    chunks of 8, with the kernels' launch counts, a save/load round trip
+    and one profiled step. Returns the launch counts of the run."""
+    from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
+                                                 index_iterator)
+    from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
+                                                  fused_group_norm_backward)
+    from vae_npvc_tpu_torch.ops.vq_fused import vq_fused
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    cfg = dict(FLAGSHIP, **TRAIN)
+    B, T = cfg["batch_size"], cfg["crop_length"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _synthetic_corpus(root, 256, seed=4)
+        dataset = UttMelSpkDataset(root, cfg)
+        tr = build_trainer(cfg, device="cuda")
+        tr.init_state()
+        staged = tr.stage_dataset(dataset, B)
+        pairs = index_iterator(dataset, B, shuffle=True, drop_last=True,
+                               seed=cfg["seed"])
+
+        def chunk(k):
+            got = [next(pairs) for _ in range(k)]
+            return (np.stack([p[0] for p in got]),
+                    np.stack([p[1] for p in got]))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        vq_fused.launches = 0
+        fused_group_norm.launches = 0
+        fused_group_norm_backward.launches = 0
+        details, times, done = [], [], 0
+        while done < TRAIN_STEPS:
+            k = min(cfg["steps_per_call"], TRAIN_STEPS - done)
+            idx, starts = chunk(k)
+            t0 = time.perf_counter()
+            details.append(tr.train_steps_indices(idx, starts))
+            torch.cuda.synchronize()
+            times.append(((time.perf_counter() - t0) * 1e3, k))
+            done += k
+        launches = {"vq_fused": vq_fused.launches,
+                    "fused_group_norm": fused_group_norm.launches,
+                    "fused_group_norm_backward":
+                        fused_group_norm_backward.launches}
+        peak_bytes = torch.cuda.max_memory_allocated()
+        detail = {k: torch.cat([d[k] for d in details]).float().cpu().numpy()
+                  for k in details[0]}
+        check(tr.iteration == TRAIN_STEPS, f"train: {tr.iteration} steps")
+        for k, v in detail.items():
+            check(bool(np.all(np.isfinite(v))), f"train: {k} not finite: {v}")
+        check(float(detail["skipped_nonfinite"].sum()) == 0.0,
+              f"train: steps skipped: {detail['skipped_nonfinite']}")
+        first, last = detail["X like"][:4].mean(), detail["X like"][-4:].mean()
+        check(last < first, f"train: X like {first} -> {last} did not fall")
+        per_step = {"vq_fused": 1, "fused_group_norm": 20,
+                    "fused_group_norm_backward": 20}
+        check(launches == {k: v * TRAIN_STEPS for k, v in per_step.items()},
+              f"train: launches {launches} over {TRAIN_STEPS} steps")
+
+        # save -> load into a second trainer -> the same next step
+        ckpt = root / f"iter.{TRAIN_STEPS}"
+        tr.save_checkpoint(ckpt)
+        other = build_trainer(cfg, device="cuda")
+        check(other.load_checkpoint(ckpt) == TRAIN_STEPS, "train: iteration")
+        other.stage_dataset(dataset, B)
+        idx, starts = chunk(1)
+        a = float(tr.train_steps_indices(idx, starts)["Total"][0])
+        b = float(other.train_steps_indices(idx, starts)["Total"][0])
+        check(math.isfinite(a) and abs(a - b) <= 1e-6 * abs(a),
+              f"train: next step {a}, after save/load {b}")
+        del other
+        idx, starts = chunk(1)
+        profile = _profiled(
+            torch, lambda: tr.train_steps_indices(idx, starts))
+    # steady state: the chunks after the first (which holds the lazy init
+    # and cuDNN's algorithm selection)
+    steady_ms = sum(ms for ms, _ in times[1:]) / sum(k for _, k in times[1:])
+    emit({"phase": "train", "steps": TRAIN_STEPS, "B": B, "T": T,
+          "dtype": cfg["compute_dtype"], "utterances": len(dataset),
+          "staged_bytes": staged, "parameters": int(tr.flat.numel()),
+          "chunk_ms": [round(ms, 3) for ms, _ in times],
+          "ms_per_step": steady_ms,
+          "frames_per_s": B * T / steady_ms * 1e3,
+          "peak_memory_bytes": peak_bytes,
+          "x_like_first4": float(first), "x_like_last4": float(last),
+          "total": [float(v) for v in detail["Total"]],
+          "grad_norm_first_last": [float(detail["grad_norm"][0]),
+                                   float(detail["grad_norm"][-1])],
+          "usage_first_last": [float(detail["usage"][0]),
+                               float(detail["usage"][-1])],
+          "launches": launches, "launches_per_step": per_step,
+          "next_step_total": a, "next_step_total_after_load": b,
+          "one_step_profile": profile})
+    return launches
+
+
 def main():
     import torch
 
@@ -567,13 +992,26 @@ def main():
 
     resolve_device("cuda")
     smi = phase_build(torch)
-    vq, gn = phase_kernels(torch)
+    vq, gn, gnb = phase_kernels(torch)
     phase_golden(torch)
     launches = phase_serve(torch)
+    phase_grad_fp32(torch)
+    phase_train_golden(torch)
+    train_launches = phase_train(torch)
 
     vq_main = vq[0]
     gn_main = next(c for c in gn if (c["T"], c["C"]) == (256, 1024)
                    and c["masked"] and c["dtype"] == "bfloat16")
+    # the training step's shapes: K1 in its statistics mode at N = B*T,
+    # K2 and K3 at the decoder's (128, 256, 1024) GLU norm in bf16
+    vq_train = next(c for c in vq if c["N"] == 32768)
+    gn_train, gnb_train = (
+        next(c for c in cases if (c["B"], c["C"]) == (128, 1024)
+             and c["dtype"] == "bfloat16") for cases in (gn, gnb))
+    # the encoder's (128, 256, 512) plain norm in bf16, the one shape with a
+    # library call (autograd's backward of F.group_norm)
+    gnb_enc = next(c for c in gnb if (c["B"], c["C"]) == (128, 512)
+                   and c["dtype"] == "bfloat16")
     emit({"kernels": [
         {"name": "vq_fused", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/vq.cu",
@@ -582,7 +1020,11 @@ def main():
          "max_abs_err": vq_main["max_abs_err"], "ms": vq_main["ms"],
          "ms_l2_cold": vq_main["ms_l2_cold"],
          "plain_ms": vq_main["plain_ms"], "bound_ms": vq_main["bound_ms"],
-         "bound_by": vq_main["bound_by"], "library_ms": None},
+         "bound_by": vq_main["bound_by"], "library_ms": None,
+         "launches_train": train_launches["vq_fused"],
+         "train_shape": {k: vq_train[k] for k in (
+             "N", "mode", "ms", "ms_l2_cold", "plain_ms", "bound_ms",
+             "bound_by", "sum_max_abs_err")}},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",
@@ -590,7 +1032,23 @@ def main():
          "max_abs_err": gn_main["max_abs_err"], "ms": gn_main["ms"],
          "ms_l2_cold": gn_main["ms_l2_cold"],
          "plain_ms": gn_main["plain_ms"], "bound_ms": gn_main["bound_ms"],
-         "bound_by": gn_main["bound_by"], "library_ms": None},
+         "bound_by": gn_main["bound_by"], "library_ms": None,
+         "launches_train": train_launches["fused_group_norm"],
+         "train_shape": {k: gn_train[k] for k in (
+             "B", "T", "C", "ms", "ms_l2_cold", "plain_ms", "bound_ms",
+             "bound_by", "max_abs_err")}},
+        {"name": "fused_group_norm_backward", "route": "cuda",
+         "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
+         "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",
+         "launches": train_launches["fused_group_norm_backward"],
+         "max_abs_err": gnb_train["max_abs_err"], "ms": gnb_train["ms"],
+         "ms_l2_cold": gnb_train["ms_l2_cold"],
+         "plain_ms": gnb_train["plain_ms"],
+         "bound_ms": gnb_train["bound_ms"],
+         "bound_by": gnb_train["bound_by"], "library_ms": None,
+         "encoder_shape": {k: gnb_enc[k] for k in (
+             "B", "T", "C", "ms", "ms_l2_cold", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "max_abs_err")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

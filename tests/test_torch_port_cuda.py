@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
+                                              fused_group_norm_backward,
+                                              group_norm_backward_plain,
                                               group_norm_plain)
 from vae_npvc_tpu_torch.ops.vq_fused import vq_fused, vq_fused_plain
 
@@ -111,6 +113,80 @@ def test_groupnorm_kernel_512_bucket(dev, B, C, G, glu, lengths):
     assert got.shape == ref.shape and got.dtype == ref.dtype
     torch.testing.assert_close(got.float(), ref.float(), atol=2 ** -7,
                                rtol=2 ** -6)
+
+
+def _assert_gn_backward(got, ref, dtype):
+    """Tolerances relative to each output's peak: fp32 differs from the
+    plain version by summation order only (dx 2e-5, the 32k-frame parameter
+    sums 1e-4); bf16 dx may also land one bf16 ulp (2^-7 relative) apart."""
+    for name, a, b in zip(("dx", "dscale", "dbias"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        a, b = a.float(), b.float()
+        peak = float(b.abs().max()) or 1.0
+        if name == "dx" and dtype == torch.bfloat16:
+            tol = 1e-4 * peak + 2 ** -7 * b.abs()
+        else:
+            tol = (2e-5 if name == "dx" else 1e-4) * peak
+        assert bool(((a - b).abs() <= tol).all()), (
+            name, float((a - b).abs().max()), peak)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,G,glu,lengths", [
+    (128, 256, 512, 1, False, None),
+    (128, 256, 1024, 2, True, None),
+    (8, 512, 1024, 2, True, [512, 300, 511, 257, 1, 450, 0, 512]),
+    (1, 512, 512, 1, False, [397]),
+    (3, 77, 96, 3, False, [77, 5, 40]),
+    (3, 77, 96, 1, True, None)])
+def test_groupnorm_backward_kernel_matches_plain(dev, dtype, B, T, C, G, glu,
+                                                 lengths):
+    rng = np.random.default_rng(B + T + C)
+    x = torch.tensor(rng.normal(0.5, 2.0, size=(B, T, C)), device=dev) \
+        .to(dtype)
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                        device=dev)
+    # a non-contiguous cotangent, as a conv's backward hands over
+    g = torch.tensor(rng.normal(size=(B, C // 2 if glu else C, T)),
+                     device=dev).to(dtype).transpose(1, 2)
+    n = (torch.tensor(lengths, dtype=torch.int32, device=dev)
+         if lengths else None)
+    n0 = fused_group_norm_backward.launches
+    got = fused_group_norm_backward(x, scale, bias, g, G, lengths=n, glu=glu)
+    again = fused_group_norm_backward(x, scale, bias, g, G, lengths=n,
+                                      glu=glu)
+    ref = group_norm_backward_plain(x, scale, bias, g, G, lengths=n, glu=glu)
+    torch.cuda.synchronize()
+    assert fused_group_norm_backward.launches == n0 + 2
+    _assert_gn_backward(got, ref, dtype)
+    for a, b in zip(got, again):        # fixed summation order: same bits
+        assert torch.equal(a, b)
+    if n is not None:
+        pad = torch.arange(T, device=dev)[None] >= n[:, None]
+        assert bool((got[0][pad] == 0).all())
+
+
+def test_groupnorm_function_backward_on_the_card(dev):
+    """autograd through the wrapper launches K2 then K3 and agrees with the
+    plain analytic backward."""
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.normal(size=(4, 64, 256)), dtype=torch.float32,
+                     device=dev, requires_grad=True)
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=256), dtype=torch.float32,
+                         device=dev, requires_grad=True)
+    bias = torch.zeros(256, device=dev, requires_grad=True)
+    f0, b0 = fused_group_norm.launches, fused_group_norm_backward.launches
+    y = fused_group_norm(x, scale, bias, 2, glu=True)
+    g = torch.tensor(rng.normal(size=tuple(y.shape)), dtype=torch.float32,
+                     device=dev)
+    got = torch.autograd.grad(y, (x, scale, bias), g)
+    assert fused_group_norm.launches == f0 + 1
+    assert fused_group_norm_backward.launches == b0 + 1
+    ref = group_norm_backward_plain(x.detach(), scale.detach(), bias.detach(),
+                                    g, 2, glu=True)
+    _assert_gn_backward(got, ref, torch.float32)
 
 
 def test_wrappers_count_launches(dev):

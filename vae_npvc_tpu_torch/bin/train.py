@@ -1,0 +1,330 @@
+"""Training CLI.
+
+Counterpart of ``vae_npvc_tpu/bin/train.py``: same flags, config keys, log
+format, checkpoint naming (``iter.N``), ``metrics.jsonl``, ``best.json``
+and best-model selection (``check_loss_kind`` -> copy to
+``model.loss.best``), driving the port's trainer on the GPU (``--device
+cpu`` for a CPU run). The config is a YAML file (or a ``.json`` file, for
+hosts without a YAML parser).
+
+Usage:
+    python -m vae_npvc_tpu_torch.bin.train -c conf/train_vqvae.yaml \
+        --train_dir dump/train --valid_dir dump/dev --output_dir exp/vqvae
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+from pathlib import Path
+from shutil import copyfile
+
+import numpy as np
+
+
+def load_config(path):
+    """A config dict from a YAML or ``.json`` file (a dict passes
+    through)."""
+    if isinstance(path, dict):
+        return path
+    with open(path) as f:
+        if str(path).endswith(".json"):
+            return json.load(f)
+        import yaml
+
+        return yaml.safe_load(f)
+
+
+def chunk_size(i, steps_per_call, iters_per_log, iters_per_checkpoint,
+               max_iter):
+    """Largest K <= steps_per_call from completed-step count ``i`` that does
+    not cross a log/checkpoint/max_iter boundary."""
+    k = steps_per_call
+    if k > 1:
+        k = min(k, iters_per_log - i % iters_per_log,
+                iters_per_checkpoint - i % iters_per_checkpoint,
+                max_iter - i)
+    return max(k, 1)
+
+
+def pull_chunk(iterator, k):
+    """Up to ``k`` items; shorter (possibly empty) when exhausted."""
+    out = []
+    try:
+        for _ in range(k):
+            out.append(next(iterator))
+    except StopIteration:
+        pass
+    return out
+
+
+def flat_mean_log(train_log):
+    """Host means over accumulated detail values: entries are per-step
+    scalars or (K,) per-chunk vectors on the device; flattening weighs
+    every step equally. This is where a log window waits for the device."""
+    import torch
+
+    return {k: float(torch.cat([x.reshape(-1).float() for x in v]).mean())
+            for k, v in train_log.items()}
+
+
+def get_logger(output_dir):
+    logger = logging.getLogger("vae_npvc_tpu_torch.train")
+    logger.setLevel(logging.INFO)
+    logger.handlers.clear()
+    fmt = logging.Formatter("%(asctime)s %(message)s",
+                            datefmt="%m-%d %H:%M:%S")
+    for h in (logging.StreamHandler(),
+              logging.FileHandler(str(Path(output_dir) / "train.log"))):
+        h.setFormatter(fmt)
+        logger.addHandler(h)
+    return logger
+
+
+def train(args):
+    from ..data.dataset import (UttMelSpkDataset, batch_iterator,
+                                index_iterator)
+    from ..train import build_trainer
+
+    config = load_config(args.config)
+
+    max_iter = config.get("max_iter", 100000)
+    iters_per_checkpoint = config.get("iters_per_checkpoint", 10000)
+    iters_per_log = config.get("iters_per_log", 1000)
+    check_loss_kind = config.get("check_loss_kind", "X like")
+    num_jobs = config.get("num_jobs", 8)
+    seed = config.get("seed", 777)
+
+    output_dir = Path(args.output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    logger = get_logger(output_dir)
+
+    trainer = build_trainer(config, device=args.device)
+
+    train_batch = config.get("train_batch_size", config.get("batch_size", 32))
+    valid_batch = config.get("valid_batch_size", config.get("batch_size", 1))
+    train_set = UttMelSpkDataset(args.train_dir, config)
+
+    # device-resident corpus (opt-in): stage every utterance on the device
+    # once and gather the host loader's exact epoch-permutation + crop
+    # windows there (data.dataset.index_iterator is the single source of
+    # both), so only indices cross to the device per step
+    use_dev = bool(config.get("device_resident", False))
+    dev_sampling = config.get("device_resident_sampling", "epoch")
+    if dev_sampling not in ("epoch", "iid"):
+        raise ValueError(
+            f"device_resident_sampling must be 'epoch' or 'iid', got "
+            f"{dev_sampling!r}")
+    if use_dev and dev_sampling == "iid":
+        raise NotImplementedError(
+            "device_resident_sampling: iid is not ported yet (ROADMAP "
+            "Queue A, trainer rest); use epoch")
+    if use_dev:
+        limit = config.get("device_resident_limit_bytes", 4 << 30)
+        need = train_set.padded_nbytes()
+        if need > limit:
+            logger.warning(
+                f"device_resident corpus would need {need / 1e9:.1f} GB "
+                f"> limit {limit / 1e9:.1f} GB; using the host loader")
+            use_dev = False
+
+    train_iter = () if use_dev else batch_iterator(
+        train_set, train_batch, shuffle=True, drop_last=True, seed=seed,
+        num_workers=num_jobs)
+
+    valid_set = None
+    if args.valid_dir:
+        try:
+            valid_set = UttMelSpkDataset(args.valid_dir, config, valid=True)
+        except FileNotFoundError:
+            valid_set = None
+
+    def valid_batches():
+        return batch_iterator(valid_set, valid_batch, shuffle=False,
+                              drop_last=False, num_workers=num_jobs, epochs=1)
+
+    # initialize / resume
+    trainer.init_state()
+    iteration = 1
+    ckpt = args.checkpoint
+    if ckpt == "auto":
+        # preemption recovery: resume from the newest iter.N in output_dir
+        cands = sorted(output_dir.glob("iter.*"),
+                       key=lambda p: int(p.name.split(".")[1]))
+        ckpt = str(cands[-1]) if cands else None
+    if ckpt:
+        iteration = trainer.load_checkpoint(ckpt) + 1
+        logger.info(f"Resumed from {ckpt} at iteration {iteration}")
+        # drop metrics rows from beyond the resume point: those windows
+        # replay with different values, and the machine-readable file must
+        # not carry conflicting duplicate iters
+        mfile = output_dir / "metrics.jsonl"
+        if mfile.exists():
+            kept = [ln for ln in mfile.read_text().splitlines()
+                    if ln.strip()
+                    and json.loads(ln).get("iter", 0) < iteration]
+            mfile.write_text("".join(ln + "\n" for ln in kept))
+
+    logger.info(trainer.get_model_info())
+    logger.info(f"Output directory: {output_dir}")
+    logger.info(f"Training utterances: {len(train_set)}")
+    logger.info(f"Validation utterances: "
+                f"{len(valid_set) if valid_set else 0}")
+    logger.info("Start training...")
+
+    train_log: dict[str, list] = {}
+    best_loss = {check_loss_kind: np.inf}
+    best_iter = 0
+    # best-so-far survives preemption resumes via a sidecar
+    best_file = output_dir / "best.json"
+    if ckpt and best_file.exists():
+        try:
+            prev = json.loads(best_file.read_text())
+            if (prev.get("check_loss_kind") == check_loss_kind
+                    and prev.get("iteration", 0) < iteration
+                    and (output_dir / f"iter.{prev['iteration']}").exists()):
+                best_iter = int(prev["iteration"])
+                best_loss = {k: float(v) for k, v in prev["loss"].items()}
+                logger.info(f"Best-so-far restored: iteration {best_iter} "
+                            f"({check_loss_kind}: "
+                            f"{best_loss[check_loss_kind]:.6f})")
+        except (ValueError, KeyError, TypeError):
+            logger.warning(f"Could not parse {best_file}; best tracking "
+                           "restarts from this run")
+    t_log = time.time()
+    frames_per_batch = train_batch * train_set.crop_length
+
+    # K optimizer steps per trainer call; chunks never cross a
+    # log/checkpoint/max_iter boundary, so the logging cadence and the
+    # checkpoint contents do not depend on K
+    steps_per_call = max(1, int(config.get("steps_per_call", 1)))
+
+    if iteration > max_iter:
+        # a finished run re-invoked (e.g. --checkpoint auto after
+        # completion) must be a no-op, not train one extra step
+        logger.info(f"Resumed at iteration {iteration} > max_iter "
+                    f"{max_iter}; nothing to train")
+        train_iter = ()
+        use_dev = False
+    idx_it = None
+    if use_dev:
+        nbytes = trainer.stage_dataset(train_set, train_batch)
+        logger.info(f"Device-resident corpus: {nbytes / 1e6:.0f} MB staged "
+                    f"on {trainer.device}; crops gathered on the device "
+                    f"({dev_sampling} sampling)")
+        idx_it = index_iterator(train_set, train_batch, shuffle=True,
+                                drop_last=True, seed=seed)
+    train_it = iter(train_iter)
+    running = True
+    while running:
+        i = trainer.iteration
+        if i >= max_iter:
+            break
+        K = chunk_size(i, steps_per_call, iters_per_log,
+                       iters_per_checkpoint, max_iter)
+        if idx_it is not None:
+            pairs = pull_chunk(idx_it, K)   # infinite iterator: always K
+            detail = trainer.train_steps_indices(
+                np.stack([p[0] for p in pairs]),
+                np.stack([p[1] for p in pairs]))
+        else:
+            batches = pull_chunk(train_it, K)
+            if len(batches) < K:
+                running = False
+            if not batches:
+                break
+            detail = trainer.train_steps(batches)
+        iteration = trainer.iteration
+        for k, v in detail.items():
+            train_log.setdefault(k, []).append(v)
+
+        if iteration % iters_per_log == 0 and train_log:
+            host_log = flat_mean_log(train_log)
+            dt = time.time() - t_log
+            fps = iters_per_log * frames_per_batch / dt
+            mseg = f"Iter {iteration}:"
+            for k, v in host_log.items():
+                mseg += f"  {k}: {v:.6f}"
+            mseg += f"  |  {fps:,.0f} frames/s"
+            logger.info(mseg)
+            with open(output_dir / "metrics.jsonl", "a") as mf:
+                mf.write(json.dumps(
+                    {"iter": int(iteration), "split": "train",
+                     "frames_per_sec": round(float(fps), 1),
+                     **{k: float(v) for k, v in host_log.items()}}) + "\n")
+            train_log = {}
+            t_log = time.time()
+
+        if iteration % iters_per_checkpoint == 0:
+            ckpt = output_dir / f"iter.{iteration}"
+            trainer.save_checkpoint(ckpt)
+            logger.info(f"Saved checkpoint to {ckpt}")
+
+            if valid_set:
+                loss_detail = trainer.valid(valid_batches())
+                check = np.mean(loss_detail[check_loss_kind])
+                if np.mean(best_loss[check_loss_kind]) >= check:
+                    best_loss = {k: float(np.mean(v))
+                                 for k, v in loss_detail.items()}
+                    best_iter = iteration
+                    best_file.write_text(json.dumps(
+                        {"iteration": best_iter,
+                         "check_loss_kind": check_loss_kind,
+                         "loss": best_loss}, indent=1))
+                mseg = f"Valid {iteration}:"
+                for k, v in loss_detail.items():
+                    mseg += f"  {k}: {np.mean(v):.6f}"
+                mseg += (f"  |  Best {best_iter}:  {check_loss_kind}: "
+                         f"{np.mean(best_loss[check_loss_kind]):.6f}")
+                logger.info(mseg)
+                with open(output_dir / "metrics.jsonl", "a") as mf:
+                    mf.write(json.dumps(
+                        {"iter": int(iteration), "split": "valid",
+                         "best_iter": int(best_iter),
+                         **{k: float(np.mean(v))
+                            for k, v in loss_detail.items()}}) + "\n")
+            t_log = time.time()
+
+        if iteration >= max_iter:
+            break
+
+    if best_iter > 0:
+        copyfile(str(output_dir / f"iter.{best_iter}"),
+                 str(output_dir / "model.loss.best"))
+        logger.info(f"Best model: iteration {best_iter} "
+                    f"({check_loss_kind}: "
+                    f"{np.mean(best_loss[check_loss_kind]):.6f})")
+    else:
+        # no validation set: the final state is the best we know of (a
+        # no-op rerun must point at the existing final checkpoint)
+        final = output_dir / f"iter.{trainer.iteration}"
+        if not final.exists():
+            trainer.save_checkpoint(final)
+        copyfile(str(final), str(output_dir / "model.loss.best"))
+        logger.info(f"No validation set; model.loss.best = iteration "
+                    f"{trainer.iteration}")
+    logger.info("Finished")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Train a VQ-VAE (PyTorch, GPU)")
+    parser.add_argument("-c", "--config", type=str, required=True,
+                        help="YAML (or .json) experiment config")
+    parser.add_argument("--output_dir", type=str, required=True,
+                        help="Directory for checkpoint output")
+    parser.add_argument("--checkpoint", type=str, default=None,
+                        help="checkpoint path to keep training, or 'auto' to "
+                             "resume from the newest iter.N in output_dir")
+    parser.add_argument("--train_dir", type=str, required=True,
+                        help="Training data dir")
+    parser.add_argument("--valid_dir", type=str, default=None,
+                        help="Validation data dir")
+    parser.add_argument("--device", default="cuda")
+    train(parser.parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

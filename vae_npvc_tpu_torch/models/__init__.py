@@ -37,6 +37,28 @@ def get_model_cls(model_type: str):
                    f"{sorted(_REGISTRY)}")
 
 
+def codebook_renorm_fn(config):
+    """Per-step codebook renormalization of the normalized plain-VQ flat
+    model (the JAX package's ``codebook_renorm_fn``): a ``model -> None``
+    function that snaps ``quantizer_embedding`` to unit rows in place
+    (renorm first, gradients at the renormed point, update applied to the
+    renormed value), or ``None`` for the EMA path and ``embed_norm: false``.
+    """
+    import torch
+
+    get_model_cls(config.get("model_type", "vae_npvc.model.vqvae"))
+    if config.get("use_ema", False) or not config.get("embed_norm", True):
+        return None
+
+    def renorm(model):
+        with torch.no_grad():
+            emb = model.quantizer_embedding
+            norm = torch.linalg.vector_norm(emb, dim=1, keepdim=True)
+            emb.div_(torch.clamp(norm, min=1e-12))
+
+    return renorm
+
+
 def build_model(config, device="cuda", dtype=None):
     """Build the model of a flat experiment config on ``device``.
 

@@ -1,10 +1,9 @@
-"""Flat speaker-conditioned VQ-VAE: inference entry points.
+"""Flat speaker-conditioned VQ-VAE: training forward and inference.
 
 Counterpart of ``vae_npvc_tpu/models/vqvae.py`` (``Encoder``, ``Decoder``,
-``Model.encode/decode/infer``, lines 36-347), same config keys, same
-channels-last layout, same casts. Stride-1 encoders and decoders only:
-the strided (hierarchical) layers raise until that slice is ported. The
-training forward and loss belong to the training slice.
+``Model``), same config keys, same channels-last layout, same casts.
+Stride-1 encoders and decoders only: the strided (hierarchical) layers
+raise until that slice is ported.
 """
 
 from __future__ import annotations
@@ -16,6 +15,8 @@ from torch import nn
 from ..nn.blocks import (Conditions, ConvResStack, GLUResSkip, WNConv1d,
                          init_parameters, length_mask)
 from ..ops import vq as vq_ops
+from ..ops.jitter import jitter as jitter_op
+from ..ops.losses import log_loss
 
 _STRIDED = ("strided conv layers are not ported yet (ROADMAP Queue A, "
             "hierarchical family)")
@@ -178,14 +179,26 @@ class EmaQuantizer(nn.Module):
         return vq_ops.EmaVqState(self.initted, self.emb, self.emb_sum,
                                  self.emb_elem)
 
+    def set_state(self, state):
+        """Copy ``state`` into the buffers (in place)."""
+        with torch.no_grad():
+            for buf, new in zip(self.state(), state):
+                buf.copy_(new)
+
 
 class Model(nn.Module):
-    """Flat VQ-VAE with speaker conditioning (inference entry points).
+    """Flat VQ-VAE with speaker conditioning.
 
     ``arch`` is the flat experiment config (model keys at the top level).
+      forward(x, y_idx, train)      -> (xhat, loss, detail)  # training
       encode(x, lengths)            -> (B, T') int32 ids
       decode(ids, y_idx, lengths)   -> (B, T, D) fp32 mel
       infer(x, y_idx, lengths)      -> (B, T, D) fp32 mel
+
+    The EMA codebook lives in the ``quantizer`` buffers. A training
+    forward does not write them: it leaves the updated state in
+    ``pending_ema`` (the JAX package's mutable ``ema`` collection), and the
+    trainer commits it once the step is accepted.
     """
 
     def __init__(self, arch, dtype=torch.float32):
@@ -199,6 +212,17 @@ class Model(nn.Module):
                                  normalize=False, dtype=dtype)
         self.use_ema = a.get("use_ema", False)
         self.embed_norm = a.get("embed_norm", True)
+        self.mu = a.get("mu", 0.9)
+        self.beta = a.get("beta", 0.01)
+        self.jitter_p = a.get("jitter_p", 0.0)
+        self.legacy_no_ste = a.get("legacy_no_ste", False)
+        self.remat = a.get("remat", False)
+        for key in ("seq_axis", "dp_axis"):
+            if a.get(key) is not None:
+                raise NotImplementedError(
+                    f"{key} belongs to the parallel slice (ROADMAP Queue A, "
+                    "parallel)")
+        self.pending_ema = None
         z_num, z_dim = a.get("z_num", 512), a.get("z_dim", 128)
         if self.use_ema:
             self.quantizer = EmaQuantizer(z_num, z_dim)
@@ -214,6 +238,46 @@ class Model(nn.Module):
                 self.quantizer_embedding.copy_(torch.randn(
                     self.quantizer_embedding.shape, generator=gen))
         return self
+
+    def _quantize_train(self, z, train, gen, ema_state):
+        """Returns (z_vq, z_qut_loss, z_enc_loss, detail, new EMA state)."""
+        z = z.float()
+        if self.use_ema:
+            state = self.quantizer.state() if ema_state is None else ema_state
+            z_vq, qut, enc, new_state, detail = vq_ops.ema_vq_forward(
+                state, z, gen if train else None, mu=self.mu,
+                reduction="frame_mean", training=train, update=train,
+                legacy_no_ste=self.legacy_no_ste)
+            return z_vq, qut, enc, detail, new_state if train else None
+        return vq_ops.vq_forward(self.quantizer_embedding, z,
+                                 normalize=self.embed_norm,
+                                 reduction="frame_mean") + (None,)
+
+    def _run(self, module, *args):
+        """``module(*args)``, recomputed in the backward with ``remat``."""
+        if self.remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
+    def forward(self, x, y_idx, train=True, *, gen=None, ema_state=None):
+        """Training/valid forward (unmasked). x: (B, T, D) mel; y_idx: (B,)
+        int. ``gen`` is the step's ``torch.Generator`` on x's device (lazy
+        codebook init, restarts, jitter); ``ema_state`` overrides the
+        buffers' state (chained microbatches)."""
+        y = self.embeds(y_idx.reshape(-1))[:, None, :]       # (B, 1, y_dim)
+        z = self._run(self.encoder, x.to(self.dtype))
+        z_vq, z_qut_loss, z_enc_loss, vq_detail, self.pending_ema = \
+            self._quantize_train(z, train, gen, ema_state)
+        if train and self.jitter_p > 0.0:
+            z_vq = jitter_op(gen, z_vq, self.jitter_p)
+        xhat = self._run(self.decoder, z_vq.to(self.dtype), y).float()
+        x_loss = log_loss(xhat, x.float())
+        loss = x_loss + z_qut_loss + self.beta * z_enc_loss
+        detail = {"Total": loss, "VQ loss": z_enc_loss, "X like": x_loss}
+        detail.update(vq_detail)
+        return xhat, loss, detail
 
     def encode(self, x, lengths=None):
         """Mel (B, T, D) -> code ids (B, T'); ids beyond the transformed

@@ -1,15 +1,20 @@
-"""Vector-quantization core, inference half: plain and EMA codebooks.
+"""Vector-quantization core: plain (gradient-codebook) and EMA codebooks.
 
-Counterpart of ``vae_npvc_tpu/ops/vq.py`` (``l2_normalize``,
-``nearest_code``, ``vq_encode``, ``vq_decode``, ``EmaVqState``,
-``ema_vq_encode``, ``ema_vq_decode``). Layout is channels-last (B, T, D).
-``ema_vq_encode`` goes through the fused VQ wrapper in its ids-only mode,
-so a CUDA tensor runs the kernel of ``csrc/vq.cu``. The training forward
-(``ema_vq_forward``, restart candidates) belongs to the training slice.
+Counterpart of ``vae_npvc_tpu/ops/vq.py``, function for function. Layout
+is channels-last (B, T, D). The EMA codebook is explicit state
+(:class:`EmaVqState`) that :func:`ema_vq_forward` takes and returns; it
+writes no buffer itself, so a trainer can keep the old state when it skips
+a step. ``ema_vq_encode`` and :func:`ema_vq_forward` go through the fused
+VQ wrapper (ids-only mode, and ids + gathered codes + cluster statistics
+in training), so a CUDA tensor runs the kernel of ``csrc/vq.cu``.
+
+Random draws (lazy init, dead-code restarts) come from a
+``torch.Generator`` on the tensors' device; they are not JAX's draws.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -23,6 +28,29 @@ def l2_normalize(x, dim=-1, target_norm=1.0, eps=1e-12):
     if eps:
         n = torch.clamp(n, min=eps)
     return target_norm * x / n
+
+
+def _reduce(loss_elem, reduction, B, T):
+    """Reduction modes of the reference; ``loss_elem`` is (B*T, D)."""
+    if reduction == "sum":
+        return loss_elem.sum()
+    if reduction == "mean":
+        return loss_elem.mean()
+    if reduction == "batch_mean":
+        return loss_elem.sum() / B
+    if reduction == "frame_mean":
+        return loss_elem.sum() / (B * T)
+    if reduction == "none":
+        return loss_elem.reshape(B, T, -1)
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def codebook_perplexity(idx, num_codes):
+    """exp(entropy) of the empirical code distribution."""
+    counts = torch.bincount(idx.reshape(-1).long(), minlength=num_codes) \
+        .float()
+    probs = counts / idx.numel()
+    return torch.exp(-torch.sum(probs * torch.log(probs + 1e-10)))
 
 
 def vq_encode(emb, z, *, normalize=False):
@@ -42,12 +70,77 @@ def vq_decode(emb, idx, *, normalize=False):
     return emb[idx.long()]
 
 
+def sparsity_loss(emb):
+    """Diagonal cross-entropy codebook-sparsity regularizer: the Gram matrix
+    E.E^T as logits, targets = identity."""
+    logp = torch.log_softmax(emb @ emb.T, dim=-1)
+    return -torch.mean(torch.diagonal(logp))
+
+
+def vq_forward(emb, z, *, normalize=False, reduction="frame_mean",
+               quantize=True):
+    """Training-time quantization with straight-through gradients.
+
+    Returns ``(z_vq, z_qut_loss, z_enc_loss, detail)``: the codebook loss
+    mse(e, sg(z)), the commitment loss mse(sg(e), z) (+ the normalization
+    loss with ``normalize``), ``z_vq = z + sg(e - z)`` and
+    ``detail['entropy']`` (codebook perplexity).
+    """
+    B, T, D = z.shape
+    if not quantize:
+        zero = torch.zeros((), dtype=torch.float32, device=z.device)
+        return z, zero, zero, {"entropy": zero}
+    z_flat = z.reshape(B * T, D)
+    if normalize:
+        z_norm = l2_normalize(z_flat)
+        emb_n = l2_normalize(emb)
+    else:
+        z_norm = z_flat
+        emb_n = emb
+    idx = nearest_code(z_norm.detach(), emb_n.detach())
+    z_q = emb_n[idx.long()]                     # gradients flow to emb
+
+    z_qut_elem = (z_q - z_norm.detach()) ** 2
+    z_enc_elem = (z_q.detach() - z_norm) ** 2
+    if normalize:
+        z_enc_elem = z_enc_elem + (z_norm - z_flat) ** 2
+    z_qut_loss = _reduce(z_qut_elem, reduction, B, T)
+    z_enc_loss = _reduce(z_enc_elem, reduction, B, T)
+
+    z_vq = z_norm + (z_q - z_norm).detach()
+    detail = {"entropy": codebook_perplexity(idx, emb.shape[0])}
+    return z_vq.reshape(B, T, D), z_qut_loss, z_enc_loss, detail
+
+
 class EmaVqState(NamedTuple):
     """EMA codebook state (the JAX package's ``ema`` collection leaf)."""
     initted: torch.Tensor   # () bool
     emb: torch.Tensor       # (K, D) codebook
     emb_sum: torch.Tensor   # (K, D) EMA of per-code vector sums
     emb_elem: torch.Tensor  # (K,) EMA of per-code counts
+
+
+def ema_vq_init(num_codes, dim, dtype=torch.float32, device=None):
+    return EmaVqState(
+        initted=torch.zeros((), dtype=torch.bool, device=device),
+        emb=torch.zeros((num_codes, dim), dtype=dtype, device=device),
+        emb_sum=torch.zeros((num_codes, dim), dtype=dtype, device=device),
+        emb_elem=torch.ones((num_codes,), dtype=dtype, device=device))
+
+
+def _tiled_candidates(gen, z_flat, num_codes):
+    """Random restart candidates: tile z with noise until >= K rows,
+    permute, take K. ``gen`` is a ``torch.Generator`` on z's device."""
+    N, D = z_flat.shape
+    if N < num_codes:
+        reps = (num_codes + N - 1) // N
+        z_flat = z_flat.repeat(reps, 1)
+        z_flat = z_flat + torch.randn(
+            z_flat.shape, generator=gen, dtype=z_flat.dtype,
+            device=z_flat.device) * (0.01 / math.sqrt(D))
+    perm = torch.randperm(z_flat.shape[0], generator=gen,
+                          device=z_flat.device)
+    return z_flat[perm[:num_codes]]
 
 
 def ema_vq_encode(state, z):
@@ -59,3 +152,79 @@ def ema_vq_encode(state, z):
 
 def ema_vq_decode(state, idx):
     return state.emb[idx.long()]
+
+
+def ema_vq_forward(state, z, gen=None, *, mu=0.9, threshold=1.0,
+                   reduction="frame_mean", training=True, update=True,
+                   legacy_no_ste=False, axis_name=None):
+    """EMA quantizer forward + codebook update.
+
+    Returns ``(z_vq, z_qut_loss, z_enc_loss, new_state, detail)``; the
+    caller commits ``new_state``. ``z_qut_loss`` is always 0 (no codebook
+    gradient). ``detail`` carries {entropy, used_curr, usage, diff_emb}
+    when the codebook was updated. ``gen`` draws the lazy-init and restart
+    candidates (training only).
+
+    The search and the statistics run on detached fp32 ``z``. With
+    ``training and update`` ids, gathered codes, per-code sums and counts
+    come from one fused pass (the kernel's statistics mode on CUDA). The
+    lazy init is a tensor select on ``state.initted``, not a host branch,
+    so a step never waits for the device.
+    """
+    if axis_name is not None:
+        raise NotImplementedError(
+            "ema_vq_forward(axis_name=...) belongs to the parallel slice "
+            "(ROADMAP Queue A, parallel)")
+    B, T, D = z.shape
+    K = state.emb.shape[0]
+    z_flat = z.reshape(B * T, D)
+    z_sg = z_flat.detach()
+
+    if training:
+        # lazy data-dependent init on the first training batch
+        emb0 = _tiled_candidates(gen, z_sg, K)
+        keep = state.initted
+        state = EmaVqState(
+            torch.ones_like(state.initted),
+            torch.where(keep, state.emb, emb0),
+            torch.where(keep, state.emb_sum, emb0),
+            torch.where(keep, state.emb_elem,
+                        torch.ones_like(state.emb_elem)))
+
+    if training and update:
+        idx, z_q, batch_sum, batch_elem = vq_fused(z_sg, state.emb,
+                                                   stats=True)
+        cand = _tiled_candidates(gen, z_sg, K)
+
+        old_emb = state.emb
+        emb_sum = mu * state.emb_sum + (1.0 - mu) * batch_sum
+        emb_elem = mu * state.emb_elem + (1.0 - mu) * batch_elem
+        usage = (emb_elem >= threshold).to(z.dtype)[:, None]      # (K, 1)
+        emb = usage * (emb_sum / emb_elem[:, None]) + (1.0 - usage) * cand
+
+        k_prob = batch_elem / batch_elem.sum()
+        detail = {
+            "entropy": torch.exp(-torch.sum(k_prob
+                                            * torch.log(k_prob + 1e-8))),
+            "used_curr": (batch_elem >= threshold).sum().float(),
+            "usage": usage.sum(),
+            "diff_emb": torch.linalg.vector_norm(emb - old_emb)
+                        / math.sqrt(K * D),
+        }
+        state = EmaVqState(state.initted, emb, emb_sum, emb_elem)
+    else:
+        idx = vq_fused(z_sg, state.emb, stats=False).idx
+        z_q = state.emb[idx.long()]
+        detail = {}
+
+    z_enc_loss = _reduce((z_q - z_flat) ** 2, reduction, B, T)
+    z_qut_loss = torch.zeros((), dtype=z.dtype, device=z.device)
+
+    if legacy_no_ste and reduction != "none":
+        # the reference's missing straight-through: the decoder sees the
+        # detached code vector
+        z_vq = z_q
+    else:
+        z_vq = z_flat + (z_q - z_flat).detach()
+
+    return z_vq.reshape(B, T, D), z_qut_loss, z_enc_loss, state, detail

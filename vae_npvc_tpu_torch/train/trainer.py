@@ -1,0 +1,278 @@
+"""Trainer: the train step, validation and checkpointing on one device.
+
+Counterpart of the core of ``vae_npvc_tpu/train/trainer.py`` (``Trainer``:
+``init_state``, ``train_step``, ``train_steps``, the non-finite guard,
+``grad_accum``, ``valid``, ``stage_dataset`` + ``train_steps_indices``,
+``save_checkpoint`` / ``load_checkpoint`` in the JAX checkpoint format).
+Meshes, model-axis sharding and multi-host assembly belong to the parallel
+slice.
+
+One step, in the JAX trainer's order: renorm (plain VQ only) -> forward and
+gradient -> clip -> optimizer -> guard. Every parameter lives in one flat
+fp32 vector (``self.flat``; the model's parameters are views into it), and
+so do Adam's moments, so the optimizer and the guard are a few kernels over
+flat tensors, and the checkpoint's trees are slices of them. The guard
+(``skip_nonfinite_updates``, default on) keeps the old parameters,
+optimizer state and EMA codebook with tensor selects when the squared
+gradient norm is not finite; nothing in a step reads a tensor on the host,
+and ``detail`` values stay device tensors until the caller logs them.
+
+Random draws (lazy codebook init, dead-code restarts, jitter) come from a
+``torch.Generator`` on the trainer's device, reseeded from ``(seed, step)``
+at every step, so a resumed run draws what an uninterrupted one would.
+They are not the JAX package's draws.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..infer.convert import WN_AXIS_FORMAT, read_checkpoint
+from ..models import build_model, codebook_renorm_fn
+from ..ops.vq import ema_vq_init
+from ..utils import msgpack_io
+from ..utils.bridge import (from_jax_variables, optimizer_from_jax,
+                            optimizer_to_jax, to_jax_variables)
+from .optim import OptState, build_optimizer
+
+
+def _select(ok, new, old):
+    """``new`` where the 0-d bool ``ok`` holds, else ``old``, leaf by leaf
+    (``None`` leaves pass through)."""
+    return type(new)(*(n if n is None else torch.where(ok, n, o)
+                       for n, o in zip(new, old)))
+
+
+class Trainer:
+    """Owns the model, the optimizer state and the train/valid steps on
+    ``device`` (the GPU unless the caller asks for the CPU)."""
+
+    def __init__(self, config, device="cuda", seed=None):
+        self.config = config
+        self.model = build_model(config, device)
+        self.device = next(self.model.parameters()).device
+        self.tx = build_optimizer(config)
+        self.seed = int(config.get("seed", 777) if seed is None else seed)
+        self.gen = torch.Generator(device=self.device)
+        self._renorm = codebook_renorm_fn(config)
+        self.skip_nonfinite = config.get("skip_nonfinite_updates", True)
+        self.grad_accum = int(config.get("grad_accum", 1))
+
+        self.params = list(self.model.parameters())
+        self.layout = [(name, tuple(p.shape))
+                       for name, p in self.model.named_parameters()]
+        self.flat = None          # (P,) fp32: every parameter, in order
+        self.opt_state = None
+        self._host_iter = 0       # completed optimizer steps
+        self._dev_corpus = None
+
+    # ------------------------------------------------------------------ init
+    def _flatten_parameters(self):
+        """Move the parameters into one flat vector and make each a view
+        of its slice (in-place writes to either side are seen by both)."""
+        with torch.no_grad():
+            self.flat = torch.cat([p.detach().float().reshape(-1)
+                                   for p in self.params])
+            off = 0
+            for p in self.params:
+                n = p.numel()
+                p.data = self.flat[off:off + n].view(p.shape)
+                off += n
+
+    def init_state(self, example_batch=None):
+        """Seeded random parameters, a fresh EMA codebook and optimizer
+        state at step 0. ``example_batch`` is accepted for the JAX
+        trainer's signature; the port's shapes come from the config."""
+        self.model.init_random(self.seed)
+        if self.model.use_ema:
+            q = self.model.quantizer
+            q.set_state(ema_vq_init(*q.emb.shape, device=self.device))
+        self._flatten_parameters()
+        self.opt_state = self.tx.init(self.flat)
+        self._host_iter = 0
+
+    def _require_state(self):
+        if self.flat is None:
+            raise ValueError("call init_state first")
+
+    # ----------------------------------------------------------------- steps
+    def _to_device(self, batch):
+        return tuple(torch.as_tensor(a, device=self.device) for a in batch)
+
+    def _begin_step(self):
+        self.gen.manual_seed((self.seed * 1_000_003 + self._host_iter)
+                             % (1 << 63))
+        if self._renorm is not None:
+            self._renorm(self.model)
+
+    def _loss_and_grad(self, batch, ema_state=None):
+        """Flat gradient, the pending EMA state and the detail of one
+        (micro)batch."""
+        _, loss, detail = self.model(*batch, True, gen=self.gen,
+                                     ema_state=ema_state)
+        grads = torch.autograd.grad(loss, self.params)
+        flat_g = torch.cat([g.float().reshape(-1) for g in grads])
+        detail = {k: v.detach() for k, v in detail.items()}
+        return flat_g, self.model.pending_ema, detail
+
+    def _train_step(self, batch):
+        self._begin_step()
+        flat_g, new_ema, detail = self._loss_and_grad(batch)
+        return self._finish_step(flat_g, new_ema, detail)
+
+    def _train_step_accum(self, batch):
+        """One optimizer step from the mean of ``grad_accum`` microbatch
+        gradients; the EMA codebook statistics chain through the
+        microbatches in order, the detail is their mean."""
+        k = self.grad_accum
+        B = batch[0].shape[0]
+        if B % k != 0:
+            raise ValueError(
+                f"grad_accum={k} requires the batch size to be divisible; "
+                f"got {B}")
+        self._begin_step()
+        ema = self.model.quantizer.state() if self.model.use_ema else None
+        gsum, details = None, []
+        for i in range(k):
+            mb = tuple(a[i * (B // k):(i + 1) * (B // k)] for a in batch)
+            flat_g, ema, detail = self._loss_and_grad(mb, ema)
+            gsum = flat_g if gsum is None else gsum + flat_g
+            details.append(detail)
+        detail = {key: torch.stack([d[key] for d in details]).mean(dim=0)
+                  for key in details[0]}
+        return self._finish_step(gsum / k, ema, detail)
+
+    def _finish_step(self, flat_g, new_ema, detail):
+        """Optimizer update and non-finite guard; commits the parameters,
+        the optimizer state and the EMA codebook."""
+        update, opt_state = self.tx.update(flat_g, self.opt_state)
+        new_flat = self.flat + update
+        grad_sq = torch.sum(flat_g * flat_g)
+        if self.skip_nonfinite:
+            ok = torch.isfinite(grad_sq)
+            new_flat = torch.where(ok, new_flat, self.flat)
+            opt_state = _select(ok, opt_state, self.opt_state)
+            if new_ema is not None:
+                new_ema = _select(ok, new_ema, self.model.quantizer.state())
+            detail["skipped_nonfinite"] = 1.0 - ok.float()
+        with torch.no_grad():
+            self.flat.copy_(new_flat)
+        self.opt_state = opt_state
+        if new_ema is not None:
+            self.model.quantizer.set_state(new_ema)
+        self._host_iter += 1
+        detail["grad_norm"] = torch.sqrt(grad_sq)
+        return detail
+
+    def train_step(self, batch):
+        """One optimizer step. ``batch`` = (feats[B, T, D], spks[B]) numpy
+        arrays or tensors. Returns the loss detail as device scalars."""
+        self._require_state()
+        batch = self._to_device(batch)
+        if self.grad_accum > 1:
+            return self._train_step_accum(batch)
+        return self._train_step(batch)
+
+    def train_steps(self, batches):
+        """K sequential optimizer steps over a list of K batches; returns
+        the detail with a leading (K,) axis per key."""
+        details = [self.train_step(b) for b in batches]
+        return {k: torch.stack([d[k] for d in details]) for k in details[0]}
+
+    # ------------------------------------------------- device-resident data
+    def stage_dataset(self, dataset, batch_size):
+        """Upload the whole training corpus to the device once;
+        :meth:`train_steps_indices` then gathers host-chosen windows there,
+        so only indices cross to the device per step. ``batch_size`` is
+        the JAX trainer's argument (its on-device sampler needs it; windows
+        chosen on the host carry their own). Returns the staged feature
+        bytes."""
+        feats, n_frames, spk_ids = dataset.padded_arrays()
+        self._dev_corpus = (
+            torch.as_tensor(feats, device=self.device),
+            torch.as_tensor(n_frames, device=self.device),
+            torch.as_tensor(spk_ids, device=self.device))
+        self._dev_crop = dataset.crop_length
+        return feats.nbytes
+
+    def train_steps_device(self, K):
+        raise NotImplementedError(
+            "iid on-device sampling (train_steps_device) is not ported yet "
+            "(ROADMAP Queue A, trainer rest); use train_steps_indices")
+
+    def train_steps_indices(self, idx, starts):
+        """K steps gathering host-chosen windows from the staged corpus.
+        ``idx``/``starts`` are (K, B) int arrays from
+        :func:`..data.dataset.index_iterator`."""
+        if self._dev_corpus is None:
+            raise ValueError("call stage_dataset first")
+        feats, _, spk_ids = self._dev_corpus
+        crop = self._dev_crop
+        idx = torch.as_tensor(np.asarray(idx), device=self.device).long()
+        starts = torch.as_tensor(np.asarray(starts), device=self.device) \
+            .long().clamp(0, feats.shape[1] - crop)
+        frames = torch.arange(crop, device=self.device)
+        batches = [(feats[ii[:, None], ss[:, None] + frames], spk_ids[ii])
+                   for ii, ss in zip(idx, starts)]
+        return self.train_steps(batches)
+
+    # ------------------------------------------------------------ validation
+    def valid(self, batches):
+        """Loss detail over an iterable of batches, as lists of floats (the
+        caller takes the mean)."""
+        self._require_state()
+        acc: dict[str, list] = {}
+        with torch.no_grad():
+            for batch in batches:
+                _, _, detail = self.model(*self._to_device(batch), False)
+                for k, v in detail.items():
+                    acc.setdefault(k, []).append(v)
+        return {k: [float(x) for x in torch.stack(v).cpu()]
+                for k, v in acc.items()}
+
+    @property
+    def iteration(self):
+        return self._host_iter
+
+    # ------------------------------------------------------------ checkpoint
+    def save_checkpoint(self, path):
+        """Write ``{model, ema, optimizer, iteration, wn_axis_format}`` as
+        the JAX trainer does (msgpack, same trees)."""
+        self._require_state()
+        v = to_jax_variables(self.model.state_dict())
+        payload = {
+            "model": v["params"],
+            "ema": {"ema": v["ema"]} if v["ema"] else {},
+            "optimizer": optimizer_to_jax(self.opt_state, self.layout,
+                                          self.tx.clips),
+            "iteration": self._host_iter,
+            "wn_axis_format": WN_AXIS_FORMAT,
+        }
+        with open(path, "wb") as f:
+            f.write(msgpack_io.msgpack_serialize(payload))
+
+    def load_checkpoint(self, path, example_batch=None):
+        """Restore a checkpoint in the JAX format (weight-norm axis format
+        2 only); the moments are re-initialized when it carries no
+        optimizer state. Returns the stored iteration."""
+        if self.flat is None:
+            self.init_state(example_batch)
+        payload, variables = read_checkpoint(path)
+        self.model.load_state_dict(from_jax_variables(variables),
+                                   strict=True)
+        if payload.get("optimizer"):
+            self.opt_state = OptState(*optimizer_from_jax(
+                payload["optimizer"], self.layout, self.tx.clips,
+                self.tx.scheduled, self.device))
+        else:
+            self.opt_state = self.tx.init(self.flat)
+        iteration = int(payload["iteration"])
+        self._host_iter = iteration
+        return iteration
+
+    def get_model_info(self):
+        n = self.flat.numel() if self.flat is not None else 0
+        cls = type(self.model)
+        return (f"{cls.__module__}.{cls.__name__} ({n / 1e6:.2f}M params, "
+                f"device={self.device})")

@@ -9,6 +9,15 @@ port's modules use the flax names, so a ``state_dict`` key is the flax path
 joined with dots (``encoder.stack_0_0.conv_0.v``) and the bridge only
 flattens and converts. The ``ema`` collection's roots (``quantizer``) sit
 beside the parameters.
+
+The trainer's optimizer state crosses the same way. The port keeps every
+parameter, and Adam's two moments, in one flat vector in
+``named_parameters`` order; the JAX checkpoint's ``optimizer`` entry for the
+chain clip -> adam(schedule) is ``{"0": {}, "1": {"0": {"count", "mu",
+"nu"}, "1": {"count"}}}`` with ``mu``/``nu`` shaped like the parameter tree
+(no ``"0": {}`` level without the clip, an empty ``"1"`` without a
+schedule). :func:`optimizer_to_jax` and :func:`optimizer_from_jax` convert
+between the two.
 """
 
 from __future__ import annotations
@@ -57,3 +66,68 @@ def to_jax_variables(state_dict):
             node = node.setdefault(p, {})
         node[parts[-1]] = t.detach().cpu().numpy()
     return out
+
+
+def _unflatten(flat, layout):
+    """Flat vector -> nested numpy tree; ``layout`` is ``[(dotted name,
+    shape), ...]`` in the vector's order."""
+    flat = flat.detach().cpu().numpy()
+    tree, off = {}, 0
+    for name, shape in layout:
+        n = int(np.prod(shape, dtype=np.int64))
+        parts = name.split(".")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = flat[off:off + n].reshape(shape).copy()
+        off += n
+    if off != flat.size:
+        raise ValueError(f"layout covers {off} of {flat.size} values")
+    return tree
+
+
+def _flatten_like(tree, layout):
+    """Nested tree -> flat float32 tensor in ``layout`` order."""
+    flat = {}
+    _flatten(tree, "", flat)
+    if set(flat) != {name for name, _ in layout}:
+        raise ValueError("optimizer moments do not match the parameters: "
+                         f"{sorted(set(flat) ^ {n for n, _ in layout})}")
+    chunks = []
+    for name, shape in layout:
+        a = np.asarray(flat[name], np.float32)
+        if a.shape != tuple(shape):
+            raise ValueError(f"{name}: moment shape {a.shape}, parameter "
+                             f"shape {tuple(shape)}")
+        chunks.append(a.reshape(-1))
+    return torch.from_numpy(np.concatenate(chunks))
+
+
+def optimizer_to_jax(opt_state, layout, clips):
+    """The port's Adam state -> the JAX checkpoint's ``optimizer`` tree.
+    ``opt_state`` has ``count``, ``mu``, ``nu``, ``sched_count`` (``None``
+    without a schedule); ``clips`` says whether the chain starts with the
+    global-norm clip."""
+    adam = {"0": {"count": np.asarray(opt_state.count.cpu().numpy(),
+                                      np.int32),
+                  "mu": _unflatten(opt_state.mu, layout),
+                  "nu": _unflatten(opt_state.nu, layout)},
+            "1": ({} if opt_state.sched_count is None else
+                  {"count": np.asarray(opt_state.sched_count.cpu().numpy(),
+                                       np.int32)})}
+    return {"0": {}, "1": adam} if clips else {"0": adam}
+
+
+def optimizer_from_jax(tree, layout, clips, scheduled, device):
+    """Inverse of :func:`optimizer_to_jax`: ``(count, mu, nu,
+    sched_count)`` tensors on ``device``."""
+    adam = tree["1" if clips else "0"]
+    inner = adam["0"]
+
+    def count(v):
+        return torch.tensor(int(v), dtype=torch.int32, device=device)
+
+    sched = count(adam["1"]["count"]) if scheduled else None
+    return (count(inner["count"]),
+            _flatten_like(inner["mu"], layout).to(device),
+            _flatten_like(inner["nu"], layout).to(device), sched)
