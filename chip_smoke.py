@@ -16,7 +16,14 @@ of the full-width model in fp32 on the card against the CPU
 fixture (``train_golden``), and some twenty optimizer steps of the recipe's
 model at its step shape (B = 128, T = 256, bf16) through ``Trainer`` on a
 synthetic corpus staged on the device (``train``), with the launch counts
-of the three kernels read per step. Each phase prints one JSON line; any
+of the three kernels read per step. Then the token->mel synthesizer: the
+port against the committed JAX fixture of a small transformer model
+(``tts_golden``), and the recipe's transformer synthesizer
+(``egs/aishell3/vc2/conf/train_token_tts_transformer.yaml`` widths, fp32,
+seeded random weights) decoding eight utterances through ``bin/decode_tts``
+and training for ten steps at B = 32 on a synthetic token-mel corpus
+(``tts``), with the attention kernels' launches counted per ``infer`` and
+per step. Each phase prints one JSON line; any
 failure exits non-zero. The last lines are the kernel summary, the card's
 name and power limit as ``nvidia-smi`` gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -62,10 +69,29 @@ FLAGSHIP = {
     "decode_batch_size": 8,
 }
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and fp32
-# operations/s outside the tensor cores
+# keys of egs/aishell3/vc2/conf/train_token_tts_transformer.yaml
+# (tests/test_torch_port_tts_cli.py checks this equals the file)
+TTS = {
+    "trainer_type": "vae_npvc.trainer.basic",
+    "model_type": "vae_npvc.model.token_tts",
+    "max_iter": 200000, "iters_per_checkpoint": 10000, "iters_per_log": 500,
+    "seed": 777, "batch_size": 32, "optim_type": "Adam",
+    "learning_rate": 0.001, "max_grad_norm": 10, "lr_scheduler": "StepLR",
+    "lr_param": {"step_size": 50000, "gamma": 0.5},
+    "token_num": 128, "token_dim": 256, "y_num": 1172, "y_dim": 256,
+    "mel_dim": 160, "block_type": "transformer", "adim": 384, "aheads": 4,
+    "elayers": 6, "dlayers": 6, "eunits": 1536, "dunits": 1536,
+    "dur_weight": 0.1, "max_tokens": 192, "max_frames": 768,
+    "postnet_layers": 3, "variance_predictor": True, "var_weight": 0.1,
+    "use_spk_embed": False, "spk_embed_dim": 64,
+}
+TTS_STEPS, TTS_BF16_STEPS, TTS_DECODE_UTTS = 10, 4, 8
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32
+# operations/s outside the tensor cores, bf16 operations/s in them
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # twice the H100's 50 MB L2: inputs cycled through this much come from HBM
 L2_COLD_BYTES = 100 * 2 ** 20
 
@@ -75,6 +101,11 @@ K2_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 2 ** -6)}
 # parameter sums run over up to 32,768 frames: 1e-4); a bf16 dx may also
 # land one bf16 ulp (2^-7 relative) from the plain version's
 K3_TOL_DX, K3_TOL_PARAM, K3_TOL_BF16_ULP = 2e-5, 1e-4, 2 ** -7
+# the attention kernels against their plain versions, relative to each
+# output's peak: fp32 differs by summation order only (forward 2e-5,
+# gradients 3e-5); bf16 may land one bf16 ulp (2^-7 relative) from the plain
+# version's, plus 2^-8 of the peak where values cancel
+K4_TOL, K5_TOL, ATTN_TOL_BF16 = 2e-5, 3e-5, (2 ** -7, 2 ** -8)
 
 # training keys of egs/vcc20/vae1/conf/train_vqvae.yaml
 TRAIN = {
@@ -139,10 +170,28 @@ def l2_cold(args, iters=53):
             for _ in range(n)]
 
 
-def _bound(byt, ops):
-    t_bytes, t_ops = byt / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def _bound(byt, ops, ops_per_s=FP32_OPS_PER_S):
+    t_bytes, t_ops = byt / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, (
         "bytes" if t_bytes > t_ops else "operations")
+
+
+def attn_bound_ms(H, T, d, itemsize, valid, backward=False):
+    """Least time for the masked attention: max(bytes, operations).
+    ``valid`` lists each batch row's valid keys; masked keys need no work.
+    Forward: q, k, v read, o and the log-sum-exp written, two products of
+    2*T*keys*d operations per head. Backward: q, k, v, o, dO and the
+    log-sum-exp read, dq, dk, dv written, five such products. fp32 runs at
+    the FMA rate, bf16 at the tensor cores' rate."""
+    B = len(valid)
+    n = B * H * T * d
+    pairs = H * T * d * sum(valid)
+    if backward:
+        byt, ops = 8 * n * itemsize + 4 * B * H * T, 10 * pairs
+    else:
+        byt, ops = 4 * n * itemsize + 4 * B * H * T, 4 * pairs
+    return _bound(byt, ops, BF16_OPS_PER_S if itemsize == 2
+                  else FP32_OPS_PER_S)
 
 
 def vq_bound_ms(N, K, D, stats=False):
@@ -382,6 +431,118 @@ def _gnb_case(torch, B, T, C, G, glu, masked, dtype, rng, iters=50):
     return case
 
 
+def _attn_case(torch, B, H, T, d, lengths, dtype, rng, q_scale=1.0,
+               iters=20):
+    """The attention forward and backward kernels against their plain
+    versions. q, k, v and the cotangent are (B, H, T, d) views of (B, T,
+    H*d) tensors, as ``MultiHeadedAttention`` hands them over; ``lengths``
+    is None, a list, or "ragged" (valid keys from T/3 to T, the first row
+    full). The library yardstick is one ``scaled_dot_product_attention``
+    call with the same boolean key mask, and its autograd backward."""
+    import torch.nn.functional as F
+
+    from vae_npvc_tpu_torch.ops.attention import (attention_backward_plain,
+                                                  attention_plain,
+                                                  fused_attention,
+                                                  fused_attention_backward)
+
+    dev = torch.device("cuda")
+    q, k, v, do = (
+        (torch.tensor(rng.normal(size=(B, T, H * d)), dtype=torch.float32,
+                      device=dev) * s).to(dtype).reshape(B, T, H, d)
+        .transpose(1, 2) for s in (q_scale, 1.0, 1.0, 1.0))
+    if isinstance(lengths, str):
+        lengths = [T] + rng.integers(T // 3, T + 1, size=B - 1).tolist()
+    n = (torch.tensor(lengths, dtype=torch.int32, device=dev)
+         if lengths else None)
+    valid = [min(max(x, 1), T) for x in lengths] if lengths else [T] * B
+    scale = 1.0 / math.sqrt(d)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fused_attention(qg, kg, vg, n)
+    got = torch.autograd.grad(o, (qg, kg, vg), do)
+    o2 = fused_attention(qg, kg, vg, n)
+    again = torch.autograd.grad(o2, (qg, kg, vg), do)
+    ref_o, ref_lse = attention_plain(q, k, v, n, scale)
+    ref = attention_backward_plain(q, k, v, ref_o, ref_lse, do, n, scale)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    what = f"fused_attention ({B}, {H}, {T}, {d}) lengths={lengths} {name}"
+    if q_scale != 1.0:
+        what += f" q*{q_scale:g}"
+    errs = {}
+    for key, a, b, tol in (("o", o.detach(), ref_o, K4_TOL),
+                           ("dq", got[0], ref[0], K5_TOL),
+                           ("dk", got[1], ref[1], K5_TOL),
+                           ("dv", got[2], ref[2], K5_TOL)):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{what}: {key} shape/dtype differ from the plain version")
+        a, b = a.float(), b.float()
+        check(bool(torch.isfinite(a).all()), f"{what}: {key} not finite")
+        peak = float(b.abs().max()) or 1.0
+        limit = tol * peak if dtype == torch.float32 else \
+            ATTN_TOL_BF16[0] * b.abs() + ATTN_TOL_BF16[1] * peak
+        err = (a - b).abs()
+        # with one-hot softmax rows (q scaled by 1e16) dP - D is rounding
+        # noise times 1e16: those gradients are held to be finite only
+        check(bool((err <= limit).all()) or (q_scale != 1.0 and key != "o"),
+              f"{what}: {key} max err {float(err.max())} (peak {peak})")
+        errs[key] = float(err.max()) / peak
+    check(torch.equal(o, o2) and all(torch.equal(a, b)
+                                     for a, b in zip(got, again)),
+          f"{what}: two runs differ in their bits")
+    if n is not None:
+        pad = (torch.arange(T, device=dev)[None] >= n.clamp(min=1)[:, None])[
+            :, None, :, None]
+        check(bool((got[1].masked_select(pad) == 0).all())
+              and bool((got[2].masked_select(pad) == 0).all()),
+              f"{what}: dk/dv beyond lengths")
+    case = {"B": B, "H": H, "T": T, "d": d, "lengths": lengths,
+            "valid_keys": sum(valid), "dtype": name, "q_scale": q_scale,
+            "max_abs_err": float((o.detach().float()
+                                  - ref_o.float()).abs().max()),
+            "bwd_max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                   for a, b in zip(got, ref)),
+            "err_over_peak": errs, "bit_equal_runs": True}
+    saved_o, saved_lse = o.detach(), ref_lse
+    fwd_args, bwd_args = (q, k, v, n), (q, k, v, saved_o, saved_lse, do, n)
+
+    def fwd(q, k, v, n):
+        return fused_attention(q, k, v, n)
+
+    def bwd(q, k, v, o, lse, do, n):
+        return fused_attention_backward(q, k, v, o, lse, do, n)
+
+    case["ms"], case["ms_events"] = timed(torch, fwd, [fwd_args], iters)
+    case["ms_l2_cold"], _ = timed(torch, fwd, l2_cold(fwd_args), iters)
+    case["plain_ms"], _ = timed(
+        torch, lambda q, k, v, n: attention_plain(q, k, v, n, scale),
+        [fwd_args], iters)
+    case["bwd_ms"], case["bwd_ms_events"] = timed(torch, bwd, [bwd_args],
+                                                  iters)
+    case["bwd_ms_l2_cold"], _ = timed(torch, bwd, l2_cold(bwd_args), iters)
+    case["bwd_plain_ms"], _ = timed(
+        torch, lambda q, k, v, o, lse, do, n: attention_backward_plain(
+            q, k, v, o, lse, do, n, scale), [bwd_args], iters)
+    # the library's call on the same values, timed as a yardstick only
+    mask = None
+    if n is not None:
+        mask = (torch.arange(T, device=dev)[None] < n.clamp(min=1)[:, None])[
+            :, None, None, :]
+    case["library_ms"], _ = timed(
+        torch, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), [(q, k, v)], iters)
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    case["bwd_library_ms"], _ = timed(
+        torch, lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                           retain_graph=True), [()], iters)
+    item = q.element_size()
+    case["bound_ms"], case["bound_by"] = attn_bound_ms(H, T, d, item, valid)
+    case["bwd_bound_ms"], case["bwd_bound_by"] = attn_bound_ms(
+        H, T, d, item, valid, backward=True)
+    return case
+
+
 def phase_kernels(torch):
     rng = np.random.default_rng(0)
     # ids mode at the serving path's row counts: B=8 x bucket 256, B=8 x
@@ -420,9 +581,24 @@ def phase_kernels(torch):
         gnb.append(_gnb_case(torch, 1, 512, 512, 1, False, [397], dtype, rng))
     gnb.append(_gnb_case(torch, 3, 77, 96, 3, False, [77, 5, 40],
                          torch.float32, rng))       # ragged T, odd widths
+    # the synthesizer's shapes: encoder and decoder of a training batch
+    # (B = 32, ragged lengths), one decoded utterance, and odd sizes
+    attn = []
+    for dtype in (torch.float32, torch.bfloat16):
+        attn.append(_attn_case(torch, 32, 4, 192, 96, "ragged", dtype, rng,
+                               iters=10))
+        attn.append(_attn_case(torch, 32, 4, 768, 96, "ragged", dtype, rng,
+                               iters=10))
+        attn.append(_attn_case(torch, 1, 4, 768, 96, None, dtype, rng))
+        attn.append(_attn_case(torch, 1, 4, 192, 96, [150], dtype, rng))
+        attn.append(_attn_case(torch, 1, 4, 100, 96, [77], dtype, rng))
+        attn.append(_attn_case(torch, 3, 1, 257, 48, [257, 1, 130], dtype,
+                               rng))
+    attn.append(_attn_case(torch, 2, 2, 96, 32, [96, 1], torch.float32, rng,
+                           q_scale=1e16))
     emit({"phase": "kernels", "vq_fused": vq, "fused_group_norm": gn,
-          "fused_group_norm_backward": gnb})
-    return vq, gn, gnb
+          "fused_group_norm_backward": gnb, "fused_attention": attn})
+    return vq, gn, gnb, attn
 
 
 def phase_golden(torch):
@@ -579,7 +755,9 @@ def _kernel_class(name):
     counts as the forward's here; ``device_ms_by_operator`` splits the two
     by the autograd Function that launched them."""
     n = name.lower()
-    for key, cls in (("::gn_bwd", "fused_group_norm_backward"),
+    for key, cls in (("::attn_fwd", "fused_attention"),
+                     ("::attn_bwd", "fused_attention_backward"),
+                     ("::gn_bwd", "fused_group_norm_backward"),
                      ("::gn_", "fused_group_norm"), ("::vq_", "vq_fused"),
                      ("fft", "fft"), ("memcpy", "memcpy"),
                      ("fprop", "conv"), ("dgrad", "conv"), ("wgrad", "conv"),
@@ -979,6 +1157,299 @@ def phase_train(torch):
     return launches
 
 
+def _tts_free_leaf(key):
+    """Parameters whose gradient is zero in exact arithmetic (the key
+    projection's bias, which shifts every score of a softmax row alike, and
+    the direction-only ``v`` of a weight-normalized conv with one input
+    channel): Adam turns their rounding-noise gradients into steps of the
+    size of the learning rate, in a direction that differs between
+    frameworks, and the loss does not see them."""
+    return key.startswith("model/") and key.endswith(
+        ("mha/linear_k/bias", "pitch_proj/v", "energy_proj/v"))
+
+
+def phase_tts_golden(torch):
+    """The port on the card against the committed JAX fixture of a small
+    transformer synthesizer: ``infer`` from the JAX checkpoint (attention
+    forward kernel), then six ``Trainer`` steps (forward and backward
+    kernels) against JAX's per-step losses and gradient norm and its final
+    parameters and Adam moments."""
+    from vae_npvc_tpu_torch.ops.attention import (fused_attention,
+                                                  fused_attention_backward)
+    from vae_npvc_tpu_torch.train import build_trainer
+    from vae_npvc_tpu_torch.utils import msgpack_io
+
+    cfg = json.loads((FIXTURES / "tts_golden_config.json").read_text())
+    g = np.load(FIXTURES / "tts_golden.npz")
+    names = ("tokens", "durations", "mels", "spks", "tok_lens", "mel_lens")
+    steps = len(g["detail/Total"])
+    tr = build_trainer(cfg, device="cuda")
+    tr.load_checkpoint(FIXTURES / "tts_golden.msgpack")
+    counts0 = (fused_attention.launches, fused_attention_backward.launches)
+    with torch.no_grad():
+        mel, lens = tr.model.infer(*(
+            torch.as_tensor(g[f"{k}_0"], device=tr.device)
+            for k in ("tokens", "spks", "tok_lens")))
+    mel, lens = mel.cpu().numpy(), lens.cpu().numpy()
+    check(lens.tolist() == g["infer/mel_lens"].tolist(),
+          f"tts_golden: mel_lens {lens.tolist()}, JAX "
+          f"{g['infer/mel_lens'].tolist()}")
+    mel_err = float(np.abs(mel - g["infer/mel"]).max())
+    check(mel_err <= 1e-4, f"tts_golden: mel differs from JAX by {mel_err}")
+    worst = {}
+    for i in range(steps):
+        detail = tr.train_step(tuple(g[f"{k}_{i}"] for k in names))
+        for k in ("Total", "X like", "X pre like", "DUR loss", "PITCH loss",
+                  "ENERGY loss", "grad_norm"):
+            want = float(g["detail/" + k][i])
+            rel = abs(float(detail[k]) - want) / max(abs(want), 1e-12)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            check(rel <= GOLDEN_LOSS_RTOL,
+                  f"tts_golden: step {i + 1} {k} {float(detail[k])}, JAX "
+                  f"{want}")
+        check(float(detail["skipped_nonfinite"]) == 0.0,
+              f"tts_golden: step {i + 1} skipped")
+    blocks = cfg["elayers"] + cfg["dlayers"]
+    launched = (fused_attention.launches - counts0[0],
+                fused_attention_backward.launches - counts0[1])
+    check(launched == (blocks * (1 + steps), blocks * steps),
+          f"tts_golden: launches {launched}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tr.save_checkpoint(Path(tmp) / "final")
+        got = _leaves(msgpack_io.msgpack_restore(
+            (Path(tmp) / "final").read_bytes()))
+    want = _leaves(msgpack_io.msgpack_restore(
+        (FIXTURES / "tts_golden_final.msgpack").read_bytes()))
+    check(set(got) == set(want), "tts_golden: checkpoint trees differ")
+    atol, rtol = GOLDEN_STATE_TOL
+    reach = 2 * steps * cfg["learning_rate"]
+    state_err = 0.0
+    for k in want:
+        a, b = got[k].astype(np.float64), want[k].astype(np.float64)
+        check(a.shape == b.shape, f"tts_golden: {k} shape {a.shape}")
+        err = np.abs(a - b)
+        if _tts_free_leaf(k):
+            check(bool(np.all(err <= reach)), f"tts_golden: {k} beyond the "
+                  f"reach of {steps} steps")
+            continue
+        state_err = max(state_err, float(err.max()) if err.size else 0.0)
+        check(bool(np.all(err <= atol + rtol * np.abs(b))),
+              f"tts_golden: {k} differs from JAX by {float(err.max())}")
+    emit({"phase": "tts_golden", "steps": steps, "mel_max_abs_err": mel_err,
+          "mel_tolerance": 1e-4, "mel_lens": lens.tolist(),
+          "worst_rel_err": worst, "loss_rtol": GOLDEN_LOSS_RTOL,
+          "state_leaves": len(want), "state_max_abs_err": state_err,
+          "state_atol_rtol": list(GOLDEN_STATE_TOL),
+          "launches_fwd_bwd": list(launched)})
+
+
+def _token_mel_corpus(root, n_utts, seed):
+    """A token-mel directory at the recipe's sizes: up to 192 tokens of 1-6
+    frames each (at most 768 frames), mels that are a fixed pattern per
+    token plus a speaker offset and noise, so they can be learned."""
+    from vae_npvc_tpu_torch.data.token_mel import write_token_mel_dir
+
+    rng = np.random.default_rng(seed)
+    D, L, T = TTS["mel_dim"], TTS["max_tokens"], TTS["max_frames"]
+    pattern = rng.normal(0, 1.0, size=(TTS["token_num"], D))
+    spk_offset = rng.normal(0, 0.3, size=(TTS["y_num"], D))
+    items = []
+    for i in range(n_utts):
+        n = L if i % 4 == 0 else int(rng.integers(L // 3, L + 1))
+        toks = rng.integers(0, TTS["token_num"], size=n)
+        durs = rng.integers(1, 7, size=n)
+        while durs.sum() > T:
+            durs[int(np.argmax(durs))] -= 1
+        spk = int(rng.integers(0, TTS["y_num"]))
+        mel = np.repeat(pattern[toks], durs, axis=0) + spk_offset[spk] \
+            + 0.1 * rng.normal(size=(int(durs.sum()), D))
+        items.append((f"utt{i:04d}", toks, durs, mel.astype(np.float32), spk))
+    write_token_mel_dir(root, items)
+    return items
+
+
+def phase_tts(torch):
+    """The recipe's transformer synthesizer at full width, fp32, seeded
+    random weights, on a synthetic token-mel corpus: ``bin/decode_tts``
+    over eight utterances (B = 1, L = 192, T = 768; one utterance held
+    against the CPU), then ``TTS_STEPS`` optimizer steps at B = 32 from
+    ``TokenMelDataset`` batches through ``Trainer``, a save/load round trip,
+    one profiled step, and a few steps in bf16. Returns the attention
+    kernels' launch counts of the decode and of the fp32 steps."""
+    from vae_npvc_tpu_torch.bin import decode_tts
+    from vae_npvc_tpu_torch.data import kaldi_io
+    from vae_npvc_tpu_torch.data.token_mel import (TokenMelDataset,
+                                                   parse_token_line)
+    from vae_npvc_tpu_torch.ops.attention import (fused_attention,
+                                                  fused_attention_backward)
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    cfg = dict(TTS)
+    B, L, T = cfg["batch_size"], cfg["max_tokens"], cfg["max_frames"]
+    blocks = cfg["elayers"] + cfg["dlayers"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _token_mel_corpus(root / "train", 2 * B, seed=5)
+        dataset = TokenMelDataset(root / "train", cfg)
+        conf = root / "conf.json"
+        conf.write_text(json.dumps(cfg))
+        tr = build_trainer(cfg, device="cuda")
+        tr.init_state()
+        with torch.no_grad():    # predicted durations of about three frames
+            tr.model.dur_1.b.fill_(1.3)
+        tr.save_checkpoint(root / "iter.0")
+
+        # ------------------------------------------------------- decode
+        lines = kaldi_io.load_dict_data(root / "train" / "tokens.txt")
+        utts = list(lines)[:TTS_DECODE_UTTS]
+        (root / "text").write_text(
+            "".join(f"{u} {lines[u]}\n" for u in utts))
+        args = ["-c", str(conf), "--checkpoint", str(root / "iter.0"),
+                "--tokens", str(root / "text"), "--spk", "3"]
+        decode_tts.main(args + ["--output-dir", str(root / "warm")])
+        torch.cuda.synchronize()
+        fused_attention.launches = 0
+        fused_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        decode_tts.main(args + ["--output-dir", str(root / "dec")])
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(utts)
+        decode_launches = (fused_attention.launches,
+                           fused_attention_backward.launches)
+        check(decode_launches == (blocks * len(utts), 0),
+              f"tts: decode launches {decode_launches}")
+        scp = kaldi_io.load_dict_data(root / "dec" / "feats.scp")
+        check(list(scp) == utts, f"tts: decoded {list(scp)}")
+        frames = []
+        for u in utts:
+            m = kaldi_io.load_mat(scp[u])
+            check(m.ndim == 2 and m.shape[1] == cfg["mel_dim"]
+                  and 0 < m.shape[0] <= T and bool(np.isfinite(m).all()),
+                  f"tts: decoded {u} has shape {m.shape}")
+            frames.append(int(m.shape[0]))
+        # the first utterance on the CPU (plain attention) from the same file
+        cpu = decode_tts.load_model(cfg, root / "iter.0", "cpu")
+        toks = parse_token_line(lines[utts[0]])[:L]
+        pad = np.zeros((1, L), np.int32)
+        pad[0, :len(toks)] = toks
+        with torch.inference_mode():
+            ref, ref_len = cpu.infer(
+                torch.from_numpy(pad), torch.tensor([3], dtype=torch.int32),
+                torch.tensor([len(toks)], dtype=torch.int32))
+        ref = ref[0, :int(ref_len[0])].numpy()
+        got = kaldi_io.load_mat(scp[utts[0]])
+        check(got.shape == ref.shape,
+              f"tts: decoded {got.shape} frames, the CPU {ref.shape}")
+        peak = float(np.abs(ref).max())
+        decode_err = float(np.abs(got - ref).max())
+        check(decode_err <= 1e-3 * peak,
+              f"tts: decoded mel differs from the CPU by {decode_err} "
+              f"(peak {peak})")
+        gpu_model = decode_tts.load_model(cfg, root / "iter.0", "cuda")
+        ids = (torch.as_tensor(pad, device="cuda"),
+               torch.tensor([3], dtype=torch.int32, device="cuda"),
+               torch.tensor([len(toks)], dtype=torch.int32, device="cuda"))
+
+        def one_infer():
+            with torch.inference_mode():
+                gpu_model.infer(*ids)
+
+        one_infer()
+        infer_profile = _profiled(torch, one_infer)
+        del gpu_model, cpu
+
+        # ------------------------------------------------------ training
+        batches = dataset.batches(B, shuffle=True, seed=cfg["seed"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_attention.launches = 0
+        fused_attention_backward.launches = 0
+        details, times = [], []
+        for _ in range(TTS_STEPS):
+            batch = next(batches)
+            t0 = time.perf_counter()
+            details.append(tr.train_step(batch))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        train_launches = (fused_attention.launches,
+                          fused_attention_backward.launches)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        detail = {k: torch.stack([d[k] for d in details]).float().cpu()
+                  .numpy() for k in details[0]}
+        check(tr.iteration == TTS_STEPS, f"tts: {tr.iteration} steps")
+        for k, v in detail.items():
+            check(bool(np.all(np.isfinite(v))), f"tts: {k} not finite: {v}")
+        check(float(detail["skipped_nonfinite"].sum()) == 0.0,
+              f"tts: steps skipped: {detail['skipped_nonfinite']}")
+        first, last = detail["X like"][:3].mean(), detail["X like"][-3:].mean()
+        check(last < first, f"tts: X like {first} -> {last} did not fall")
+        check(train_launches == (blocks * TTS_STEPS, blocks * TTS_STEPS),
+              f"tts: launches {train_launches} over {TTS_STEPS} steps")
+
+        ckpt = root / f"iter.{TTS_STEPS}"
+        tr.save_checkpoint(ckpt)
+        other = build_trainer(cfg, device="cuda")
+        check(other.load_checkpoint(ckpt) == TTS_STEPS, "tts: iteration")
+        batch = next(batches)
+        a = float(tr.train_step(batch)["Total"])
+        b = float(other.train_step(batch)["Total"])
+        check(math.isfinite(a) and abs(a - b) <= 1e-6 * abs(a),
+              f"tts: next step {a}, after save/load {b}")
+        del other
+        batch = next(batches)
+        profile = _profiled(torch, lambda: tr.train_step(batch))
+
+        # ------------------------------------------------ a few bf16 steps
+        cfg16 = dict(cfg, compute_dtype="bfloat16")
+        tr16 = build_trainer(cfg16, device="cuda")
+        tr16.init_state()
+        f0, b0 = fused_attention.launches, fused_attention_backward.launches
+        times16, total16 = [], []
+        for _ in range(TTS_BF16_STEPS):
+            batch = next(batches)
+            t0 = time.perf_counter()
+            d16 = tr16.train_step(batch)
+            torch.cuda.synchronize()
+            times16.append((time.perf_counter() - t0) * 1e3)
+            total16.append(float(d16["Total"]))
+            check(math.isfinite(total16[-1])
+                  and float(d16["skipped_nonfinite"]) == 0.0,
+                  f"tts: bf16 step {total16}")
+        check((fused_attention.launches - f0,
+               fused_attention_backward.launches - b0)
+              == (blocks * TTS_BF16_STEPS,) * 2, "tts: bf16 launches")
+    steady = float(np.mean(times[2:]))
+    emit({"phase": "tts", "config": "train_token_tts_transformer.yaml",
+          "dtype": "float32", "parameters": int(tr.flat.numel()),
+          "utterances": len(dataset),
+          "decode": {"utterances": len(utts), "B": 1, "L": L, "T": T,
+                     "ms_per_utterance": decode_ms, "frames": frames,
+                     "launches": decode_launches[0],
+                     "launches_per_infer": blocks,
+                     "mel_max_abs_err_vs_cpu": decode_err, "mel_peak": peak,
+                     "one_infer_profile": infer_profile},
+          "train": {"steps": TTS_STEPS, "B": B, "L": L, "T": T,
+                    "step_ms": [round(t, 3) for t in times],
+                    "ms_per_step": steady,
+                    "frames_per_s": B * T / steady * 1e3,
+                    "peak_memory_bytes": peak_bytes,
+                    "x_like_first3": float(first),
+                    "x_like_last3": float(last),
+                    "total": [float(v) for v in detail["Total"]],
+                    "grad_norm_first_last": [float(detail["grad_norm"][0]),
+                                             float(detail["grad_norm"][-1])],
+                    "launches_fwd_bwd": list(train_launches),
+                    "launches_per_step": [blocks, blocks],
+                    "next_step_total": a, "next_step_total_after_load": b,
+                    "one_step_profile": profile},
+          "train_bf16": {"steps": TTS_BF16_STEPS,
+                         "step_ms": [round(t, 3) for t in times16],
+                         "ms_per_step": float(np.mean(times16[1:])),
+                         "total": total16}})
+    return {"fused_attention": decode_launches[0] + train_launches[0],
+            "fused_attention_backward": train_launches[1]}
+
+
 def main():
     import torch
 
@@ -992,12 +1463,14 @@ def main():
 
     resolve_device("cuda")
     smi = phase_build(torch)
-    vq, gn, gnb = phase_kernels(torch)
+    vq, gn, gnb, attn = phase_kernels(torch)
     phase_golden(torch)
     launches = phase_serve(torch)
     phase_grad_fp32(torch)
     phase_train_golden(torch)
     train_launches = phase_train(torch)
+    phase_tts_golden(torch)
+    tts_launches = phase_tts(torch)
 
     vq_main = vq[0]
     gn_main = next(c for c in gn if (c["T"], c["C"]) == (256, 1024)
@@ -1012,6 +1485,20 @@ def main():
     # library call (autograd's backward of F.group_norm)
     gnb_enc = next(c for c in gnb if (c["B"], c["C"]) == (128, 512)
                    and c["dtype"] == "bfloat16")
+    # the synthesizer's shapes in fp32, the recipe's type: a training batch's
+    # decoder (32, 4, 768, 96) and encoder (32, 4, 192, 96) attention with
+    # ragged lengths, and one decoded utterance's decoder (1, 4, 768, 96)
+    def attn_case(B, T):
+        return next(c for c in attn if (c["B"], c["T"], c["d"]) == (B, T, 96)
+                    and c["dtype"] == "float32")
+
+    attn_dec, attn_enc, attn_one = (attn_case(32, 768), attn_case(32, 192),
+                                    attn_case(1, 768))
+    fwd_keys = ("B", "T", "valid_keys", "ms", "ms_l2_cold", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    bwd_keys = ("B", "T", "valid_keys", "bwd_ms", "bwd_ms_l2_cold",
+                "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by",
+                "bwd_library_ms", "bwd_max_abs_err")
     emit({"kernels": [
         {"name": "vq_fused", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/vq.cu",
@@ -1049,6 +1536,28 @@ def main():
          "encoder_shape": {k: gnb_enc[k] for k in (
              "B", "T", "C", "ms", "ms_l2_cold", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "max_abs_err")}},
+        {"name": "fused_attention", "route": "cuda",
+         "source": "vae_npvc_tpu_torch/csrc/attention.cu",
+         "replaces": "vae_npvc_tpu/ops/attention_pallas.py:121",
+         "launches": tts_launches["fused_attention"],
+         "max_abs_err": attn_dec["max_abs_err"], "ms": attn_dec["ms"],
+         "ms_l2_cold": attn_dec["ms_l2_cold"],
+         "plain_ms": attn_dec["plain_ms"], "bound_ms": attn_dec["bound_ms"],
+         "bound_by": attn_dec["bound_by"],
+         "library_ms": attn_dec["library_ms"],
+         "encoder_shape": {k: attn_enc[k] for k in fwd_keys},
+         "decode_shape": {k: attn_one[k] for k in fwd_keys}},
+        {"name": "fused_attention_backward", "route": "cuda",
+         "source": "vae_npvc_tpu_torch/csrc/attention.cu",
+         "replaces": "vae_npvc_tpu/ops/attention_pallas.py:225",
+         "launches": tts_launches["fused_attention_backward"],
+         "max_abs_err": attn_dec["bwd_max_abs_err"], "ms": attn_dec["bwd_ms"],
+         "ms_l2_cold": attn_dec["bwd_ms_l2_cold"],
+         "plain_ms": attn_dec["bwd_plain_ms"],
+         "bound_ms": attn_dec["bwd_bound_ms"],
+         "bound_by": attn_dec["bwd_bound_by"],
+         "library_ms": attn_dec["bwd_library_ms"],
+         "encoder_shape": {k: attn_enc[k] for k in bwd_keys}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

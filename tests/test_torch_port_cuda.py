@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from vae_npvc_tpu_torch.ops.attention import (attention_backward_plain,
+                                              attention_plain,
+                                              fused_attention,
+                                              fused_attention_backward)
 from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
                                               fused_group_norm_backward,
                                               group_norm_backward_plain,
@@ -199,3 +203,117 @@ def test_wrappers_count_launches(dev):
     vq_fused(torch.ones((4, 8), device=dev), torch.ones((3, 8), device=dev),
              stats=False)
     assert vq_fused.launches == v0 + 1
+
+
+# ---------------------------------------------------------------- attention
+ATTN_CASES = [
+    # B, H, T, d, lengths
+    (2, 2, 64, 32, [50, 64]),
+    (1, 4, 100, 96, [77]),
+    (3, 1, 257, 48, [257, 1, 130]),
+    (2, 4, 192, 96, [192, 101]),
+    (2, 4, 768, 96, [700, 768]),
+    (1, 4, 768, 96, None),
+    (2, 1, 130, 128, [64, 65]),
+    (2, 2, 96, 64, None),
+]
+
+
+def _attn_inputs(dev, dtype, B, H, T, d, seed, q_scale=1.0):
+    """q, k, v as (B, H, T, d) views of (B, T, H*d) projections, and a
+    cotangent of the same layout."""
+    rng = np.random.default_rng(seed)
+    return tuple(
+        (torch.tensor(rng.normal(size=(B, T, H * d)), dtype=torch.float32,
+                      device=dev) * s).to(dtype).reshape(B, T, H, d)
+        .transpose(1, 2) for s in (q_scale, 1.0, 1.0, 1.0))
+
+
+def _assert_attn_close(got, ref, dtype, fp32_tol, what):
+    """fp32: summation order only, within ``fp32_tol`` of the peak; bf16: one
+    bf16 ulp (2^-7 relative) plus 2^-8 of the peak where values cancel."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype, what
+    a, b = got.float(), ref.float()
+    assert bool(torch.isfinite(a).all()), what
+    peak = float(b.abs().max()) or 1.0
+    tol = fp32_tol * peak if dtype == torch.float32 \
+        else 2 ** -7 * b.abs() + 2 ** -8 * peak
+    assert bool(((a - b).abs() <= tol).all()), (
+        what, float((a - b).abs().max()), peak)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,d,lengths", ATTN_CASES)
+def test_attention_kernels_match_plain(dev, dtype, B, H, T, d, lengths):
+    q, k, v, do = _attn_inputs(dev, dtype, B, H, T, d, B * T + d)
+    n = (torch.tensor(lengths, dtype=torch.int32, device=dev)
+         if lengths else None)
+    f0, b0 = fused_attention.launches, fused_attention_backward.launches
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fused_attention(qg, kg, vg, n)
+    dq, dk, dv = torch.autograd.grad(o, (qg, kg, vg), do)
+    ref_o, ref_lse = attention_plain(q, k, v, n)
+    ref = attention_backward_plain(q, k, v, ref_o, ref_lse, do, n)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == f0 + 1
+    assert fused_attention_backward.launches == b0 + 1
+    _assert_attn_close(o.detach(), ref_o, dtype, 2e-5, "o")
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        _assert_attn_close(a, b, dtype, 3e-5, name)
+    if n is not None:     # masked keys get no gradient
+        pad = (torch.arange(T, device=dev)[None] >= n[:, None])[:, None, :,
+                                                                 None]
+        assert bool((dk.masked_select(pad) == 0).all())
+        assert bool((dv.masked_select(pad) == 0).all())
+    # fixed summation order: a second run gives the same bits
+    o2 = fused_attention(qg, kg, vg, n)
+    again = torch.autograd.grad(o2, (qg, kg, vg), do)
+    assert torch.equal(o2, o)
+    for a, b in zip((dq, dk, dv), again):
+        assert torch.equal(a, b)
+
+
+def test_attention_kernel_lse_and_contiguous_inputs(dev):
+    q, k, v, do = (t.contiguous() for t in _attn_inputs(
+        dev, torch.float32, 2, 2, 100, 96, 5))
+    n = torch.tensor([100, 37], dtype=torch.int32, device=dev)
+    ref_o, ref_lse = attention_plain(q, k, v, n)
+    from vae_npvc_tpu_torch.ops.attention import _forward
+    o, lse = _forward(q, k, v, n, 1.0 / 96 ** 0.5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    got = fused_attention_backward(q, k, v, o, lse, do, n)
+    ref = attention_backward_plain(q, k, v, ref_o, ref_lse, do, n)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _assert_attn_close(a, b, torch.float32, 3e-5, name)
+
+
+def test_attention_kernel_huge_scores_stay_finite(dev):
+    q, k, v, _ = _attn_inputs(dev, torch.float32, 2, 2, 96, 32, 11,
+                              q_scale=1e16)
+    n = torch.tensor([96, 1], dtype=torch.int32, device=dev)
+    qg = q.detach().requires_grad_(True)
+    o = fused_attention(qg, k, v, n)
+    ref, _ = attention_plain(q, k, v, n)
+    assert bool(torch.isfinite(o).all())
+    # the backward's scores must round as the forward's did: exp(s - lse)
+    # of a score that is off by half an ulp of 1e16 is infinite
+    (dq,) = torch.autograd.grad(o, (qg,), torch.ones_like(o))
+    assert bool(torch.isfinite(dq).all())
+    o = o.detach()
+    # a single valid key: the output is that key's value row
+    torch.testing.assert_close(o[1], v[1, :, :1].expand_as(o[1]))
+    # one-hot softmax rows (score gaps ~1e16): the same argmax on both sides
+    torch.testing.assert_close(o, ref, atol=1e-5 * float(ref.abs().max()),
+                               rtol=0)
+
+
+def test_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((1, 1, 8, 12), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_attention(x, x, x)
+    x = torch.zeros((1, 1, 8, 136), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_attention(x, x, x)
+    x = torch.zeros((1, 1, 8, 16), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fused_attention(x, x, x)

@@ -190,8 +190,10 @@ def test_registry_and_unported_families():
 
     assert get_model_cls("vae_npvc.model.vqvae") is Model
     assert get_model_cls("vqvae") is Model
-    for name in ("vae_npvc.model.vqvae2", "vqvae2b", "vae_npvc.model.vae",
-                 "token_tts"):
+    from vae_npvc_tpu_torch.models.token_tts import Model as TtsModel
+
+    assert get_model_cls("vae_npvc.model.token_tts") is TtsModel
+    for name in ("vae_npvc.model.vqvae2", "vqvae2b", "vae_npvc.model.vae"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model_cls(name)
     with pytest.raises(KeyError):

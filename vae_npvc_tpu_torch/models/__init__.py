@@ -4,11 +4,14 @@ JAX package (``vae_npvc_tpu/models/__init__.py``)."""
 from __future__ import annotations
 
 from ..utils.device import compute_dtype, resolve_device
+from . import token_tts as _token_tts
 from . import vqvae as _vqvae
 
 _REGISTRY = {
     "vae_npvc.model.vqvae": _vqvae.Model,
     "vqvae": _vqvae.Model,
+    "vae_npvc.model.token_tts": _token_tts.Model,
+    "token_tts": _token_tts.Model,
 }
 
 # families of the JAX package not ported yet -> the ROADMAP item that ports
@@ -18,7 +21,6 @@ _NOT_PORTED = {
     "vqvae2a": "Queue A, hierarchical family",
     "vqvae2b": "Queue A, hierarchical family",
     "vae": "Queue A, other families and trainers",
-    "token_tts": "Queue A, token TTS",
 }
 
 
@@ -42,12 +44,14 @@ def codebook_renorm_fn(config):
     model (the JAX package's ``codebook_renorm_fn``): a ``model -> None``
     function that snaps ``quantizer_embedding`` to unit rows in place
     (renorm first, gradients at the renormed point, update applied to the
-    renormed value), or ``None`` for the EMA path and ``embed_norm: false``.
+    renormed value), or ``None`` for the EMA path, ``embed_norm: false``
+    and models without a codebook (token TTS).
     """
     import torch
 
-    get_model_cls(config.get("model_type", "vae_npvc.model.vqvae"))
-    if config.get("use_ema", False) or not config.get("embed_norm", True):
+    cls = get_model_cls(config.get("model_type", "vae_npvc.model.vqvae"))
+    if cls is not _vqvae.Model or config.get("use_ema", False) \
+            or not config.get("embed_norm", True):
         return None
 
     def renorm(model):

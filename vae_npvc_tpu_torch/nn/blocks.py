@@ -2,9 +2,10 @@
 
 Counterpart of ``vae_npvc_tpu/nn/blocks.py``. Parameter names and shapes
 are the flax ones (``v`` (K, in, out), ``g``, ``b``; ``scale``/``bias``;
-``embedding``), so a ``state_dict`` maps one to one onto the JAX variable
-tree (utils/bridge.py). Convolutions transpose to PyTorch's (B, C, T)
-inside and back.
+``embedding``; ``kernel`` (in, out) for ``Dense``), so a ``state_dict`` maps
+one to one onto the JAX variable tree (utils/bridge.py). Convolutions
+transpose to PyTorch's (B, C, T) inside and back. ``Dense``, ``LayerNorm``
+and ``Embed`` stand in for the flax modules of those names.
 
 Casts follow the JAX package: weight norm in fp32 as a channel scale, the
 conv in the compute dtype, ``(y + b)`` in fp32 then cast to the compute
@@ -29,6 +30,19 @@ def length_mask(lengths, T, dtype=torch.float32):
     """(B,) lengths -> (B, T, 1) {0, 1} mask."""
     t = torch.arange(T, device=lengths.device)
     return (t[None, :] < lengths[:, None]).to(dtype)[:, :, None]
+
+
+def sinusoidal_positions(length, dim, device=None):
+    """(length, dim) fixed sinusoidal position table in fp32: sin on the
+    even columns, cos on the odd ones."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    angles = pos * div[None, :]
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angles)
+    pe[:, 1::2] = torch.cos(angles[:, :dim // 2])
+    return pe
 
 
 def group_norm(x, scale, bias, num_groups, eps=1e-5, lengths=None,
@@ -212,6 +226,69 @@ class Conditions(nn.Module):
             table = table / torch.linalg.vector_norm(table, dim=1,
                                                      keepdim=True)
         return table[idx.long()].to(self.dtype)
+
+
+class Dense(nn.Module):
+    """``x @ kernel + bias`` in the compute dtype; ``kernel`` is (in, out)
+    as flax stores it."""
+
+    def __init__(self, in_features, features, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def init_(self, gen):
+        with torch.no_grad():
+            self.kernel.copy_(torch.randn(self.kernel.shape, generator=gen)
+                              / math.sqrt(self.kernel.shape[0]))
+            self.bias.zero_()
+
+    def forward(self, x):
+        return x.to(self.dtype) @ self.kernel.to(self.dtype) \
+            + self.bias.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with flax's defaults: epsilon 1e-6 (not
+    torch's 1e-5), variance as ``E[x^2] - E[x]^2`` clamped at 0, statistics
+    and output in fp32 whatever the input's dtype."""
+
+    def __init__(self, features, eps=1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def init_(self, gen):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
+
+
+class Embed(nn.Module):
+    """Embedding table lookup (fp32 rows)."""
+
+    def __init__(self, num, features):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num, features))
+
+    def init_(self, gen):
+        with torch.no_grad():
+            self.embedding.copy_(
+                torch.randn(self.embedding.shape, generator=gen)
+                / math.sqrt(self.embedding.shape[1]))
+
+    def forward(self, idx):
+        return self.embedding[idx.long()]
 
 
 def init_parameters(module, seed):

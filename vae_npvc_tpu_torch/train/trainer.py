@@ -5,7 +5,11 @@ Counterpart of the core of ``vae_npvc_tpu/train/trainer.py`` (``Trainer``:
 ``grad_accum``, ``valid``, ``stage_dataset`` + ``train_steps_indices``,
 ``save_checkpoint`` / ``load_checkpoint`` in the JAX checkpoint format).
 Meshes, model-axis sharding and multi-host assembly belong to the parallel
-slice.
+slice. It drives any registered model: the flat VQ-VAE with its EMA
+codebook and ``(feats, spks)`` batches, and models without EMA state such
+as the token->mel synthesizer with its six-entry batches (``tokens,
+durations, mels, spks, tok_lens, mel_lens``); a batch is a tuple the model's
+``forward`` takes entry by entry.
 
 One step, in the JAX trainer's order: renorm (plain VQ only) -> forward and
 gradient -> clip -> optimizer -> guard. Every parameter lives in one flat
@@ -52,6 +56,8 @@ class Trainer:
         self.config = config
         self.model = build_model(config, device)
         self.device = next(self.model.parameters()).device
+        # models without an EMA collection carry use_ema = False
+        self.has_ema = bool(getattr(self.model, "use_ema", False))
         self.tx = build_optimizer(config)
         self.seed = int(config.get("seed", 777) if seed is None else seed)
         self.gen = torch.Generator(device=self.device)
@@ -85,7 +91,7 @@ class Trainer:
         state at step 0. ``example_batch`` is accepted for the JAX
         trainer's signature; the port's shapes come from the config."""
         self.model.init_random(self.seed)
-        if self.model.use_ema:
+        if self.has_ema:
             q = self.model.quantizer
             q.set_state(ema_vq_init(*q.emb.shape, device=self.device))
         self._flatten_parameters()
@@ -109,8 +115,8 @@ class Trainer:
     def _loss_and_grad(self, batch, ema_state=None):
         """Flat gradient, the pending EMA state and the detail of one
         (micro)batch."""
-        _, loss, detail = self.model(*batch, True, gen=self.gen,
-                                     ema_state=ema_state)
+        kwargs = {"ema_state": ema_state} if self.has_ema else {}
+        _, loss, detail = self.model(*batch, True, gen=self.gen, **kwargs)
         grads = torch.autograd.grad(loss, self.params)
         flat_g = torch.cat([g.float().reshape(-1) for g in grads])
         detail = {k: v.detach() for k, v in detail.items()}
@@ -132,7 +138,7 @@ class Trainer:
                 f"grad_accum={k} requires the batch size to be divisible; "
                 f"got {B}")
         self._begin_step()
-        ema = self.model.quantizer.state() if self.model.use_ema else None
+        ema = self.model.quantizer.state() if self.has_ema else None
         gsum, details = None, []
         for i in range(k):
             mb = tuple(a[i * (B // k):(i + 1) * (B // k)] for a in batch)
@@ -166,8 +172,11 @@ class Trainer:
         return detail
 
     def train_step(self, batch):
-        """One optimizer step. ``batch`` = (feats[B, T, D], spks[B]) numpy
-        arrays or tensors. Returns the loss detail as device scalars."""
+        """One optimizer step. ``batch`` is the tuple of numpy arrays or
+        tensors the model's ``forward`` takes: (feats[B, T, D], spks[B]) for
+        the VQ-VAE, (tokens, durations, mels, spks, tok_lens, mel_lens) for
+        the token->mel synthesizer. Returns the loss detail as device
+        scalars."""
         self._require_state()
         batch = self._to_device(batch)
         if self.grad_accum > 1:

@@ -5,6 +5,12 @@ The layer layouts are those of ``vae_npvc_tpu/utils/torch_export.py``
 (lines 12-22), kept as they are: a weight-normalized conv stores ``v``
 (K, in, out), ``g`` and ``b``; GroupNorm ``scale``/``bias``; the speaker
 table ``embedding``; the EMA codebook ``initted/emb/emb_sum/emb_elem``. The
+token->mel synthesizer adds flax's own layers under their flax names: Dense
+``kernel`` (in, out) and ``bias`` (``spk_emb_proj``, and in every
+``enc_{j}``/``dec_{j}`` block ``mha/linear_{q,k,v,out}``, ``ffn_in``,
+``ffn_out``), LayerNorm ``scale``/``bias`` (``ln_attn``, ``ln_ffn``) and
+Embed ``embedding`` (``tok_embed``, ``spk_embed``); its checkpoints carry an
+empty ``ema`` collection. The
 port's modules use the flax names, so a ``state_dict`` key is the flax path
 joined with dots (``encoder.stack_0_0.conv_0.v``) and the bridge only
 flattens and converts. The ``ema`` collection's roots (``quantizer``) sit
