@@ -85,13 +85,14 @@ TTS = {
     "postnet_layers": 3, "variance_predictor": True, "var_weight": 0.1,
     "use_spk_embed": False, "spk_embed_dim": 64,
 }
-TTS_STEPS, TTS_BF16_STEPS, TTS_DECODE_UTTS = 10, 4, 8
+TTS_STEPS, TTS_BF16_STEPS, TTS_DECODE_UTTS = 10, 6, 8
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32
-# operations/s outside the tensor cores, bf16 operations/s in them
+# operations/s outside the tensor cores, bf16 and TF32 operations/s in them
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 # twice the H100's 50 MB L2: inputs cycled through this much come from HBM
 L2_COLD_BYTES = 100 * 2 ** 20
 
@@ -176,22 +177,30 @@ def _bound(byt, ops, ops_per_s=FP32_OPS_PER_S):
         "bytes" if t_bytes > t_ops else "operations")
 
 
-def attn_bound_ms(H, T, d, itemsize, valid, backward=False):
+def attn_bound_ms(H, T, d, itemsize, valid, backward=False, fma=False):
     """Least time for the masked attention: max(bytes, operations).
-    ``valid`` lists each batch row's valid keys; masked keys need no work.
-    Forward: q, k, v read, o and the log-sum-exp written, two products of
-    2*T*keys*d operations per head. Backward: q, k, v, o, dO and the
-    log-sum-exp read, dq, dk, dv written, five such products. fp32 runs at
-    the FMA rate, bf16 at the tensor cores' rate."""
+    ``valid`` lists each batch row's valid keys; masked keys need no work
+    and their k and v rows are never read. Forward: q read and o and the
+    log-sum-exp written for all T rows, k and v read for the valid keys,
+    two products of 2*T*keys*d operations per head. Backward: q, o, dO and
+    the log-sum-exp read and dq, dk, dv written for all T rows, k and v read
+    for the valid keys, five such products. bf16 runs at the tensor cores'
+    bf16 rate; fp32 as 3xTF32, three TF32 products for each, or with ``fma``
+    at the fp32 FMA rate (the bound of an fp32 kernel without tensor
+    cores)."""
     B = len(valid)
     n = B * H * T * d
+    kv = 2 * H * d * sum(valid)
     pairs = H * T * d * sum(valid)
     if backward:
-        byt, ops = 8 * n * itemsize + 4 * B * H * T, 10 * pairs
+        byt, ops = (6 * n + kv) * itemsize + 4 * B * H * T, 10 * pairs
     else:
-        byt, ops = 4 * n * itemsize + 4 * B * H * T, 4 * pairs
-    return _bound(byt, ops, BF16_OPS_PER_S if itemsize == 2
-                  else FP32_OPS_PER_S)
+        byt, ops = (2 * n + kv) * itemsize + 4 * B * H * T, 4 * pairs
+    if itemsize == 2:
+        return _bound(byt, ops, BF16_OPS_PER_S)
+    if fma:
+        return _bound(byt, ops, FP32_OPS_PER_S)
+    return _bound(byt, 3 * ops, TF32_OPS_PER_S)
 
 
 def vq_bound_ms(N, K, D, stats=False):
@@ -540,6 +549,11 @@ def _attn_case(torch, B, H, T, d, lengths, dtype, rng, q_scale=1.0,
     case["bound_ms"], case["bound_by"] = attn_bound_ms(H, T, d, item, valid)
     case["bwd_bound_ms"], case["bwd_bound_by"] = attn_bound_ms(
         H, T, d, item, valid, backward=True)
+    if dtype == torch.float32:
+        case["fma_bound_ms"], _ = attn_bound_ms(H, T, d, item, valid,
+                                                fma=True)
+        case["bwd_fma_bound_ms"], _ = attn_bound_ms(H, T, d, item, valid,
+                                                    backward=True, fma=True)
     return case
 
 
@@ -594,8 +608,16 @@ def phase_kernels(torch):
         attn.append(_attn_case(torch, 1, 4, 100, 96, [77], dtype, rng))
         attn.append(_attn_case(torch, 3, 1, 257, 48, [257, 1, 130], dtype,
                                rng))
-    attn.append(_attn_case(torch, 2, 2, 96, 32, [96, 1], torch.float32, rng,
-                           q_scale=1e16))
+    for dtype in (torch.float32, torch.bfloat16):
+        attn.append(_attn_case(torch, 2, 2, 96, 32, [96, 1], dtype, rng,
+                               q_scale=1e16))
+    # head dims that are not multiples of 16 (zero-padded in shared memory),
+    # and a small grid (B*H*ceil(T/64) = 72 blocks of 64 on 132 SMs)
+    attn.append(_attn_case(torch, 2, 2, 64, 8, [64, 1], torch.bfloat16, rng))
+    attn.append(_attn_case(torch, 2, 3, 100, 40, [100, 33], torch.bfloat16,
+                           rng))
+    attn.append(_attn_case(torch, 3, 4, 384, 64, [384, 200, 1],
+                           torch.bfloat16, rng))
     emit({"phase": "kernels", "vq_fused": vq, "fused_group_norm": gn,
           "fused_group_norm_backward": gnb, "fused_attention": attn})
     return vq, gn, gnb, attn
@@ -1274,8 +1296,9 @@ def phase_tts(torch):
     over eight utterances (B = 1, L = 192, T = 768; one utterance held
     against the CPU), then ``TTS_STEPS`` optimizer steps at B = 32 from
     ``TokenMelDataset`` batches through ``Trainer``, a save/load round trip,
-    one profiled step, and a few steps in bf16. Returns the attention
-    kernels' launch counts of the decode and of the fp32 steps."""
+    one profiled step, and a few steps in bf16 and one profiled. Returns
+    the attention kernels' launch counts of the decode and of the fp32
+    steps."""
     from vae_npvc_tpu_torch.bin import decode_tts
     from vae_npvc_tpu_torch.data import kaldi_io
     from vae_npvc_tpu_torch.data.token_mel import (TokenMelDataset,
@@ -1418,6 +1441,8 @@ def phase_tts(torch):
         check((fused_attention.launches - f0,
                fused_attention_backward.launches - b0)
               == (blocks * TTS_BF16_STEPS,) * 2, "tts: bf16 launches")
+        batch = next(batches)
+        profile16 = _profiled(torch, lambda: tr16.train_step(batch))
     steady = float(np.mean(times[2:]))
     emit({"phase": "tts", "config": "train_token_tts_transformer.yaml",
           "dtype": "float32", "parameters": int(tr.flat.numel()),
@@ -1445,7 +1470,8 @@ def phase_tts(torch):
           "train_bf16": {"steps": TTS_BF16_STEPS,
                          "step_ms": [round(t, 3) for t in times16],
                          "ms_per_step": float(np.mean(times16[1:])),
-                         "total": total16}})
+                         "total": total16,
+                         "one_step_profile": profile16}})
     return {"fused_attention": decode_launches[0] + train_launches[0],
             "fused_attention_backward": train_launches[1]}
 
@@ -1488,12 +1514,14 @@ def main():
     # the synthesizer's shapes in fp32, the recipe's type: a training batch's
     # decoder (32, 4, 768, 96) and encoder (32, 4, 192, 96) attention with
     # ragged lengths, and one decoded utterance's decoder (1, 4, 768, 96)
-    def attn_case(B, T):
+    # (the decoder shape in bf16 beside them)
+    def attn_case(B, T, dtype="float32"):
         return next(c for c in attn if (c["B"], c["T"], c["d"]) == (B, T, 96)
-                    and c["dtype"] == "float32")
+                    and c["dtype"] == dtype and c["q_scale"] == 1.0)
 
     attn_dec, attn_enc, attn_one = (attn_case(32, 768), attn_case(32, 192),
                                     attn_case(1, 768))
+    attn_bf16 = attn_case(32, 768, "bfloat16")
     fwd_keys = ("B", "T", "valid_keys", "ms", "ms_l2_cold", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "max_abs_err")
     bwd_keys = ("B", "T", "valid_keys", "bwd_ms", "bwd_ms_l2_cold",
@@ -1545,8 +1573,10 @@ def main():
          "plain_ms": attn_dec["plain_ms"], "bound_ms": attn_dec["bound_ms"],
          "bound_by": attn_dec["bound_by"],
          "library_ms": attn_dec["library_ms"],
+         "fma_bound_ms": attn_dec["fma_bound_ms"],
          "encoder_shape": {k: attn_enc[k] for k in fwd_keys},
-         "decode_shape": {k: attn_one[k] for k in fwd_keys}},
+         "decode_shape": {k: attn_one[k] for k in fwd_keys},
+         "bf16_shape": {k: attn_bf16[k] for k in fwd_keys}},
         {"name": "fused_attention_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/attention.cu",
          "replaces": "vae_npvc_tpu/ops/attention_pallas.py:225",
@@ -1557,7 +1587,9 @@ def main():
          "bound_ms": attn_dec["bwd_bound_ms"],
          "bound_by": attn_dec["bwd_bound_by"],
          "library_ms": attn_dec["bwd_library_ms"],
-         "encoder_shape": {k: attn_enc[k] for k in bwd_keys}},
+         "fma_bound_ms": attn_dec["bwd_fma_bound_ms"],
+         "encoder_shape": {k: attn_enc[k] for k in bwd_keys},
+         "bf16_shape": {k: attn_bf16[k] for k in bwd_keys}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

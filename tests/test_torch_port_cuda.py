@@ -216,6 +216,15 @@ ATTN_CASES = [
     (1, 4, 768, 96, None),
     (2, 1, 130, 128, [64, 65]),
     (2, 2, 96, 64, None),
+    # head dims that are not multiples of 16: zero-padded in shared memory
+    (2, 2, 64, 8, [64, 1]),
+    (2, 3, 100, 40, [100, 33]),
+    # small grids: 72 and 4 blocks of 64 queries on 132 SMs
+    (3, 4, 384, 64, [384, 200, 1]),
+    (1, 2, 130, 96, [129]),
+    # fp32: 128-query blocks (warps of 32 rows), B*H*ceil(T/128) >= 132
+    (12, 4, 384, 96, [384, 1, 200, 383, 64, 65, 128, 129, 300, 17, 384, 250]),
+    (17, 4, 256, 128, None),
 ]
 
 
@@ -287,18 +296,18 @@ def test_attention_kernel_lse_and_contiguous_inputs(dev):
         _assert_attn_close(a, b, torch.float32, 3e-5, name)
 
 
-def test_attention_kernel_huge_scores_stay_finite(dev):
-    q, k, v, _ = _attn_inputs(dev, torch.float32, 2, 2, 96, 32, 11,
-                              q_scale=1e16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_huge_scores_stay_finite(dev, dtype):
+    q, k, v, _ = _attn_inputs(dev, dtype, 2, 2, 96, 32, 11, q_scale=1e16)
     n = torch.tensor([96, 1], dtype=torch.int32, device=dev)
-    qg = q.detach().requires_grad_(True)
-    o = fused_attention(qg, k, v, n)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fused_attention(qg, kg, vg, n)
     ref, _ = attention_plain(q, k, v, n)
     assert bool(torch.isfinite(o).all())
-    # the backward's scores must round as the forward's did: exp(s - lse)
-    # of a score that is off by half an ulp of 1e16 is infinite
-    (dq,) = torch.autograd.grad(o, (qg,), torch.ones_like(o))
-    assert bool(torch.isfinite(dq).all())
+    # both backward kernels' scores must round as the forward's did:
+    # exp(s - lse) of a score that is off by half an ulp of 1e16 is infinite
+    grads = torch.autograd.grad(o, (qg, kg, vg), torch.ones_like(o))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
     o = o.detach()
     # a single valid key: the output is that key's value row
     torch.testing.assert_close(o[1], v[1, :, :1].expand_as(o[1]))

@@ -182,3 +182,18 @@ def test_port_imports_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20   # every module was imported
+
+
+def test_attn_blocks_tool_patches_the_forward_launch():
+    """``tools/torch_attn_blocks.py`` times the attention forward with its
+    64-query launch replaced; the line it replaces must stay in the
+    source."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_attn_blocks
+
+    src = (ROOT / "vae_npvc_tpu_torch/csrc/attention.cu").read_text()
+    assert src.count(torch_attn_blocks.LAUNCH) == 1
+    for warps in (2, 1):
+        patched = src.replace(torch_attn_blocks.LAUNCH,
+                              torch_attn_blocks.FIXED.format(warps=warps))
+        assert f"forward_rows<DP, {warps}, 1, BF16>" in patched

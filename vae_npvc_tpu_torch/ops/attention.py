@@ -11,19 +11,26 @@ caller masks.
 - :func:`attention_plain` and :func:`attention_backward_plain` are the plain
   PyTorch versions (the CPU path and the kernels' oracles), written with the
   TPU kernels' rounding points: products take operands in the input dtype
-  and accumulate in fp32 (a bf16 value is exact in fp32, so the operands
-  are widened and multiplied in fp32), the scale is applied to the fp32
-  scores, masking (``-FLT_MAX``, not ``-inf``), max-subtraction with the
-  all-masked guard, ``exp``, the denominator and the log-sum-exp are fp32,
-  ``p`` is rounded to the input dtype before ``p v`` and ``p^T dO`` and
-  ``ds`` before ``ds k`` and ``ds^T q``, ``o`` is divided by
-  ``max(denominator, 1e-30)`` in fp32 and then cast.
+  and accumulate in fp32 (here a bf16 operand is widened and multiplied in
+  fp32, which is exact), the scale is applied to the fp32 scores, masking
+  (``-FLT_MAX``, not ``-inf``), max-subtraction with the all-masked guard,
+  ``exp``, the denominator and the log-sum-exp are fp32, ``p`` is rounded to
+  the input dtype before ``p v`` and ``p^T dO`` and ``ds`` before ``ds k``
+  and ``ds^T q``, ``o`` is divided by ``max(denominator, 1e-30)`` in fp32
+  and then cast.
 - :func:`fused_attention` is the differentiable wrapper: one
   ``torch.autograd.Function`` whose forward and backward take the plain
   versions for a CPU tensor and launch the kernels of ``csrc/attention.cu``
-  for a CUDA tensor, or raise. It saves q, k, v, ``o`` and the fp32
-  log-sum-exp (B*H, T); the backward recomputes ``p`` and never stores a
-  (T, T) array. ``fused_attention.launches`` counts forward launches,
+  for a CUDA tensor, or raise. The kernels run every product on the tensor
+  cores: bf16 operands as they are (``mma.sync`` m16n8k16, fp32
+  accumulation, the same products as the plain version, ``exp`` by
+  ``ex2.approx``), fp32 operands as 3xTF32 (each operand split into two
+  TF32 parts, three products summed in fp32; within ~1e-5 of the peak from
+  the plain version on an H100, where one TF32 product would miss the
+  tolerance tenfold).
+  The wrapper saves q, k, v, ``o`` and the fp32 log-sum-exp (B*H, T); the
+  backward recomputes ``p`` and never stores a (T, T) array.
+  ``fused_attention.launches`` counts forward launches,
   ``fused_attention_backward.launches`` backward launches.
 
 The kernels read their tensors by stride (last dimension contiguous,
