@@ -128,14 +128,17 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def timed(torch, fn, arg_sets, iters=50, warmup=3):
+def timed(torch, fn, arg_sets, iters=50, warmup=3, names=None):
     """``(device_ms, events_ms)`` of one ``fn(*args)`` call, averaged over
     ``iters`` back-to-back calls that cycle through ``arg_sets``.
     ``device_ms`` sums the durations of the kernels the call ran
     (torch.profiler); ``events_ms`` is the CUDA-event time between the first
     and last call, which also counts the gaps while the host issues launches
     (a small kernel is host-bound there). One argument set keeps the inputs
-    hot in L2, as on the serving path; :func:`l2_cold` sets keep them cold."""
+    hot in L2, as on the serving path; :func:`l2_cold` sets keep them cold.
+    A list given as ``names`` receives the names of the device kernels the
+    profiled calls ran. A profiling window that comes back without device
+    events is taken again, up to three times, and then fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warmup):
@@ -149,13 +152,20 @@ def timed(torch, fn, arg_sets, iters=50, warmup=3):
     end.record()
     torch.cuda.synchronize()
     events_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    check(bool(device), "timed: the profiler recorded no device kernels")
+    if names is not None:
+        names.extend(sorted({e.name for e in device}))
+    us = sum(e.time_range.elapsed_us() for e in device)
     return us / iters / 1e3, events_ms
 
 
@@ -213,21 +223,52 @@ def vq_bound_ms(N, K, D, stats=False):
     return _bound(byt, 2 * N * K * D)
 
 
-def gnb_bound_ms(B, T, C, itemsize, glu):
+def _valid_frames(B, T, lengths):
+    """Frames that GroupNorm reads: lengths clamped to [0, T], or all."""
+    if not lengths:
+        return B * T
+    return sum(min(max(int(n), 0), T) for n in lengths)
+
+
+def gnb_bound_ms(B, T, C, itemsize, glu, lengths=None):
     """Least time for the GroupNorm(+GLU) backward: one read of x and of
-    the cotangent, one write of dx, ~20 fp32 operations per element."""
-    n = B * T * C
-    byt = 2 * n * itemsize + (n // 2 if glu else n) * itemsize + 16 * C
+    the cotangent over the valid frames (dx is zero beyond them whatever
+    they hold), one write of dx over all T, scale and bias read and the
+    parameter gradients written, ~20 fp32 operations per valid element."""
+    n = _valid_frames(B, T, lengths) * C
+    byt = (n + (n // 2 if glu else n)) * itemsize + B * T * C * itemsize \
+        + 16 * C
     return _bound(byt, 20 * n)
 
 
-def gn_bound_ms(B, T, C, itemsize, glu):
-    """Least time for GroupNorm(+GLU): one read of x, one write of the
-    output, ~8 fp32 operations per input element (+4 per GLU output)."""
-    byt = B * T * C * itemsize + B * T * (C // 2 if glu else C) * itemsize \
+def gn_bound_ms(B, T, C, itemsize, glu, lengths=None):
+    """Least time for GroupNorm(+GLU): one read of x over the valid frames
+    (the output is zero beyond them whatever they hold), one write of the
+    output over all T, ~8 fp32 operations per valid input element (+4 per
+    GLU output)."""
+    n = _valid_frames(B, T, lengths) * C
+    byt = n * itemsize + B * T * (C // 2 if glu else C) * itemsize \
         + 8 * C + 4 * B
-    ops = 8 * B * T * C + (4 * B * T * C // 2 if glu else 0)
+    ops = 8 * n + (4 * n // 2 if glu else 0)
     return _bound(byt, ops)
+
+
+def _channels_first(t):
+    """The same values as a (B, T, C) view of (B, C, T) memory, the layout
+    ``WNConv1d`` hands GroupNorm (``F.conv1d(...).transpose(1, 2)``)."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _layout(t):
+    return "channels-last" if t.stride(2) == 1 else "channels-first"
+
+
+def _only_groupnorm_kernels(names, what):
+    """Check that the profiled calls ran kernels of csrc/groupnorm.cu and
+    nothing else (no copy); returns the names."""
+    check(bool(names) and all("gn_" in n for n in names),
+          f"{what}: the call ran kernels outside groupnorm.cu: {names}")
+    return names
 
 
 # ------------------------------------------------------------------ phases
@@ -299,17 +340,20 @@ def _vq_case(torch, N, stats, rng):
     return case
 
 
-def _gn_case(torch, B, T, C, G, glu, masked, dtype, rng):
+def _gn_case(torch, B, T, C, G, glu, masked, dtype, rng, cf=False):
     """``masked``: False, True (lengths spread from T down to 1) or a list
-    of lengths."""
+    of lengths; ``cf``: x as a channels-first view, as the model hands it
+    over."""
     import torch.nn.functional as F
 
     from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
-                                                  group_norm_plain)
+                                                  group_norm_plain, plan)
 
     dev = torch.device("cuda")
     x = torch.tensor(rng.normal(0.5, 2.0, size=(B, T, C)), device=dev) \
         .to(dtype)
+    if cf:
+        x = _channels_first(x)
     scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
                          device=dev)
     bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
@@ -320,25 +364,34 @@ def _gn_case(torch, B, T, C, G, glu, masked, dtype, rng):
     if masked:
         lengths = torch.tensor(masked, dtype=torch.int32, device=dev)
     got = fused_group_norm(x, scale, bias, G, lengths=lengths, glu=glu)
+    again = fused_group_norm(x, scale, bias, G, lengths=lengths, glu=glu)
     ref = group_norm_plain(x, scale, bias, G, lengths=lengths, glu=glu)
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
+    what = (f"fused_group_norm {B}x{T}x{C} G={G} glu={glu} masked={masked} "
+            f"{name} {_layout(x)}")
     atol, rtol = K2_TOL[name]
     err = (got.float() - ref.float()).abs()
     check(got.shape == ref.shape and got.dtype == ref.dtype,
-          "fused_group_norm: shape/dtype differ from the plain version")
+          f"{what}: shape/dtype differ from the plain version")
     check(bool((err <= atol + rtol * ref.float().abs()).all()),
-          f"fused_group_norm {B}x{T}x{C} G={G} glu={glu} masked={masked} "
-          f"{name}: max err {float(err.max())} beyond atol {atol} rtol {rtol}")
+          f"{what}: max err {float(err.max())} beyond atol {atol} rtol {rtol}")
+    check(_layout(got) == _layout(x), f"{what}: output not in x's order")
+    check(torch.equal(got, again), f"{what}: two runs differ in their bits")
+    if lengths is not None:
+        pad = torch.arange(T, device=dev)[None] >= lengths[:, None]
+        check(bool((got[pad] == 0).all()), f"{what}: output beyond lengths")
     case = {"B": B, "T": T, "C": C, "G": G, "glu": glu, "masked": masked,
-            "dtype": name, "max_abs_err": float(err.max()),
-            "atol": atol, "rtol": rtol}
+            "dtype": name, "layout": _layout(x), "plan": plan(x, glu),
+            "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
+            "bit_equal_runs": True}
     args = (x, scale, bias, lengths)
 
     def kernel(x, s, b, n):
         return fused_group_norm(x, s, b, G, lengths=n, glu=glu)
 
-    case["ms"], case["ms_events"] = timed(torch, kernel, [args])
+    names = []
+    case["ms"], case["ms_events"] = timed(torch, kernel, [args], names=names)
     case["ms_l2_cold"], _ = timed(torch, kernel, l2_cold(args))
     case["plain_ms"], case["plain_ms_events"] = timed(
         torch, lambda x, s, b, n: group_norm_plain(x, s, b, G, lengths=n,
@@ -350,18 +403,22 @@ def _gn_case(torch, B, T, C, G, glu, masked, dtype, rng):
             torch, lambda x, s, b: F.group_norm(x, G, s, b, 1e-5),
             [(xt, s, b)])
     case["bound_ms"], case["bound_by"] = gn_bound_ms(
-        B, T, C, x.element_size(), glu)
+        B, T, C, x.element_size(), glu, masked)
+    case["kernels_run"] = _only_groupnorm_kernels(names, what)
     return case
 
 
-def _gnb_case(torch, B, T, C, G, glu, masked, dtype, rng, iters=50):
+def _gnb_case(torch, B, T, C, G, glu, masked, dtype, rng, iters=50,
+              cf=False):
     """The GroupNorm(+GLU) backward kernel against its plain version;
-    ``masked`` as in :func:`_gn_case`. The cotangent is non-contiguous, as
-    a convolution's backward hands it over."""
+    ``masked`` as in :func:`_gn_case`. The cotangent is a channels-first
+    view, as a convolution's backward hands it over; with ``cf`` x is
+    one too, as the model's forward saved it."""
     import torch.nn.functional as F
 
     from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm_backward,
-                                                  group_norm_backward_plain)
+                                                  group_norm_backward_plain,
+                                                  plan)
 
     dev = torch.device("cuda")
     Cout = C // 2 if glu else C
@@ -371,6 +428,8 @@ def _gnb_case(torch, B, T, C, G, glu, masked, dtype, rng, iters=50):
                          device=dev)
     bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
                         device=dev)
+    if cf:
+        x = _channels_first(x)
     g = torch.tensor(rng.normal(size=(B, Cout, T)), device=dev).to(dtype) \
         .transpose(1, 2)
     lengths = None
@@ -387,7 +446,7 @@ def _gnb_case(torch, B, T, C, G, glu, masked, dtype, rng, iters=50):
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
     what = (f"fused_group_norm_backward {B}x{T}x{C} G={G} glu={glu} "
-            f"masked={masked} {name}")
+            f"masked={masked} {name} {_layout(x)}")
     errs = {}
     for key, a, b in zip(("dx", "dscale", "dbias"), got, ref):
         check(a.shape == b.shape and a.dtype == b.dtype,
@@ -409,16 +468,21 @@ def _gnb_case(torch, B, T, C, G, glu, masked, dtype, rng, iters=50):
     if lengths is not None:
         pad = torch.arange(T, device=dev)[None] >= lengths[:, None]
         check(bool((got[0][pad] == 0).all()), f"{what}: dx beyond lengths")
+    check(_layout(got[0]) == _layout(x), f"{what}: dx not in x's order")
     case = {"B": B, "T": T, "C": C, "G": G, "glu": glu, "masked": masked,
-            "dtype": name, "max_abs_err": float((got[0].float()
-                                                 - ref[0].float()).abs().max()),
+            "dtype": name, "layout": _layout(x),
+            "plan": plan(x, glu, backward=True),
+            "max_abs_err": float((got[0].float()
+                                  - ref[0].float()).abs().max()),
             "err_over_peak": errs, "bit_equal_runs": True}
     args = (x, scale, bias, g, lengths)
 
     def kernel(x, s, b, g, n):
         return fused_group_norm_backward(x, s, b, g, G, lengths=n, glu=glu)
 
-    case["ms"], case["ms_events"] = timed(torch, kernel, [args], iters)
+    names = []
+    case["ms"], case["ms_events"] = timed(torch, kernel, [args], iters,
+                                          names=names)
     case["ms_l2_cold"], _ = timed(torch, kernel, l2_cold(args), iters)
     case["plain_ms"], case["plain_ms_events"] = timed(
         torch, lambda x, s, b, g, n: group_norm_backward_plain(
@@ -436,7 +500,8 @@ def _gnb_case(torch, B, T, C, G, glu, masked, dtype, rng, iters=50):
                                                retain_graph=True), [()],
             iters)
     case["bound_ms"], case["bound_by"] = gnb_bound_ms(
-        B, T, C, x.element_size(), glu)
+        B, T, C, x.element_size(), glu, masked)
+    case["kernels_run"] = _only_groupnorm_kernels(names, what)
     return case
 
 
@@ -595,6 +660,24 @@ def phase_kernels(torch):
         gnb.append(_gnb_case(torch, 1, 512, 512, 1, False, [397], dtype, rng))
     gnb.append(_gnb_case(torch, 3, 77, 96, 3, False, [77, 5, 40],
                          torch.float32, rng))       # ragged T, odd widths
+    # the training step's shapes in the layout the convolutions hand over:
+    # x (and the cotangent) channels-first, read in place
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, G, glu in ((512, 1, False), (1024, 2, True)):
+            gn.append(_gn_case(torch, 128, 256, C, G, glu, False, dtype, rng,
+                               cf=True))
+            gnb.append(_gnb_case(torch, 128, 256, C, G, glu, False, dtype,
+                                 rng, iters=20, cf=True))
+    # serving's decoder batch in the model's layout
+    gn.append(_gn_case(torch, 8, 256, 1024, 2, True, True, torch.bfloat16,
+                       rng, cf=True))
+    # a row too long for a thread-block cluster: the streaming path
+    gn.append(_gn_case(torch, 2, 4096, 1024, 2, True, [4096, 2500],
+                       torch.bfloat16, rng, cf=True))
+    gnb.append(_gnb_case(torch, 2, 4096, 1024, 2, True, [4096, 2500],
+                         torch.bfloat16, rng, iters=20, cf=True))
+    check(gn[-1]["plan"] == 0 and gnb[-1]["plan"] == 0,
+          "the 4096-frame rows did not take the streaming path")
     # the synthesizer's shapes: encoder and decoder of a training batch
     # (B = 32, ragged lengths), one decoded utterance, and odd sizes
     attn = []
@@ -772,10 +855,11 @@ def phase_serve(torch):
 
 
 def _kernel_class(name):
-    """Class of a device kernel by its name. The statistics kernel
-    ``gn_partial`` is shared by the GroupNorm forward and backward and
-    counts as the forward's here; ``device_ms_by_operator`` splits the two
-    by the autograd Function that launched them."""
+    """Class of a device kernel by its name. The streaming path's
+    statistics kernel ``gn_stream_stats`` is shared by the GroupNorm
+    forward and backward and counts as the forward's here;
+    ``device_ms_by_operator`` splits the two by the autograd Function that
+    launched them."""
     n = name.lower()
     for key, cls in (("::attn_fwd", "fused_attention"),
                      ("::attn_bwd", "fused_attention_backward"),
@@ -1086,6 +1170,7 @@ def phase_train(torch):
     chunks of 8, with the kernels' launch counts, a save/load round trip
     and one profiled step. Returns the launch counts of the run."""
     from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
+                                                 batch_iterator,
                                                  index_iterator)
     from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
                                                   fused_group_norm_backward)
@@ -1114,6 +1199,14 @@ def phase_train(torch):
         vq_fused.launches = 0
         fused_group_norm.launches = 0
         fused_group_norm_backward.launches = 0
+        # one fixed batch, scored after the first chunk (which holds the
+        # lazy codebook init) and after the last: the steps' own losses come
+        # from different batches and move by several units from one step to
+        # the next, so the fixed batch is checked beside them
+        held = [next(batch_iterator(dataset, B, shuffle=False,
+                                    drop_last=True, num_workers=0,
+                                    epochs=1))]
+        held_x_like = []
         details, times, done = [], [], 0
         while done < TRAIN_STEPS:
             k = min(cfg["steps_per_call"], TRAIN_STEPS - done)
@@ -1123,6 +1216,12 @@ def phase_train(torch):
             torch.cuda.synchronize()
             times.append(((time.perf_counter() - t0) * 1e3, k))
             done += k
+            if done == k or done == TRAIN_STEPS:
+                # the scoring pass is no training step: its launches are
+                # kept out of the per-step counts
+                counts = (vq_fused.launches, fused_group_norm.launches)
+                held_x_like.append(tr.valid(held)["X like"][0])
+                vq_fused.launches, fused_group_norm.launches = counts
         launches = {"vq_fused": vq_fused.launches,
                     "fused_group_norm": fused_group_norm.launches,
                     "fused_group_norm_backward":
@@ -1137,6 +1236,9 @@ def phase_train(torch):
               f"train: steps skipped: {detail['skipped_nonfinite']}")
         first, last = detail["X like"][:4].mean(), detail["X like"][-4:].mean()
         check(last < first, f"train: X like {first} -> {last} did not fall")
+        check(held_x_like[1] < held_x_like[0],
+              f"train: X like of a fixed batch {held_x_like[0]} -> "
+              f"{held_x_like[1]} did not fall")
         per_step = {"vq_fused": 1, "fused_group_norm": 20,
                     "fused_group_norm_backward": 20}
         check(launches == {k: v * TRAIN_STEPS for k, v in per_step.items()},
@@ -1168,6 +1270,7 @@ def phase_train(torch):
           "frames_per_s": B * T / steady_ms * 1e3,
           "peak_memory_bytes": peak_bytes,
           "x_like_first4": float(first), "x_like_last4": float(last),
+          "held_batch_x_like_after_first_chunk_and_last": held_x_like,
           "total": [float(v) for v in detail["Total"]],
           "grad_norm_first_last": [float(detail["grad_norm"][0]),
                                    float(detail["grad_norm"][-1])],
@@ -1499,18 +1602,27 @@ def main():
     tts_launches = phase_tts(torch)
 
     vq_main = vq[0]
-    gn_main = next(c for c in gn if (c["T"], c["C"]) == (256, 1024)
-                   and c["masked"] and c["dtype"] == "bfloat16")
+    # K2 and K3 in the layout the model hands them (channels-first x)
+    def gn_case(cases, B, T, C, dtype="bfloat16"):
+        return next(c for c in cases if (c["B"], c["T"], c["C"]) == (B, T, C)
+                    and c["dtype"] == dtype
+                    and c["layout"] == "channels-first")
+
+    gn_main = gn_case(gn, 8, 256, 1024)
     # the training step's shapes: K1 in its statistics mode at N = B*T,
     # K2 and K3 at the decoder's (128, 256, 1024) GLU norm in bf16
     vq_train = next(c for c in vq if c["N"] == 32768)
-    gn_train, gnb_train = (
-        next(c for c in cases if (c["B"], c["C"]) == (128, 1024)
-             and c["dtype"] == "bfloat16") for cases in (gn, gnb))
-    # the encoder's (128, 256, 512) plain norm in bf16, the one shape with a
-    # library call (autograd's backward of F.group_norm)
-    gnb_enc = next(c for c in gnb if (c["B"], c["C"]) == (128, 512)
-                   and c["dtype"] == "bfloat16")
+    gn_train, gnb_train = gn_case(gn, 128, 256, 1024), \
+        gn_case(gnb, 128, 256, 1024)
+    # the encoder's (128, 256, 512) plain norm, the one shape with a
+    # library call (F.group_norm and autograd's backward of it)
+    gn_enc, gnb_enc = gn_case(gn, 128, 256, 512), gn_case(gnb, 128, 256, 512)
+    gnb_enc32 = gn_case(gnb, 128, 256, 512, "float32")
+    gn_long, gnb_long = gn_case(gn, 2, 4096, 1024), \
+        gn_case(gnb, 2, 4096, 1024)
+    gn_keys = ("B", "T", "C", "dtype", "layout", "plan", "ms", "ms_l2_cold",
+               "plain_ms", "bound_ms", "bound_by", "library_ms",
+               "max_abs_err")
     # the synthesizer's shapes in fp32, the recipe's type: a training batch's
     # decoder (32, 4, 768, 96) and encoder (32, 4, 192, 96) attention with
     # ragged lengths, and one decoded utterance's decoder (1, 4, 768, 96)
@@ -1549,9 +1661,9 @@ def main():
          "plain_ms": gn_main["plain_ms"], "bound_ms": gn_main["bound_ms"],
          "bound_by": gn_main["bound_by"], "library_ms": None,
          "launches_train": train_launches["fused_group_norm"],
-         "train_shape": {k: gn_train[k] for k in (
-             "B", "T", "C", "ms", "ms_l2_cold", "plain_ms", "bound_ms",
-             "bound_by", "max_abs_err")}},
+         "train_shape": {k: gn_train[k] for k in gn_keys},
+         "encoder_shape": {k: gn_enc[k] for k in gn_keys},
+         "long_row": {k: gn_long[k] for k in gn_keys}},
         {"name": "fused_group_norm_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",
@@ -1561,9 +1673,9 @@ def main():
          "plain_ms": gnb_train["plain_ms"],
          "bound_ms": gnb_train["bound_ms"],
          "bound_by": gnb_train["bound_by"], "library_ms": None,
-         "encoder_shape": {k: gnb_enc[k] for k in (
-             "B", "T", "C", "ms", "ms_l2_cold", "plain_ms", "bound_ms",
-             "bound_by", "library_ms", "max_abs_err")}},
+         "encoder_shape": {k: gnb_enc[k] for k in gn_keys},
+         "encoder_shape_fp32": {k: gnb_enc32[k] for k in gn_keys},
+         "long_row": {k: gnb_long[k] for k in gn_keys}},
         {"name": "fused_attention", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/attention.cu",
          "replaces": "vae_npvc_tpu/ops/attention_pallas.py:121",

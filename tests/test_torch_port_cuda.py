@@ -18,7 +18,7 @@ from vae_npvc_tpu_torch.ops.attention import (attention_backward_plain,
 from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
                                               fused_group_norm_backward,
                                               group_norm_backward_plain,
-                                              group_norm_plain)
+                                              group_norm_plain, plan)
 from vae_npvc_tpu_torch.ops.vq_fused import vq_fused, vq_fused_plain
 
 pytestmark = pytest.mark.cuda
@@ -203,6 +203,149 @@ def test_wrappers_count_launches(dev):
     vq_fused(torch.ones((4, 8), device=dev), torch.ones((3, 8), device=dev),
              stats=False)
     assert vq_fused.launches == v0 + 1
+
+
+# ----------------------------------------------------- GroupNorm layouts
+def _channels_first(t):
+    """The same values as a (B, T, C) view of (B, C, T) memory, as
+    ``F.conv1d(...).transpose(1, 2)`` hands them over."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _order(t):
+    return "channels-last" if t.stride(2) == 1 else "channels-first"
+
+
+def _gn_layout_inputs(dev, dtype, B, T, C, glu, seed, x_cf, g_cf):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(0.5, 2.0, size=(B, T, C)), device=dev) \
+        .to(dtype)
+    g = torch.tensor(rng.normal(size=(B, T, C // 2 if glu else C)),
+                     device=dev).to(dtype)
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                        device=dev)
+    return (_channels_first(x) if x_cf else x, scale, bias,
+            _channels_first(g) if g_cf else g)
+
+
+def _check_gn_both(x, scale, bias, g, G, glu, n, dtype):
+    """Forward and backward kernels against the plain versions: values,
+    x's memory order kept, reruns bit-equal, zero beyond the lengths."""
+    T = x.shape[1]
+    out = fused_group_norm(x, scale, bias, G, lengths=n, glu=glu)
+    out2 = fused_group_norm(x, scale, bias, G, lengths=n, glu=glu)
+    ref = group_norm_plain(x, scale, bias, G, lengths=n, glu=glu)
+    got = fused_group_norm_backward(x, scale, bias, g, G, lengths=n, glu=glu)
+    again = fused_group_norm_backward(x, scale, bias, g, G, lengths=n,
+                                      glu=glu)
+    bref = group_norm_backward_plain(x, scale, bias, g, G, lengths=n,
+                                     glu=glu)
+    torch.cuda.synchronize()
+    assert _order(out) == _order(x) and _order(got[0]) == _order(x)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=2 ** -7,
+                                   rtol=2 ** -6)
+    _assert_gn_backward(got, bref, dtype)
+    assert torch.equal(out, out2)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if n is not None:
+        pad = torch.arange(T, device=x.device)[None] >= n[:, None]
+        assert bool((out[pad] == 0).all()) and bool((got[0][pad] == 0).all())
+
+
+GN_LAYOUT_CASES = [
+    # B, T, C, G, glu, lengths, x channels-first, g channels-first
+    (128, 256, 512, 1, False, None, True, True),
+    (128, 256, 1024, 2, True, None, True, True),
+    # ConvResStack's last norm: channels-first x, contiguous cotangent
+    (16, 256, 512, 1, False, "spread", True, False),
+    (8, 256, 1024, 2, True, "spread", False, True),
+    (8, 512, 1024, 2, True, [512, 300, 511, 257, 1, 450, 0, 512], True,
+     True),
+    # odd T: one-element loads along T
+    (3, 77, 96, 3, False, [77, 5, 40], True, False),
+    (3, 77, 96, 1, True, None, True, True),
+    (4, 64, 512, 32, False, [64, 1, 33, 17], True, True),
+    (1, 256, 512, 1, False, [0], True, True),
+    # rows too long for a cluster: the streaming path
+    (2, 4096, 1024, 2, True, [4096, 2500], True, True),
+    (2, 4096, 512, 1, False, None, False, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,G,glu,lengths,x_cf,g_cf", GN_LAYOUT_CASES)
+def test_groupnorm_kernels_read_layouts_in_place(dev, dtype, B, T, C, G, glu,
+                                                 lengths, x_cf, g_cf):
+    x, scale, bias, g = _gn_layout_inputs(dev, dtype, B, T, C, glu,
+                                          B + T + C + G, x_cf, g_cf)
+    if lengths == "spread":
+        lengths = np.linspace(T, 1, B).round().astype(np.int32).tolist()
+    n = (torch.tensor(lengths, dtype=torch.int32, device=dev)
+         if lengths else None)
+    if T == 4096:
+        assert plan(x, glu) == 0 and plan(x, glu, backward=True) == 0
+    elif B >= 8:
+        assert plan(x, glu) > 0 and plan(x, glu, backward=True) > 0
+    _check_gn_both(x, scale, bias, g, G, glu, n, dtype)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("side", ["below", "above"])
+def test_groupnorm_cluster_path_boundary(dev, backward, side):
+    """The longest row the cluster path takes, and one frame-tile longer
+    (the streaming path)."""
+    B, C, G, glu, dtype = 2, 1024, 2, True, torch.bfloat16
+
+    def probe(T):
+        return plan(torch.empty((B, T, C), dtype=dtype, device=dev), glu,
+                    backward)
+
+    T = 8
+    while probe(T + 8) > 0:
+        T += 8
+    if side == "above":
+        T += 8
+    assert (probe(T) > 0) == (side == "below")
+    x, scale, bias, g = _gn_layout_inputs(dev, dtype, B, T, C, glu, T, True,
+                                          True)
+    n = torch.tensor([T, T - 3], dtype=torch.int32, device=dev)
+    _check_gn_both(x, scale, bias, g, G, glu, n, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_kernels_take_a_storage_offset_view(dev, dtype):
+    """A view one element into its storage is not 16-byte aligned: the
+    kernels read it one element at a time."""
+    rng = np.random.default_rng(5)
+    B, T, C = 4, 128, 256
+    base = torch.tensor(rng.normal(size=(B, C, T + 1)), device=dev).to(dtype)
+    x = base[:, :, 1:].transpose(1, 2)
+    gbase = torch.tensor(rng.normal(size=(B, T, C + 1)), device=dev) \
+        .to(dtype)
+    g = gbase[:, :, 1:]
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.zeros(C, device=dev)
+    n = torch.tensor([128, 100, 1, 64], dtype=torch.int32, device=dev)
+    _check_gn_both(x, scale, bias, g, 2, False, n, dtype)
+
+
+def test_groupnorm_wrapper_refuses_other_strides(dev):
+    x = torch.randn((2, 16, 64), device=dev)
+    s = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="unit stride"):
+        fused_group_norm(x[:, :, ::2], s[:32], s[:32], 1)
+    g = torch.ones((), device=dev).expand(2, 16, 64)
+    with pytest.raises(ValueError, match="unit stride"):
+        fused_group_norm_backward(x, s, s, g, 1)
 
 
 # ---------------------------------------------------------------- attention

@@ -2,62 +2,92 @@
 // (B, T, C) with per-row valid lengths, for Hopper (sm_90a).
 //
 // Replaces: vae_npvc_tpu/ops/groupnorm_pallas.py `_call_fwd` / `_fwd_kernel`
-// (the TPU kernel), extended with the masked statistics of
+// (forward) and `_call_bwd` / `_bwd_kernel` (backward), the TPU kernels that
+// hold one (T, C) batch row in VMEM, extended with the masked statistics of
 // vae_npvc_tpu/nn/blocks.py `group_norm(..., mask=...)`: only frames
-// t < lengths[b] enter the moments, the output is multiplied by the mask.
-//
-// Bound on the H100: bytes. The work is a few flops per element, so the
-// least time is one read of x plus one write of the output over HBM
-// (3.35 TB/s). The TPU kernel held a whole (T, C) row in VMEM; a Hopper
-// block cannot (a flagship (256, 1024) bf16 row is 512 KB), so the row is
-// split over time chunks:
-//   1. gn_partial: one block per (time chunk, batch row, group) computes the
-//      chunk's valid count, mean and centered sum of squares (two passes
-//      over the chunk; the second pass hits L1/L2, not HBM).
-//   2. gn_apply: one block per (4 frames, batch row) merges the partials
-//      of its row in a fixed order (Chan's parallel merge: same moments as
-//      the two-pass form up to rounding, deterministic, no atomics), then
-//      normalizes, applies the affine, rounds to the storage type, masks
-//      and applies the GLU.
-// HBM traffic is two reads of x and one write of the output.
-//
-// Backward (gn_backward). Replaces: vae_npvc_tpu/ops/groupnorm_pallas.py
-// `_call_bwd` / `_bwd_kernel`, with the same per-row lengths as the forward.
-// It recomputes the group statistics from x (nothing but x, scale and bias
-// is saved by the forward), rebuilds y = xhat*scale + bias in fp32 without
-// rounding it, turns the GLU's (T, C/2) cotangent into dy = [g*sig*(1 -
-// tanh^2), g*tanh*sig*(1 - sig)], and returns
+// t < lengths[b] (clamped to [0, T]; count clamped at 1) enter the fp32
+// moments, var is clamped at 0, the output is rnd(xhat*scale + bias) times
+// the mask (then rnd(tanh(ya))*rnd(sigmoid(yb)) over the channel halves with
+// the GLU). The backward rebuilds y in fp32 without rounding it, forms
 //   dscale = sum dy*xhat, dbias = sum dy            (fp32, over valid frames)
 //   dx = (dxhat - mean(dxhat) - xhat*mean(dxhat*xhat)) * rstd, dxhat = dy*scale
-// with dx zero at t >= lengths[b]. Bound on the H100: bytes (one read of x
-// and of g, one write of dx). The three reductions are coupled, and a row
-// does not fit a block, so the work is cut into passes:
-//   1. gn_partial + the fixed-order merge: the forward's statistics code.
-//   2. gn_bwd_partial: one block per (32 frames, batch row) forms dy and
-//      sums dy*xhat and dy per channel over its frames.
-//   3. gn_bwd_rowsum: one block per batch row adds the chunk partials in
-//      order into per-row channel sums, and takes the two group means from
-//      them: sum dxhat = sum_c scale[c]*rowsum_dy[c] and sum dxhat*xhat =
-//      sum_c scale[c]*rowsum_dyxhat[c], so no second pass over the data.
-//   4. gn_bwd_param: adds the per-row sums over the batch in order.
-//   5. gn_bwd_dx: one block per (4 frames, batch row) recomputes dy and
-//      writes dx.
+// and writes dx = 0 at t >= lengths[b]. The forward's affine is
+// __fmul_rn/__fadd_rn (FMA contraction changes card-only bits). In bf16 the
+// GLU's tanh is tanh.approx.f32 and its sigmoid takes __expf; fp32 keeps
+// tanhf and expf.
+//
+// Bound on the H100: bytes. A few flops per element, so the least time is
+// one read of x (and of the cotangent g) over the valid frames plus one
+// write of the output (or dx) over all frames, at 3.35 TB/s.
+//
+// Layouts. x and g are (B, T, C) views with either C ("channels-last") or T
+// ("channels-first", what F.conv1d(...).transpose(1, 2) hands over) as the
+// unit stride, each read in place with its own strides. The output and dx
+// are written in x's memory order. Loads and stores are 16-byte vectors
+// along the unit axis when pointers, strides and extents allow it, else
+// one element at a time (the same kernels with V = 1).
+//
+// Cluster path: a row crosses device memory once. A thread-block cluster of
+// NB = 8 or 16 blocks takes one batch row; block r holds frames
+// [r*Tb, (r+1)*Tb) x all C channels (and the cotangent's) in shared memory,
+// in x's memory order, loaded once with 16-byte cp.async. The statistics
+// are the TPU kernel's two-pass form (`_group_stats`): per-block group
+// sums -> cluster.sync -> every block adds the NB partials in rank order
+// through distributed shared memory -> mean -> centred sums of squares from
+// the resident tile -> cluster.sync -> rstd. The forward then writes its
+// slice. The backward, in the same residency, sums dy*xhat and dy per
+// channel over its frames (without the GLU in the same pass as the centred
+// squares, as g*(x - mean) times rstd), writes them to a (B, NB, C) fp32
+// scratch, exchanges the group sums of scale*those through the cluster
+// (m1, m2) and writes dx; gn_bwd_param adds the scratch over (batch,
+// block) in a fixed order. A block leaves only after a last cluster
+// barrier, so none exits while another reads its shared memory. NB is 16
+// when B*8 blocks would leave SMs idle (serving's B = 8), else 8; the other
+// size is taken when it lets two blocks share an SM (<= kTwoPerSm), or
+// when only it holds the row. 256 threads a block; -Xptxas -v: 31-64
+// registers in the forward kernels, 56-92 in the backward's (92: bf16 with
+// the GLU), no spills, 1.5-2 KB of static shared memory. So the training
+// decoder's bf16 forward (64 KB tiles) runs three blocks to an SM and its
+// backward (x and g, 104 KB) two. What holds it above the bound on the
+// card: the cluster barriers and the work between them
+// (tools/torch_gn_time.py --without-barriers times a copy without them).
+//
+// Streaming path, for rows too long for a cluster (a tile above
+// kClusterSmem at NB = 16, e.g. T > 1,600 for a 1024-channel bf16 row in
+// the forward): chunks of Tc frames with the same tile code:
+// gn_stream_stats (per-chunk count, mean, centred M2) -> fixed-order Chan
+// merge in every later block -> gn_fwd_stream_apply; backward
+// gn_bwd_stream_partial (per-chunk channel sums and group sums) ->
+// gn_bwd_stream_dx -> gn_bwd_param. It reads x three times and g twice.
+// The choice is made by shape at launch (gn_plan) and both paths are
+// tested; no plain version runs on the card.
+//
 // Every sum has a fixed order and no atomics, so two runs give the same
-// bits. HBM traffic is three reads of x, two of g and one write of dx.
+// bits.
 //
 // C interface (loaded with ctypes): gn_forward and gn_backward return
-// cudaGetLastError().
+// cudaGetLastError(); gn_plan returns the cluster size a launch takes (0:
+// streaming); gn_scratch_floats the fp32 scratch a launch needs.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerChunk = 8;   // frames per statistics chunk
-constexpr int kApplyRows = 4;      // frames per normalize block
-constexpr int kBwdRows = 32;       // frames per backward partial block
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroups = 32;
+constexpr int kFrameAlign = 8;            // tiles start on multiples of this
+constexpr int kClusterSmem = 200 * 1024;  // dynamic smem of a cluster block
+constexpr int kTwoPerSm = 108 * 1024;     // two such blocks fit one SM
+constexpr int kStreamSmem = 64 * 1024;    // tile budget of a streaming block
+constexpr int kStreamMaxFrames = 64;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -77,21 +107,39 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
-// deterministic block sum: fixed xor-shuffle tree per warp, then warp
-// totals added in warp order by thread 0; result broadcast to all threads
-__device__ float block_sum(float v, float* sh) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  __syncthreads();
-  if (l == 0) sh[w] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) t += sh[i];
-    sh[32] = t;
+// The GLU's tanh and sigmoid. fp32 takes tanhf and expf; bf16, whose
+// result keeps 8 bits, the hardware's tanh.approx.f32 (relative error
+// below 2^-10.9) and __expf.
+template <typename T> __device__ __forceinline__ float gate_tanh(float y) {
+  if constexpr (sizeof(T) == 2) {
+    float r;
+    asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(y));
+    return r;
+  } else {
+    return tanhf(y);
   }
-  __syncthreads();
-  return sh[32];
+}
+
+template <typename T> __device__ __forceinline__ float gate_sigmoid(float y) {
+  if constexpr (sizeof(T) == 2)
+    return __fdividef(1.f, 1.f + __expf(-y));
+  else
+    return 1.f / (1.f + expf(-y));
+}
+
+// V elements of T, 16 bytes when V > 1
+template <typename T, int V> struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> ld(const T* p) {
+  return *reinterpret_cast<const Pack<T, V>*>(p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void st(T* p, const Pack<T, V>& v) {
+  *reinterpret_cast<Pack<T, V>*>(p) = v;
 }
 
 __device__ __forceinline__ int valid_len(const int* lengths, int b, int T) {
@@ -99,48 +147,668 @@ __device__ __forceinline__ int valid_len(const int* lengths, int b, int T) {
   return min(max(lengths[b], 0), T);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_partial(const T* __restrict__ x, const int* __restrict__ lengths, int T_,
-           int C, int G, int n_chunks, float* __restrict__ part) {
-  __shared__ float sh[33];
-  const int chunk = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
-  const int Cg = C / G;
-  const int len = valid_len(lengths, b, T_);
-  const int t0 = chunk * kRowsPerChunk;
-  const int rows = max(min(t0 + kRowsPerChunk, len) - t0, 0);
-  const T* base = x + ((long long)b * T_ + t0) * C + (long long)g * Cg;
-  const float n = (float)rows * (float)Cg;
+// A (B, T, C) view: element (b, t, c) at b*sb + t*st + c*sc, with sc == 1
+// (channels-last) or st == 1 (channels-first, cf).
+struct View {
+  long long sb, st, sc;
+  int cf;
+};
 
-  float s = 0.f;
-  for (int r = 0; r < rows; ++r)
-    for (int c = threadIdx.x; c < Cg; c += blockDim.x)
-      s += to_f<T>(base[(long long)r * C + c]);
-  s = block_sum(s, sh);
-  const float mean = rows > 0 ? s / n : 0.f;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
 
-  float q = 0.f;
-  for (int r = 0; r < rows; ++r)
-    for (int c = threadIdx.x; c < Cg; c += blockDim.x) {
-      const float d = to_f<T>(base[(long long)r * C + c]) - mean;
-      q += d * d;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Per-group block sums: f(g) is this thread's partial of group g; each warp
+// adds its lanes by a fixed xor tree, then thread g adds the warps in order.
+// out[g] is ready for every thread on return.
+template <class F>
+__device__ void block_group_sum(F f, int G, float* red, float* out) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  for (int g = 0; g < G; ++g) {
+    float v = f(g);
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (l == 0) red[w * G + g] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < G) {
+    float t = 0.f;
+    for (int i = 0; i < kWarps; ++i) t += red[i * G + threadIdx.x];
+    out[threadIdx.x] = t;
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------------------------ tiles
+// A tile holds frames [t0, t0 + Tp) of one batch row, n channels, in x's
+// memory order: tile[tl*n + c] (channels-last) or tile[c*Tp + tl]
+// (channels-first, Tp the row pitch). Only the nfr frames asked for are
+// loaded.
+
+// f(q, r) for this thread's share of i = q*per + r < nq*per, i = tid,
+// tid + kThreads, ... in that order, without a division per step.
+template <class F>
+__device__ __forceinline__ void for_each_qr(int per, int nq, F f) {
+  if (per <= 0 || nq <= 0) return;
+  int q = threadIdx.x / per, r = threadIdx.x - q * per;
+  const int dq = kThreads / per, dr = kThreads - dq * per;
+  while (q < nq) {
+    f(q, r);
+    q += dq;
+    r += dr;
+    if (r >= per) {
+      r -= per;
+      ++q;
     }
-  q = block_sum(q, sh);
-  if (threadIdx.x == 0) {
-    float* p = part + (((long long)b * G + g) * n_chunks + chunk) * 3;
-    p[0] = n;
-    p[1] = mean;
-    p[2] = q;
   }
 }
 
-// Fixed-order (Chan) merge of one batch row's chunk partials into per-group
-// mean and 1/sqrt(var + eps) in shared memory; ends with a block barrier.
+__device__ __forceinline__ int group_of(int c, int Cg, int G) {
+  return G == 1 ? 0 : c / Cg;
+}
+
+// Issue the copy of frames [t0, t0 + nfr) of `src` row b into the tile
+// (cp.async where source and tile share their order: the caller waits with
+// cp_async_wait_all and a block barrier).
+template <typename T, int V>
+__device__ void load_tile(T* tile, bool tile_cf, int Tp, const T* src,
+                          const View& v, int b, int t0, int nfr, int n) {
+  const T* base = src + b * v.sb + (long long)t0 * v.st;
+  if ((bool)v.cf == tile_cf && !tile_cf) {
+    for_each_qr(n / V, nfr, [&](int tl, int cv) {
+      const T* s = base + tl * v.st + cv * V;
+      T* d = tile + tl * n + cv * V;
+      if (V > 1) cp_async16(d, s); else *d = *s;
+    });
+  } else if ((bool)v.cf == tile_cf) {
+    for_each_qr((nfr + V - 1) / V, n, [&](int c, int tv) {
+      const T* s = base + c * v.sc + tv * V;
+      T* d = tile + c * Tp + tv * V;
+      if (V > 1) cp_async16(d, s); else *d = *s;
+    });
+  } else if (!tile_cf) {
+    // channels-first source into a channels-last tile: vectors along T,
+    // neighbouring threads on neighbouring channels of the tile
+    for_each_qr(n, (nfr + V - 1) / V, [&](int tv, int c) {
+      const int tl = tv * V;
+      const Pack<T, V> p = ld<T, V>(base + c * v.sc + tl);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (tl + j < nfr) tile[(tl + j) * n + c] = p.v[j];
+    });
+  } else {
+    // channels-last source into a channels-first tile: vectors along C,
+    // neighbouring threads on neighbouring frames of the tile
+    for_each_qr(nfr, n / V, [&](int cv, int tl) {
+      const Pack<T, V> p = ld<T, V>(base + tl * v.st + cv * V);
+#pragma unroll
+      for (int j = 0; j < V; ++j) tile[(cv * V + j) * Tp + tl] = p.v[j];
+    });
+  }
+}
+
+// This thread's sum of op(x) over group g's channels and the first nv
+// frames of the tile.
+template <typename T, int V, class Op>
+__device__ float group_accum(const T* tile, bool cf, int Tp, int C, int Cg,
+                             int nv, int g, Op op) {
+  float acc = 0.f;
+  if (!cf) {
+    for_each_qr(Cg / V, nv, [&](int tl, int cv) {
+      const Pack<T, V> p = ld<T, V>(tile + tl * C + g * Cg + cv * V);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc += op(to_f<T>(p.v[j]));
+    });
+  } else {
+    for_each_qr((nv + V - 1) / V, Cg, [&](int cl, int tv) {
+      const int tl = tv * V;
+      const Pack<T, V> p = ld<T, V>(tile + (g * Cg + cl) * Tp + tl);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (tl + j < nv) acc += op(to_f<T>(p.v[j]));
+    });
+  }
+  return acc;
+}
+
+// Group sums of x over the tile's nv valid frames.
+template <typename T, int V>
+__device__ void tile_sums(const T* tile, bool cf, int Tp, int C, int G,
+                          int nv, float* red, float* out) {
+  const int Cg = C / G;
+  block_group_sum([&](int g) {
+    return group_accum<T, V>(tile, cf, Tp, C, Cg, nv, g,
+                             [](float x) { return x; });
+  }, G, red, out);
+}
+
+// Group sums of (x - mean[g])^2 over the tile's nv valid frames.
+template <typename T, int V>
+__device__ void tile_sq(const T* tile, bool cf, int Tp, int C, int G, int nv,
+                        const float* mean, float* red, float* out) {
+  const int Cg = C / G;
+  block_group_sum([&](int g) {
+    const float m = mean[g];
+    return group_accum<T, V>(tile, cf, Tp, C, Cg, nv, g, [m](float x) {
+      const float d = x - m;
+      return d * d;
+    });
+  }, G, red, out);
+}
+
+// V consecutive fp32 parameters from device memory (aligned when V > 1:
+// c is a multiple of V)
+template <int V>
+__device__ __forceinline__ Pack<float, V> ld_param(const float* p, int c) {
+  Pack<float, V> r;
+  if constexpr (V == 1) {
+    r.v[0] = __ldg(p + c);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p + c + j));
+      r.v[j] = f.x;
+      r.v[j + 1] = f.y;
+      r.v[j + 2] = f.z;
+      r.v[j + 3] = f.w;
+    }
+  }
+  return r;
+}
+
+// the per-channel parameters of V channels (channels-last: c..c+V-1) or
+// of one channel (channels-first: all lanes of the vector)
+template <int V>
+struct Params {
+  Pack<float, V> s, b;
+  __device__ __forceinline__ void load(const float* scale, const float* bias,
+                                       int c, bool cf) {
+    if (cf) {
+      const float sc = __ldg(scale + c), bi = __ldg(bias + c);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        s.v[j] = sc;
+        b.v[j] = bi;
+      }
+    } else {
+      s = ld_param<V>(scale, c);
+      b = ld_param<V>(bias, c);
+    }
+  }
+};
+
+// normalized value of one element, then the affine, unrounded
+__device__ __forceinline__ float affine(float x, float mean, float rstd,
+                                        float sc, float bi, float* xhat) {
+  const float xn = __fmul_rn(x - mean, rstd);
+  *xhat = xn;
+  return __fadd_rn(__fmul_rn(xn, sc), bi);
+}
+
+// Write frames [t0, t0 + nfr) of the output row b (Cout channels, in x's
+// order, strides o): zero at tile frames >= nv. One vector of V frames of
+// a channel pair (channels-first) or V channel pairs of a frame
+// (channels-last) per step; a vector's channels share their group.
+template <typename T, int V, bool GLU>
+__device__ void write_fwd(const T* tile, bool cf, int Tp, int C, int G,
+                          int nfr, int nv, const float* s_mean,
+                          const float* s_rstd, const float* scale,
+                          const float* bias, T* out, const View& o, int b,
+                          int t0) {
+  const int Cg = C / G, Cout = GLU ? C / 2 : C;
+  T* base = out + b * o.sb + (long long)t0 * o.st;
+  auto step = [&](int c, int tl) {
+    const int ga = group_of(c, Cg, G), gb = group_of(c + Cout, Cg, G);
+    const T* pa_at = tile + (cf ? c * Tp + tl : tl * C + c);
+    const T* pb_at = tile + (cf ? (c + Cout) * Tp + tl : tl * C + c + Cout);
+    T* dst = base + (cf ? c * o.sc + tl : tl * o.st + c);
+    Pack<T, V> r;
+    if (!cf && tl >= nv) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) r.v[j] = from_f<T>(0.f);
+      st<T, V>(dst, r);
+      return;
+    }
+    const Pack<T, V> pa = ld<T, V>(pa_at);
+    Params<V> qa, qb;
+    qa.load(scale, bias, c, cf);
+    Pack<T, V> pb;
+    if (GLU) {
+      pb = ld<T, V>(pb_at);
+      qb.load(scale, bias, c + Cout, cf);
+    }
+    const float ma = s_mean[ga], ra = s_rstd[ga];
+    const float mb = GLU ? s_mean[gb] : 0.f, rb = GLU ? s_rstd[gb] : 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float h, y = 0.f;
+      if (!cf || tl + j < nv) {
+        y = rnd<T>(affine(to_f<T>(pa.v[j]), ma, ra, qa.s.v[j], qa.b.v[j], &h));
+        if (GLU) {
+          const float yb = rnd<T>(
+              affine(to_f<T>(pb.v[j]), mb, rb, qb.s.v[j], qb.b.v[j], &h));
+          y = rnd<T>(gate_tanh<T>(y)) * rnd<T>(gate_sigmoid<T>(yb));
+        }
+      }
+      r.v[j] = from_f<T>(y);
+    }
+    st<T, V>(dst, r);
+  };
+  if (cf)
+    for_each_qr((nfr + V - 1) / V, Cout,
+                [&](int c, int tv) { step(c, tv * V); });
+  else
+    for_each_qr(Cout / V, nfr, [&](int tl, int cv) { step(cv * V, tl); });
+}
+
+// ---------------------------------------------------------------- backward
+// One channel's group mean and rstd, scale and bias.
+struct ChanPar {
+  float m, r, s, b;
+};
+
+// dy of the channel pair (a, b = a + Cout) at a valid frame, with xhat of
+// both; y is rebuilt in fp32 and not rounded (the TPU kernel's _bwd_kernel).
+template <typename T, bool GLU>
+__device__ __forceinline__ void dy_pair(float xa, float xb, float go,
+                                        const ChanPar& a, const ChanPar& b,
+                                        float* ha, float* hb, float* dya,
+                                        float* dyb) {
+  const float ya = affine(xa, a.m, a.r, a.s, a.b, ha);
+  if (GLU) {
+    const float yb = affine(xb, b.m, b.r, b.s, b.b, hb);
+    const float ta = gate_tanh<T>(ya);
+    const float sb = gate_sigmoid<T>(yb);
+    *dya = go * sb * (1.f - ta * ta);
+    *dyb = go * ta * sb * (1.f - sb);
+  } else {
+    *hb = 0.f;
+    *dya = go;
+    *dyb = 0.f;
+  }
+}
+
+__device__ __forceinline__ ChanPar chan_par(int c, int Cg, int G,
+                                           const float* s_mean,
+                                           const float* s_rstd,
+                                           const float* scale,
+                                           const float* bias) {
+  const int g = group_of(c, Cg, G);
+  return {s_mean[g], s_rstd[g], __ldg(scale + c), __ldg(bias + c)};
+}
+
+// What channel_partials adds up per channel pair. Once the statistics are
+// known: dy*xhat and dy (and the gate partner's). FUSE (no GLU, only the
+// mean known yet): g*(x - mean), g and (x - mean)^2, so one pass over the
+// tile gives the variance and, times rstd, the same partials.
+template <typename T, bool GLU, bool FUSE>
+struct PartAcc {
+  float a0 = 0.f, b0 = 0.f, a1 = 0.f, b1 = 0.f;
+
+  __device__ __forceinline__ void add(float xa, float xb, float go,
+                                      const ChanPar& ca, const ChanPar& cb) {
+    if (FUSE) {
+      const float d = xa - ca.m;
+      a0 += go * d;
+      b0 += go;
+      a1 += d * d;
+      return;
+    }
+    float ha, hb, dya, dyb;
+    dy_pair<T, GLU>(xa, xb, go, ca, cb, &ha, &hb, &dya, &dyb);
+    a0 += dya * ha;
+    b0 += dya;
+    if (GLU) {
+      a1 += dyb * hb;
+      b1 += dyb;
+    }
+  }
+
+  // fixed xor tree over groups of pp neighbouring lanes
+  __device__ __forceinline__ void reduce(int pp) {
+    for (int o = pp >> 1; o > 0; o >>= 1) {
+      a0 += __shfl_xor_sync(0xffffffffu, a0, o);
+      b0 += __shfl_xor_sync(0xffffffffu, b0, o);
+      if (GLU || FUSE) a1 += __shfl_xor_sync(0xffffffffu, a1, o);
+      if (GLU) b1 += __shfl_xor_sync(0xffffffffu, b1, o);
+    }
+  }
+
+  __device__ __forceinline__ void store(int c, int Cout, float* pg, float* pb,
+                                        float* pq) const {
+    pg[c] = a0;
+    pb[c] = b0;
+    if (GLU) {
+      pg[c + Cout] = a1;
+      pb[c + Cout] = b1;
+    }
+    if (FUSE) pq[c] = a1;
+  }
+};
+
+// Per-channel sums (PartAcc) over the tile's nv valid frames into shared
+// memory (pg, pb and, with FUSE, pq); ends with a block barrier.
+// Channels-last tiles: one thread per channel pair walks the frames.
+// Channels-first: a group of pp neighbouring lanes per channel pair, each
+// lane on V-frame vectors (the loads of the statistics pass), then a fixed
+// xor tree over the group.
+template <typename T, int V, bool GLU, bool FUSE>
+__device__ void channel_partials(const T* xt, const T* gt, bool cf, int Tp,
+                                 int C, int G, int nv, const float* s_mean,
+                                 const float* s_rstd, const float* scale,
+                                 const float* bias, float* pg, float* pb,
+                                 float* pq) {
+  static_assert(!(GLU && FUSE), "the GLU's dy needs rstd");
+  const int Cg = C / G, Cout = GLU ? C / 2 : C;
+  if (!cf) {
+    for (int c = threadIdx.x; c < Cout; c += kThreads) {
+      const ChanPar ca = chan_par(c, Cg, G, s_mean, s_rstd, scale, bias);
+      const ChanPar cb = GLU ? chan_par(c + Cout, Cg, G, s_mean, s_rstd,
+                                        scale, bias) : ca;
+      PartAcc<T, GLU, FUSE> acc;
+      for (int tl = 0; tl < nv; ++tl)
+        acc.add(to_f<T>(xt[tl * C + c]),
+                GLU ? to_f<T>(xt[tl * C + c + Cout]) : 0.f,
+                to_f<T>(gt[tl * Cout + c]), ca, cb);
+      acc.store(c, Cout, pg, pb, pq);
+    }
+  } else {
+    const int per = (nv + V - 1) / V;  // vectors of valid frames a channel
+    int pp = 1;                        // lanes a channel: a power of two
+    while (pp < per && pp < 32) pp <<= 1;
+    const int total = Cout * pp;
+    const int lane = threadIdx.x & 31;
+    for (int base = threadIdx.x - lane; base < total; base += kThreads) {
+      const int i = base + lane;
+      const int c = min(i / pp, Cout - 1);
+      const ChanPar ca = chan_par(c, Cg, G, s_mean, s_rstd, scale, bias);
+      const ChanPar cb = GLU ? chan_par(c + Cout, Cg, G, s_mean, s_rstd,
+                                        scale, bias) : ca;
+      PartAcc<T, GLU, FUSE> acc;
+      for (int k = i - (i / pp) * pp; i < total && k < per; k += pp) {
+        const int tl = k * V;
+        const Pack<T, V> px = ld<T, V>(xt + c * Tp + tl);
+        const Pack<T, V> py = GLU ? ld<T, V>(xt + (c + Cout) * Tp + tl) : px;
+        const Pack<T, V> pgo = ld<T, V>(gt + c * Tp + tl);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          if (tl + j >= nv) break;
+          acc.add(to_f<T>(px.v[j]), to_f<T>(py.v[j]), to_f<T>(pgo.v[j]), ca,
+                  cb);
+        }
+      }
+      acc.reduce(pp);
+      if (i < total && i % pp == 0) acc.store(c, Cout, pg, pb, pq);
+    }
+  }
+  __syncthreads();
+}
+
+// Copy the channel partials to the scratch row and form the group sums of
+// scale*pb (-> m1) and scale*pg (-> m2) of this tile.
+__device__ void partials_out(const float* pg, const float* pb,
+                             const float* scale, int C, int G, float* red,
+                             float* rowg, float* rowb, float* m1, float* m2) {
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    rowg[c] = pg[c];
+    rowb[c] = pb[c];
+  }
+  const int Cg = C / G;
+  block_group_sum([&](int g) {
+    float v = 0.f;
+    for (int c = g * Cg + threadIdx.x; c < (g + 1) * Cg; c += kThreads)
+      v += __ldg(scale + c) * pb[c];
+    return v;
+  }, G, red, m1);
+  block_group_sum([&](int g) {
+    float v = 0.f;
+    for (int c = g * Cg + threadIdx.x; c < (g + 1) * Cg; c += kThreads)
+      v += __ldg(scale + c) * pg[c];
+    return v;
+  }, G, red, m2);
+}
+
+// Write frames [t0, t0 + nfr) of dx row b (C channels, x's order, strides
+// o): zero at tile frames >= nv. Vectors as in write_fwd.
+template <typename T, int V, bool GLU>
+__device__ void write_dx(const T* xt, const T* gt, bool cf, int Tp, int C,
+                         int G, int nfr, int nv, const float* s_mean,
+                         const float* s_rstd, const float* s_m1,
+                         const float* s_m2, const float* scale,
+                         const float* bias, T* dx, const View& o, int b,
+                         int t0) {
+  const int Cg = C / G, Cout = GLU ? C / 2 : C;
+  T* base = dx + b * o.sb + (long long)t0 * o.st;
+  auto step = [&](int c, int tl) {
+    const int ga = group_of(c, Cg, G), gb = group_of(c + Cout, Cg, G);
+    T* da = base + (cf ? c * o.sc + tl : tl * o.st + c);
+    T* db = base + (cf ? (c + Cout) * o.sc + tl : tl * o.st + c + Cout);
+    Pack<T, V> ra, rb;
+    if (!cf && tl >= nv) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) ra.v[j] = from_f<T>(0.f);
+      st<T, V>(da, ra);
+      if (GLU) st<T, V>(db, ra);
+      return;
+    }
+    const Pack<T, V> pa = ld<T, V>(xt + (cf ? c * Tp + tl : tl * C + c));
+    const Pack<T, V> pg = ld<T, V>(gt + (cf ? c * Tp + tl : tl * Cout + c));
+    Params<V> qa, qb;
+    qa.load(scale, bias, c, cf);
+    Pack<T, V> pb;
+    if (GLU) {
+      pb = ld<T, V>(xt + (cf ? (c + Cout) * Tp + tl : tl * C + c + Cout));
+      qb.load(scale, bias, c + Cout, cf);
+    }
+    const float ma = s_mean[ga], rsa = s_rstd[ga];
+    const float m1a = s_m1[ga], m2a = s_m2[ga];
+    const float mb = GLU ? s_mean[gb] : 0.f, rsb = GLU ? s_rstd[gb] : 0.f;
+    const float m1b = GLU ? s_m1[gb] : 0.f, m2b = GLU ? s_m2[gb] : 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float va = 0.f, vb = 0.f;
+      if (!cf || tl + j < nv) {
+        float ha, hb, dya, dyb;
+        dy_pair<T, GLU>(to_f<T>(pa.v[j]), GLU ? to_f<T>(pb.v[j]) : 0.f,
+                     to_f<T>(pg.v[j]), {ma, rsa, qa.s.v[j], qa.b.v[j]},
+                     {mb, rsb, GLU ? qb.s.v[j] : 0.f, GLU ? qb.b.v[j] : 0.f},
+                     &ha, &hb, &dya, &dyb);
+        va = (dya * qa.s.v[j] - m1a - ha * m2a) * rsa;
+        if (GLU) vb = (dyb * qb.s.v[j] - m1b - hb * m2b) * rsb;
+      }
+      ra.v[j] = from_f<T>(va);
+      if (GLU) rb.v[j] = from_f<T>(vb);
+    }
+    st<T, V>(da, ra);
+    if (GLU) st<T, V>(db, rb);
+  };
+  if (cf)
+    for_each_qr((nfr + V - 1) / V, Cout,
+                [&](int c, int tv) { step(c, tv * V); });
+  else
+    for_each_qr(Cout / V, nfr, [&](int tl, int cv) { step(cv * V, tl); });
+}
+
+// ------------------------------------------------------------ cluster path
+// Rank-ordered sum over the cluster of the per-block values v[g] (g < G),
+// read through distributed shared memory by threads g < G.
+__device__ __forceinline__ float cluster_total(cg::cluster_group& cl,
+                                               float* v, int g) {
+  float t = 0.f;
+  for (unsigned q = 0; q < cl.num_blocks(); ++q) t += cl.map_shared_rank(v, q)[g];
+  return t;
+}
+
+template <typename T, int V, bool GLU>
+__global__ void __launch_bounds__(kThreads, 2)
+gn_fwd_cluster(const T* __restrict__ x, View xv,
+               const float* __restrict__ scale,
+               const float* __restrict__ bias,
+               const int* __restrict__ lengths, T* __restrict__ out, View ov,
+               int T_, int C, int G, int Tb, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kWarps * kMaxGroups];
+  __shared__ float xs[kMaxGroups], xq[kMaxGroups];
+  __shared__ float s_mean[kMaxGroups], s_rstd[kMaxGroups];
+  T* tile = reinterpret_cast<T*>(smem);
+  cg::cluster_group cl = cg::this_cluster();
+  const int r = (int)cl.block_rank(), b = blockIdx.x / (int)cl.num_blocks();
+  const int len = valid_len(lengths, b, T_);
+  const int t0 = r * Tb;
+  const int nfr = max(min(Tb, T_ - t0), 0), nv = max(min(Tb, len - t0), 0);
+  const bool cf = xv.cf;
+  load_tile<T, V>(tile, cf, Tb, x, xv, b, t0, nv, C);
+  cp_async_wait_all();
+  __syncthreads();
+  const float n = fmaxf((float)len * (float)(C / G), 1.f);
+  tile_sums<T, V>(tile, cf, Tb, C, G, nv, red, xs);
+  cl.sync();
+  if (threadIdx.x < G) s_mean[threadIdx.x] = cluster_total(cl, xs, threadIdx.x) / n;
+  __syncthreads();
+  tile_sq<T, V>(tile, cf, Tb, C, G, nv, s_mean, red, xq);
+  cl.sync();
+  if (threadIdx.x < G) {
+    const float var = fmaxf(cluster_total(cl, xq, threadIdx.x) / n, 0.f);
+    s_rstd[threadIdx.x] = 1.f / sqrtf(var + eps);
+  }
+  cluster_arrive();  // done reading the other blocks' shared memory
+  __syncthreads();
+  write_fwd<T, V, GLU>(tile, cf, Tb, C, G, nfr, nv, s_mean, s_rstd, scale,
+                       bias, out, ov, b, t0);
+  cluster_wait();
+}
+
+template <typename T, int V, bool GLU>
+__global__ void __launch_bounds__(kThreads, 2)
+gn_bwd_cluster(const T* __restrict__ x, View xv,
+               const float* __restrict__ scale,
+               const float* __restrict__ bias, const T* __restrict__ g,
+               View gv, const int* __restrict__ lengths, T* __restrict__ dx,
+               View ov, int T_, int C, int G, int Tb, float eps,
+               float* __restrict__ pdg, float* __restrict__ pdb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kWarps * kMaxGroups];
+  __shared__ float xs[kMaxGroups], xq[kMaxGroups], m1s[kMaxGroups],
+      m2s[kMaxGroups];
+  __shared__ float s_mean[kMaxGroups], s_rstd[kMaxGroups], s_m1[kMaxGroups],
+      s_m2[kMaxGroups];
+  const int Cout = GLU ? C / 2 : C;
+  T* xt = reinterpret_cast<T*>(smem);
+  T* gt = xt + (long long)Tb * C;
+  float* pg = reinterpret_cast<float*>(gt + (long long)Tb * Cout);
+  float* pb = pg + C;
+  float* pq = pb + C;
+  cg::cluster_group cl = cg::this_cluster();
+  const int nb = (int)cl.num_blocks();
+  const int r = (int)cl.block_rank(), b = blockIdx.x / nb;
+  const int len = valid_len(lengths, b, T_);
+  const int t0 = r * Tb;
+  const int nfr = max(min(Tb, T_ - t0), 0), nv = max(min(Tb, len - t0), 0);
+  const bool cf = xv.cf;
+  load_tile<T, V>(xt, cf, Tb, x, xv, b, t0, nv, C);
+  load_tile<T, V>(gt, cf, Tb, g, gv, b, t0, nv, Cout);
+  cp_async_wait_all();
+  __syncthreads();
+  const float n = fmaxf((float)len * (float)(C / G), 1.f);
+  tile_sums<T, V>(xt, cf, Tb, C, G, nv, red, xs);
+  cl.sync();
+  if (threadIdx.x < G) s_mean[threadIdx.x] = cluster_total(cl, xs, threadIdx.x) / n;
+  __syncthreads();
+  const int Cg = C / G;
+  if (GLU) {
+    tile_sq<T, V>(xt, cf, Tb, C, G, nv, s_mean, red, xq);
+  } else {
+    // one pass: the centred squares and g*(x - mean), g per channel
+    channel_partials<T, V, false, true>(xt, gt, cf, Tb, C, G, nv, s_mean,
+                                        s_rstd, scale, bias, pg, pb, pq);
+    block_group_sum([&](int g) {
+      float v = 0.f;
+      for (int c = g * Cg + threadIdx.x; c < (g + 1) * Cg; c += kThreads)
+        v += pq[c];
+      return v;
+    }, G, red, xq);
+  }
+  cl.sync();
+  if (threadIdx.x < G) {
+    const float var = fmaxf(cluster_total(cl, xq, threadIdx.x) / n, 0.f);
+    s_rstd[threadIdx.x] = 1.f / sqrtf(var + eps);
+  }
+  __syncthreads();
+  if (GLU) {
+    channel_partials<T, V, GLU, false>(xt, gt, cf, Tb, C, G, nv, s_mean,
+                                       s_rstd, scale, bias, pg, pb, pq);
+  } else {
+    for (int c = threadIdx.x; c < C; c += kThreads)
+      pg[c] *= s_rstd[group_of(c, Cg, G)];  // sum g*xhat = rstd*sum g*(x-m)
+    __syncthreads();
+  }
+  const long long row = (long long)b * nb + r;
+  partials_out(pg, pb, scale, C, G, red, pdg + row * C, pdb + row * C, m1s,
+               m2s);
+  cl.sync();
+  if (threadIdx.x < G) {
+    s_m1[threadIdx.x] = cluster_total(cl, m1s, threadIdx.x) / n;
+    s_m2[threadIdx.x] = cluster_total(cl, m2s, threadIdx.x) / n;
+  }
+  cluster_arrive();  // done reading the other blocks' shared memory
+  __syncthreads();
+  write_dx<T, V, GLU>(xt, gt, cf, Tb, C, G, nfr, nv, s_mean, s_rstd, s_m1,
+                      s_m2, scale, bias, dx, ov, b, t0);
+  cluster_wait();
+}
+
+// ---------------------------------------------------------- streaming path
+// One block per (chunk of Tc frames, batch row): the chunk's valid count,
+// mean and centred sum of squares per group (two passes over the tile).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+gn_stream_stats(const T* __restrict__ x, View xv,
+                const int* __restrict__ lengths, int T_, int C, int G,
+                int Tc, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kWarps * kMaxGroups];
+  __shared__ float xs[kMaxGroups], xq[kMaxGroups], s_mean[kMaxGroups];
+  T* tile = reinterpret_cast<T*>(smem);
+  const int chunk = blockIdx.x, b = blockIdx.y, n_chunks = gridDim.x;
+  const int t0 = chunk * Tc;
+  const int nv = max(min(Tc, valid_len(lengths, b, T_) - t0), 0);
+  const bool cf = xv.cf;
+  load_tile<T, V>(tile, cf, Tc, x, xv, b, t0, nv, C);
+  cp_async_wait_all();
+  __syncthreads();
+  const float n = (float)nv * (float)(C / G);
+  tile_sums<T, V>(tile, cf, Tc, C, G, nv, red, xs);
+  if (threadIdx.x < G) s_mean[threadIdx.x] = nv > 0 ? xs[threadIdx.x] / n : 0.f;
+  __syncthreads();
+  tile_sq<T, V>(tile, cf, Tc, C, G, nv, s_mean, red, xq);
+  if (threadIdx.x < G) {
+    float* p = part + (((long long)b * G + threadIdx.x) * n_chunks + chunk) * 3;
+    p[0] = n;
+    p[1] = s_mean[threadIdx.x];
+    p[2] = xq[threadIdx.x];
+  }
+}
+
+// Fixed-order (Chan) merge of one batch row's chunk statistics into
+// per-group mean and 1/sqrt(var + eps); ends with a block barrier.
 __device__ void merge_stats(const float* __restrict__ part, int b, int G,
                             int n_chunks, float eps, float* s_mean,
                             float* s_rstd) {
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    const float* p = part + ((long long)b * G + g) * n_chunks * 3;
+  if (threadIdx.x < G) {
+    const float* p = part + ((long long)b * G + threadIdx.x) * n_chunks * 3;
     float n = 0.f, mean = 0.f, m2 = 0.f;
     for (int k = 0; k < n_chunks; ++k) {
       const float nb = p[3 * k];
@@ -151,341 +819,493 @@ __device__ void merge_stats(const float* __restrict__ part, int b, int G,
       m2 += p[3 * k + 2] + delta * delta * (n * nb / nt);
       n = nt;
     }
-    const float cnt = fmaxf(n, 1.f);
-    const float var = fmaxf(m2 / cnt, 0.f);
-    s_mean[g] = mean;
-    s_rstd[g] = 1.f / sqrtf(var + eps);
+    const float var = fmaxf(m2 / fmaxf(n, 1.f), 0.f);
+    s_mean[threadIdx.x] = mean;
+    s_rstd[threadIdx.x] = 1.f / sqrtf(var + eps);
   }
   __syncthreads();
 }
 
-template <typename T, bool GLU>
-__global__ void __launch_bounds__(kThreads)
-gn_apply(const T* __restrict__ x, const float* __restrict__ scale,
-         const float* __restrict__ bias, const int* __restrict__ lengths,
-         const float* __restrict__ part, int T_, int C, int G, int n_chunks,
-         float eps, T* __restrict__ out) {
+template <typename T, int V, bool GLU>
+__global__ void __launch_bounds__(kThreads, 2)
+gn_fwd_stream_apply(const T* __restrict__ x, View xv,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias,
+                    const int* __restrict__ lengths,
+                    const float* __restrict__ part, T* __restrict__ out,
+                    View ov, int T_, int C, int G, int Tc, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_mean[kMaxGroups], s_rstd[kMaxGroups];
-  const int b = blockIdx.y;
-  merge_stats(part, b, G, n_chunks, eps, s_mean, s_rstd);
-
-  const int Cg = C / G;
-  const int len = valid_len(lengths, b, T_);
-  const int t0 = blockIdx.x * kApplyRows;
-  const int t1 = min(t0 + kApplyRows, T_);
-  const int Cout = GLU ? C / 2 : C;
-  for (int t = t0; t < t1; ++t) {
-    const T* xr = x + ((long long)b * T_ + t) * C;
-    T* orow = out + ((long long)b * T_ + t) * Cout;
-    const float m = t < len ? 1.f : 0.f;
-    for (int c = threadIdx.x; c < Cout; c += blockDim.x) {
-      const int ga = c / Cg;
-      const float xa = __fmul_rn(to_f<T>(xr[c]) - s_mean[ga], s_rstd[ga]);
-      const float ya = rnd<T>(__fadd_rn(__fmul_rn(xa, scale[c]), bias[c])) * m;
-      if (GLU) {
-        const int cb = c + Cout;
-        const int gb = cb / Cg;
-        const float xb = __fmul_rn(to_f<T>(xr[cb]) - s_mean[gb], s_rstd[gb]);
-        const float yb = rnd<T>(__fadd_rn(__fmul_rn(xb, scale[cb]), bias[cb])) * m;
-        const float ta = rnd<T>(tanhf(ya));
-        const float sb = rnd<T>(1.f / (1.f + expf(-yb)));
-        orow[c] = from_f<T>(ta * sb);
-      } else {
-        orow[c] = from_f<T>(ya);
-      }
-    }
-  }
-}
-
-template <typename T>
-void launch(const void* x, const float* scale, const float* bias,
-            const int* lengths, void* out, float* part, int B, int T_, int C,
-            int G, int glu, float eps, cudaStream_t stream) {
-  const int n_chunks = (T_ + kRowsPerChunk - 1) / kRowsPerChunk;
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  gn_partial<T><<<dim3(n_chunks, B, G), kThreads, 0, stream>>>(
-      xt, lengths, T_, C, G, n_chunks, part);
-  const dim3 grid((T_ + kApplyRows - 1) / kApplyRows, B);
-  if (glu)
-    gn_apply<T, true><<<grid, kThreads, 0, stream>>>(
-        xt, scale, bias, lengths, part, T_, C, G, n_chunks, eps, ot);
-  else
-    gn_apply<T, false><<<grid, kThreads, 0, stream>>>(
-        xt, scale, bias, lengths, part, T_, C, G, n_chunks, eps, ot);
-}
-
-// ---------------------------------------------------------------- backward
-
-// dy of one output channel c (and, with GLU, of its gate partner c + C/2)
-// at one frame, with xhat of both; y is rebuilt in fp32 and not rounded.
-template <typename T, bool GLU>
-__device__ __forceinline__ void dy_at(
-    const T* __restrict__ xr, const T* __restrict__ gr,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    const float* s_mean, const float* s_rstd, int c, int Cout, int Cg,
-    float& xa, float& xb, float& dya, float& dyb) {
-  const int ga = c / Cg;
-  xa = __fmul_rn(to_f<T>(xr[c]) - s_mean[ga], s_rstd[ga]);
-  const float go = to_f<T>(gr[c]);
-  if (GLU) {
-    const int cb = c + Cout;
-    const int gb = cb / Cg;
-    xb = __fmul_rn(to_f<T>(xr[cb]) - s_mean[gb], s_rstd[gb]);
-    const float ya = __fadd_rn(__fmul_rn(xa, scale[c]), bias[c]);
-    const float yb = __fadd_rn(__fmul_rn(xb, scale[cb]), bias[cb]);
-    const float ta = tanhf(ya);
-    const float sb = 1.f / (1.f + expf(-yb));
-    dya = go * sb * (1.f - ta * ta);
-    dyb = go * ta * sb * (1.f - sb);
-  } else {
-    xb = 0.f;
-    dya = go;
-    dyb = 0.f;
-  }
-}
-
-template <typename T, bool GLU>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_partial(const T* __restrict__ x, const float* __restrict__ scale,
-               const float* __restrict__ bias, const T* __restrict__ g,
-               const int* __restrict__ lengths, const float* __restrict__ part,
-               int T_, int C, int G, int n_chunks, int n_bchunks, float eps,
-               float* __restrict__ pdg, float* __restrict__ pdb) {
-  __shared__ float s_mean[kMaxGroups], s_rstd[kMaxGroups];
+  T* tile = reinterpret_cast<T*>(smem);
   const int chunk = blockIdx.x, b = blockIdx.y;
-  merge_stats(part, b, G, n_chunks, eps, s_mean, s_rstd);
-  const int Cg = C / G;
+  const int t0 = chunk * Tc;
+  const int nfr = min(Tc, T_ - t0);
+  const int nv = max(min(Tc, valid_len(lengths, b, T_) - t0), 0);
+  const bool cf = xv.cf;
+  load_tile<T, V>(tile, cf, Tc, x, xv, b, t0, nv, C);
+  merge_stats(part, b, G, gridDim.x, eps, s_mean, s_rstd);
+  cp_async_wait_all();
+  __syncthreads();
+  write_fwd<T, V, GLU>(tile, cf, Tc, C, G, nfr, nv, s_mean, s_rstd, scale,
+                       bias, out, ov, b, t0);
+}
+
+// Per-chunk channel partials (scratch rows b*n_chunks + chunk) and the
+// chunk's group sums of scale*dbias and scale*dscale partials (gm).
+template <typename T, int V, bool GLU>
+__global__ void __launch_bounds__(kThreads, 2)
+gn_bwd_stream_partial(const T* __restrict__ x, View xv,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias,
+                      const T* __restrict__ g, View gv,
+                      const int* __restrict__ lengths,
+                      const float* __restrict__ part, int T_, int C, int G,
+                      int Tc, float eps, float* __restrict__ pdg,
+                      float* __restrict__ pdb, float* __restrict__ gm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kWarps * kMaxGroups];
+  __shared__ float s_mean[kMaxGroups], s_rstd[kMaxGroups], m1s[kMaxGroups],
+      m2s[kMaxGroups];
   const int Cout = GLU ? C / 2 : C;
+  T* xt = reinterpret_cast<T*>(smem);
+  T* gt = xt + (long long)Tc * C;
+  float* pg = reinterpret_cast<float*>(gt + (long long)Tc * Cout);
+  float* pb = pg + C;
+  const int chunk = blockIdx.x, b = blockIdx.y, n_chunks = gridDim.x;
+  const int t0 = chunk * Tc;
+  const int nv = max(min(Tc, valid_len(lengths, b, T_) - t0), 0);
+  const bool cf = xv.cf;
+  load_tile<T, V>(xt, cf, Tc, x, xv, b, t0, nv, C);
+  load_tile<T, V>(gt, cf, Tc, g, gv, b, t0, nv, Cout);
+  merge_stats(part, b, G, n_chunks, eps, s_mean, s_rstd);
+  cp_async_wait_all();
+  __syncthreads();
+  channel_partials<T, V, GLU, false>(xt, gt, cf, Tc, C, G, nv, s_mean,
+                                     s_rstd, scale, bias, pg, pb, nullptr);
+  const long long row = (long long)b * n_chunks + chunk;
+  partials_out(pg, pb, scale, C, G, red, pdg + row * C, pdb + row * C, m1s,
+               m2s);
+  if (threadIdx.x < G) {
+    gm[(row * G + threadIdx.x) * 2] = m1s[threadIdx.x];
+    gm[(row * G + threadIdx.x) * 2 + 1] = m2s[threadIdx.x];
+  }
+}
+
+template <typename T, int V, bool GLU>
+__global__ void __launch_bounds__(kThreads, 2)
+gn_bwd_stream_dx(const T* __restrict__ x, View xv,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias, const T* __restrict__ g,
+                 View gv, const int* __restrict__ lengths,
+                 const float* __restrict__ part,
+                 const float* __restrict__ gm, T* __restrict__ dx, View ov,
+                 int T_, int C, int G, int Tc, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_mean[kMaxGroups], s_rstd[kMaxGroups], s_m1[kMaxGroups],
+      s_m2[kMaxGroups];
+  const int Cout = GLU ? C / 2 : C;
+  T* xt = reinterpret_cast<T*>(smem);
+  T* gt = xt + (long long)Tc * C;
+  const int chunk = blockIdx.x, b = blockIdx.y, n_chunks = gridDim.x;
+  const int t0 = chunk * Tc;
   const int len = valid_len(lengths, b, T_);
-  const int t0 = chunk * kBwdRows;
-  const int t1 = min(t0 + kBwdRows, len);
-  float* og = pdg + ((long long)b * n_bchunks + chunk) * C;
-  float* ob = pdb + ((long long)b * n_bchunks + chunk) * C;
-  for (int c = threadIdx.x; c < Cout; c += blockDim.x) {
-    float ga = 0.f, ba = 0.f, gb = 0.f, bb = 0.f;
-    for (int t = t0; t < t1; ++t) {
-      const T* xr = x + ((long long)b * T_ + t) * C;
-      const T* gr = g + ((long long)b * T_ + t) * Cout;
-      float xa, xb, dya, dyb;
-      dy_at<T, GLU>(xr, gr, scale, bias, s_mean, s_rstd, c, Cout, Cg, xa, xb,
-                    dya, dyb);
-      ga += dya * xa;
-      ba += dya;
-      gb += dyb * xb;
-      bb += dyb;
+  const int nfr = min(Tc, T_ - t0), nv = max(min(Tc, len - t0), 0);
+  const bool cf = xv.cf;
+  load_tile<T, V>(xt, cf, Tc, x, xv, b, t0, nv, C);
+  load_tile<T, V>(gt, cf, Tc, g, gv, b, t0, nv, Cout);
+  if (threadIdx.x < G) {
+    const float n = fmaxf((float)len * (float)(C / G), 1.f);
+    float a = 0.f, c = 0.f;
+    for (int k = 0; k < n_chunks; ++k) {
+      const float* p = gm + (((long long)b * n_chunks + k) * G + threadIdx.x) * 2;
+      a += p[0];
+      c += p[1];
     }
-    og[c] = ga;
-    ob[c] = ba;
-    if (GLU) {
-      og[c + Cout] = gb;
-      ob[c + Cout] = bb;
-    }
+    s_m1[threadIdx.x] = a / n;
+    s_m2[threadIdx.x] = c / n;
   }
+  merge_stats(part, b, G, n_chunks, eps, s_mean, s_rstd);
+  cp_async_wait_all();
+  __syncthreads();
+  write_dx<T, V, GLU>(xt, gt, cf, Tc, C, G, nfr, nv, s_mean, s_rstd, s_m1,
+                      s_m2, scale, bias, dx, ov, b, t0);
 }
 
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_rowsum(const float* __restrict__ scale, const int* __restrict__ lengths,
-              const float* __restrict__ pdg, const float* __restrict__ pdb,
-              int T_, int C, int G, int n_bchunks, float* __restrict__ rdg,
-              float* __restrict__ rdb, float* __restrict__ ms) {
-  __shared__ float sh[33];
-  const int b = blockIdx.x;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float sg = 0.f, sb = 0.f;
-    for (int k = 0; k < n_bchunks; ++k) {
-      sg += pdg[((long long)b * n_bchunks + k) * C + c];
-      sb += pdb[((long long)b * n_bchunks + k) * C + c];
-    }
-    rdg[(long long)b * C + c] = sg;
-    rdb[(long long)b * C + c] = sb;
-  }
-  __syncthreads();   // the row sums above are read across threads below
-  const int Cg = C / G;
-  const float n = fmaxf((float)valid_len(lengths, b, T_) * (float)Cg, 1.f);
-  for (int g = 0; g < G; ++g) {
-    float v1 = 0.f, v2 = 0.f;
-    for (int c = g * Cg + threadIdx.x; c < (g + 1) * Cg; c += blockDim.x) {
-      v1 += scale[c] * rdb[(long long)b * C + c];
-      v2 += scale[c] * rdg[(long long)b * C + c];
-    }
-    v1 = block_sum(v1, sh);
-    v2 = block_sum(v2, sh);
-    if (threadIdx.x == 0) {
-      ms[((long long)b * G + g) * 2] = v1 / n;
-      ms[((long long)b * G + g) * 2 + 1] = v2 / n;
-    }
-  }
-}
+// dscale/dbias: the (rows, C) partials added over rows in a fixed order.
+// A block takes 8 channels (one 32-byte sector of a row); its threads are
+// 32 row slots x 8 channels, slot k adding rows k, k + 32, ... in order,
+// then thread c adds the 32 slots in order.
+constexpr int kParamChannels = 8;
+constexpr int kParamSlots = kThreads / kParamChannels;
 
 __global__ void __launch_bounds__(kThreads)
-gn_bwd_param(const float* __restrict__ rdg, const float* __restrict__ rdb,
-             int B, int C, float* __restrict__ dscale,
+gn_bwd_param(const float* __restrict__ pdg, const float* __restrict__ pdb,
+             int rows, int C, float* __restrict__ dscale,
              float* __restrict__ dbias) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float sg = 0.f, sb = 0.f;
-  for (int b = 0; b < B; ++b) {
-    sg += rdg[(long long)b * C + c];
-    sb += rdb[(long long)b * C + c];
-  }
-  dscale[c] = sg;
-  dbias[c] = sb;
-}
-
-template <typename T, bool GLU>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_dx(const T* __restrict__ x, const float* __restrict__ scale,
-          const float* __restrict__ bias, const T* __restrict__ g,
-          const int* __restrict__ lengths, const float* __restrict__ part,
-          const float* __restrict__ ms, int T_, int C, int G, int n_chunks,
-          float eps, T* __restrict__ dx) {
-  __shared__ float s_mean[kMaxGroups], s_rstd[kMaxGroups];
-  __shared__ float s_m1[kMaxGroups], s_m2[kMaxGroups];
-  const int b = blockIdx.y;
-  for (int k = threadIdx.x; k < G; k += blockDim.x) {
-    s_m1[k] = ms[((long long)b * G + k) * 2];
-    s_m2[k] = ms[((long long)b * G + k) * 2 + 1];
-  }
-  merge_stats(part, b, G, n_chunks, eps, s_mean, s_rstd);
-  const int Cg = C / G;
-  const int Cout = GLU ? C / 2 : C;
-  const int len = valid_len(lengths, b, T_);
-  const int t0 = blockIdx.x * kApplyRows;
-  const int t1 = min(t0 + kApplyRows, T_);
-  for (int t = t0; t < t1; ++t) {
-    const T* xr = x + ((long long)b * T_ + t) * C;
-    const T* gr = g + ((long long)b * T_ + t) * Cout;
-    T* dr = dx + ((long long)b * T_ + t) * C;
-    if (t >= len) {
-      for (int c = threadIdx.x; c < C; c += blockDim.x) dr[c] = from_f<T>(0.f);
-      continue;
+  __shared__ float sg[kParamSlots][kParamChannels],
+      sb[kParamSlots][kParamChannels];
+  const int k = threadIdx.x / kParamChannels;
+  const int j = threadIdx.x - k * kParamChannels;
+  const int c = blockIdx.x * kParamChannels + j;
+  float a = 0.f, d = 0.f;
+  if (c < C) {
+#pragma unroll 8
+    for (int r = k; r < rows; r += kParamSlots) {
+      a += pdg[(long long)r * C + c];
+      d += pdb[(long long)r * C + c];
     }
-    for (int c = threadIdx.x; c < Cout; c += blockDim.x) {
-      float xa, xb, dya, dyb;
-      dy_at<T, GLU>(xr, gr, scale, bias, s_mean, s_rstd, c, Cout, Cg, xa, xb,
-                    dya, dyb);
-      const int ga = c / Cg;
-      dr[c] = from_f<T>(
-          (dya * scale[c] - s_m1[ga] - xa * s_m2[ga]) * s_rstd[ga]);
-      if (GLU) {
-        const int cb = c + Cout;
-        const int gb = cb / Cg;
-        dr[cb] = from_f<T>(
-            (dyb * scale[cb] - s_m1[gb] - xb * s_m2[gb]) * s_rstd[gb]);
-      }
+  }
+  sg[k][j] = a;
+  sb[k][j] = d;
+  __syncthreads();
+  if (threadIdx.x < kParamChannels && c < C) {
+    float ta = 0.f, td = 0.f;
+    for (int i = 0; i < kParamSlots; ++i) {
+      ta += sg[i][threadIdx.x];
+      td += sb[i][threadIdx.x];
     }
+    dscale[c] = ta;
+    dbias[c] = td;
   }
 }
 
-// offsets (in floats) of the backward's scratch regions in one allocation
-struct BwdScratch {
-  long long part, pdg, pdb, rdg, rdb, ms, total;
+// -------------------------------------------------------------------- host
+// Let a kernel take kClusterSmem of dynamic shared memory and clusters of
+// 16; once per kernel.
+std::mutex host_mutex;  // guards the caches below (ctypes drops the GIL)
+
+cudaError_t prepare(const void* fn) {
+  std::lock_guard<std::mutex> guard(host_mutex);
+  static const void* done[64];
+  static int n_done = 0;
+  for (int i = 0; i < n_done; ++i)
+    if (done[i] == fn) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e == cudaSuccess && n_done < 64) done[n_done++] = fn;
+  return e;
+}
+
+// Whether clusters of nb blocks with kClusterSmem each can be scheduled
+// (cudaOccupancyMaxActiveClusters > 0); asked once per (kernel, nb).
+bool cluster_fits(const void* fn, int nb) {
+  static const void* fns[64];
+  static int nbs[64], ok[64], n_seen = 0;
+  {
+    std::lock_guard<std::mutex> guard(host_mutex);
+    for (int i = 0; i < n_seen; ++i)
+      if (fns[i] == fn && nbs[i] == nb) return ok[i];
+  }
+  int active = 0;
+  if (prepare(fn) == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nb);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kClusterSmem;
+    cudaLaunchAttribute a[1];
+    a[0].id = cudaLaunchAttributeClusterDimension;
+    a[0].val.clusterDim.x = nb;
+    a[0].val.clusterDim.y = 1;
+    a[0].val.clusterDim.z = 1;
+    cfg.attrs = a;
+    cfg.numAttrs = 1;
+    if (cudaOccupancyMaxActiveClusters(&active, fn, &cfg) != cudaSuccess)
+      active = 0;
+  }
+  cudaGetLastError();  // a refused query is an answer, not a launch error
+  std::lock_guard<std::mutex> guard(host_mutex);
+  if (n_seen < 64) {
+    fns[n_seen] = fn;
+    nbs[n_seen] = nb;
+    ok[n_seen++] = active > 0;
+  }
+  return active > 0;
+}
+
+int num_sms() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+int round_up(int a, int m) { return (a + m - 1) / m * m; }
+
+// shared memory of the backward's per-channel sums: pg, pb and, without
+// the GLU, pq
+long long bwd_param_bytes(int C, int glu, int backward) {
+  return backward ? (glu ? 2LL : 3LL) * C * sizeof(float) : 0;
+}
+
+// How a launch runs: nb > 0 a cluster of nb blocks per batch row, each
+// holding `frames` frames; nb == 0 streaming chunks of `frames` frames;
+// nb < 0 a row too wide for either.
+struct Plan {
+  int nb, frames, rows;
 };
 
-BwdScratch bwd_scratch(int B, int T_, int C, int G) {
-  const long long n_chunks = (T_ + kRowsPerChunk - 1) / kRowsPerChunk;
-  const long long n_bchunks = (T_ + kBwdRows - 1) / kBwdRows;
-  BwdScratch s;
-  s.part = 0;
-  s.pdg = s.part + (long long)B * G * n_chunks * 3;
-  s.pdb = s.pdg + (long long)B * n_bchunks * C;
-  s.rdg = s.pdb + (long long)B * n_bchunks * C;
-  s.rdb = s.rdg + (long long)B * C;
-  s.ms = s.rdb + (long long)B * C;
-  s.total = s.ms + (long long)B * G * 2;
-  return s;
+template <typename T>
+Plan make_plan(int B, int T_, int C, int glu, int backward) {
+  const int Cout = glu ? C / 2 : C;
+  const long long row_bytes =
+      (long long)(C + (backward ? Cout : 0)) * sizeof(T);
+  const long long extra = bwd_param_bytes(C, glu, backward);
+  const void* fn = backward
+      ? (const void*)gn_bwd_cluster<T, 1, false>
+      : (const void*)gn_fwd_cluster<T, 1, false>;
+  const int order[2][2] = {{8, 16}, {16, 8}};
+  const int* nbs = order[B * 8 < num_sms() ? 1 : 0];
+  // the first cluster size whose blocks fit two to an SM, else the first
+  // that fits at all
+  for (const long long budget : {(long long)kTwoPerSm, (long long)kClusterSmem})
+    for (int k = 0; k < 2; ++k) {
+      const int nb = nbs[k];
+      const int frames = round_up((T_ + nb - 1) / nb, kFrameAlign);
+      if (frames * row_bytes + extra <= budget && cluster_fits(fn, nb))
+        return {nb, frames, nb};
+    }
+  long long fit = (kStreamSmem - extra) / row_bytes / kFrameAlign * kFrameAlign;
+  if (fit < kFrameAlign) fit = kFrameAlign;
+  const int frames = (int)(fit < kStreamMaxFrames ? fit : kStreamMaxFrames);
+  if (frames * row_bytes + extra > kClusterSmem) return {-1, 0, 0};
+  return {0, frames, (T_ + frames - 1) / frames};
+}
+
+// scratch floats of a launch: backward (B, rows, C) x 2 partials, then
+// (streaming) the chunk statistics and the backward's group sums
+template <typename T>
+long long scratch_floats(int B, int T_, int C, int G, int glu, int backward) {
+  const Plan p = make_plan<T>(B, T_, C, glu, backward);
+  if (p.nb < 0) return -1;
+  long long n = backward ? 2LL * B * p.rows * C : 0;
+  if (p.nb == 0) n += 3LL * B * G * p.rows + (backward ? 2LL * B * p.rows * G : 0);
+  return n;
+}
+
+template <typename Kern, typename... Args>
+cudaError_t launch_cluster(Kern k, int nb, int B, size_t smem,
+                           cudaStream_t s, Args... args) {
+  cudaError_t e = prepare((const void*)k);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * nb);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute a[1];
+  a[0].id = cudaLaunchAttributeClusterDimension;
+  a[0].val.clusterDim.x = nb;
+  a[0].val.clusterDim.y = 1;
+  a[0].val.clusterDim.z = 1;
+  cfg.attrs = a;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, k, args...);
+}
+
+// 16-byte vectors are possible for a view of n channels: aligned pointer,
+// strides multiples of V, the unit axis's extent a multiple of V
+bool vec_ok(const void* p, const View& v, int T_, int n, int V) {
+  if (reinterpret_cast<uintptr_t>(p) % 16 || v.sb % V) return false;
+  return v.cf ? (v.sc % V == 0 && T_ % V == 0)
+              : (v.st % V == 0 && n % V == 0);
+}
+
+template <typename T, int V, bool GLU>
+cudaError_t run_fwd(const Plan& p, const T* x, View xv, const float* scale,
+                    const float* bias, const int* lengths, T* out, View ov,
+                    float* scratch, int B, int T_, int C, int G, float eps,
+                    cudaStream_t s) {
+  const size_t tile = (size_t)p.frames * C * sizeof(T);
+  if (p.nb > 0)
+    return launch_cluster(gn_fwd_cluster<T, V, GLU>, p.nb, B, tile, s, x, xv,
+                          scale, bias, lengths, out, ov, T_, C, G, p.frames,
+                          eps);
+  cudaError_t e = prepare((const void*)gn_stream_stats<T, V>);
+  if (e == cudaSuccess) e = prepare((const void*)gn_fwd_stream_apply<T, V, GLU>);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.rows, B);
+  gn_stream_stats<T, V><<<grid, kThreads, tile, s>>>(x, xv, lengths, T_, C, G,
+                                                      p.frames, scratch);
+  gn_fwd_stream_apply<T, V, GLU><<<grid, kThreads, tile, s>>>(
+      x, xv, scale, bias, lengths, scratch, out, ov, T_, C, G, p.frames, eps);
+  return cudaSuccess;
+}
+
+template <typename T, int V, bool GLU>
+cudaError_t run_bwd(const Plan& p, const T* x, View xv, const float* scale,
+                    const float* bias, const T* g, View gv,
+                    const int* lengths, T* dx, View ov, float* dscale,
+                    float* dbias, float* scratch, int B, int T_, int C, int G,
+                    float eps, cudaStream_t s) {
+  const int Cout = GLU ? C / 2 : C;
+  const size_t smem = (size_t)p.frames * (C + Cout) * sizeof(T)
+      + bwd_param_bytes(C, GLU, 1);
+  const long long n_part = (long long)B * p.rows * C;
+  float* pdg = scratch;
+  float* pdb = scratch + n_part;
+  cudaError_t e;
+  if (p.nb > 0) {
+    e = launch_cluster(gn_bwd_cluster<T, V, GLU>, p.nb, B, smem, s, x, xv,
+                       scale, bias, g, gv, lengths, dx, ov, T_, C, G,
+                       p.frames, eps, pdg, pdb);
+    if (e != cudaSuccess) return e;
+  } else {
+    float* part = pdb + n_part;
+    float* gm = part + 3LL * B * G * p.rows;
+    const size_t tile = (size_t)p.frames * C * sizeof(T);
+    const void* fns[3] = {(const void*)gn_stream_stats<T, V>,
+                          (const void*)gn_bwd_stream_partial<T, V, GLU>,
+                          (const void*)gn_bwd_stream_dx<T, V, GLU>};
+    for (const void* fn : fns)
+      if ((e = prepare(fn)) != cudaSuccess) return e;
+    const dim3 grid(p.rows, B);
+    gn_stream_stats<T, V><<<grid, kThreads, tile, s>>>(x, xv, lengths, T_, C,
+                                                        G, p.frames, part);
+    gn_bwd_stream_partial<T, V, GLU><<<grid, kThreads, smem, s>>>(
+        x, xv, scale, bias, g, gv, lengths, part, T_, C, G, p.frames, eps,
+        pdg, pdb, gm);
+    gn_bwd_stream_dx<T, V, GLU><<<grid, kThreads, smem, s>>>(
+        x, xv, scale, bias, g, gv, lengths, part, gm, dx, ov, T_, C, G,
+        p.frames, eps);
+  }
+  gn_bwd_param<<<(C + kParamChannels - 1) / kParamChannels, kThreads, 0, s>>>(
+      pdg, pdb, B * p.rows, C, dscale, dbias);
+  return cudaSuccess;
 }
 
 template <typename T>
-void launch_bwd(const void* x, const float* scale, const float* bias,
-                const void* g, const int* lengths, void* dx, float* dscale,
-                float* dbias, float* scratch, int B, int T_, int C, int G,
-                int glu, float eps, cudaStream_t stream) {
-  const int n_chunks = (T_ + kRowsPerChunk - 1) / kRowsPerChunk;
-  const int n_bchunks = (T_ + kBwdRows - 1) / kBwdRows;
-  const BwdScratch o = bwd_scratch(B, T_, C, G);
-  struct { float *part, *pdg, *pdb, *rdg, *rdb, *ms; } s = {
-      scratch + o.part, scratch + o.pdg, scratch + o.pdb,
-      scratch + o.rdg, scratch + o.rdb, scratch + o.ms};
+cudaError_t forward(const void* x, View xv, const float* scale,
+                    const float* bias, const int* lengths, void* out,
+                    View ov, float* scratch, int B, int T_, int C, int G,
+                    int glu, float eps, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const Plan p = make_plan<T>(B, T_, C, glu, 0);
+  if (p.nb < 0) return cudaErrorInvalidValue;
+  const int Cout = glu ? C / 2 : C;
+  const bool vec = vec_ok(x, xv, T_, C, V) && vec_ok(out, ov, T_, Cout, V)
+      && (xv.cf || ((C / G) % V == 0 && Cout % V == 0));
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (vec && glu)
+    return run_fwd<T, V, true>(p, xt, xv, scale, bias, lengths, ot, ov,
+                               scratch, B, T_, C, G, eps, s);
+  if (vec)
+    return run_fwd<T, V, false>(p, xt, xv, scale, bias, lengths, ot, ov,
+                                scratch, B, T_, C, G, eps, s);
+  if (glu)
+    return run_fwd<T, 1, true>(p, xt, xv, scale, bias, lengths, ot, ov,
+                               scratch, B, T_, C, G, eps, s);
+  return run_fwd<T, 1, false>(p, xt, xv, scale, bias, lengths, ot, ov,
+                              scratch, B, T_, C, G, eps, s);
+}
+
+template <typename T>
+cudaError_t backward(const void* x, View xv, const float* scale,
+                     const float* bias, const void* g, View gv,
+                     const int* lengths, void* dx, View ov, float* dscale,
+                     float* dbias, float* scratch, int B, int T_, int C,
+                     int G, int glu, float eps, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const Plan p = make_plan<T>(B, T_, C, glu, 1);
+  if (p.nb < 0) return cudaErrorInvalidValue;
+  const int Cout = glu ? C / 2 : C;
+  const bool vec = vec_ok(x, xv, T_, C, V) && vec_ok(dx, ov, T_, C, V)
+      && vec_ok(g, gv, T_, Cout, V)
+      && (xv.cf || ((C / G) % V == 0 && Cout % V == 0));
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
   T* dt = static_cast<T*>(dx);
-  gn_partial<T><<<dim3(n_chunks, B, G), kThreads, 0, stream>>>(
-      xt, lengths, T_, C, G, n_chunks, s.part);
-  const dim3 pgrid(n_bchunks, B);
+  if (vec && glu)
+    return run_bwd<T, V, true>(p, xt, xv, scale, bias, gt, gv, lengths, dt,
+                               ov, dscale, dbias, scratch, B, T_, C, G, eps, s);
+  if (vec)
+    return run_bwd<T, V, false>(p, xt, xv, scale, bias, gt, gv, lengths, dt,
+                                ov, dscale, dbias, scratch, B, T_, C, G, eps,
+                                s);
   if (glu)
-    gn_bwd_partial<T, true><<<pgrid, kThreads, 0, stream>>>(
-        xt, scale, bias, gt, lengths, s.part, T_, C, G, n_chunks, n_bchunks,
-        eps, s.pdg, s.pdb);
-  else
-    gn_bwd_partial<T, false><<<pgrid, kThreads, 0, stream>>>(
-        xt, scale, bias, gt, lengths, s.part, T_, C, G, n_chunks, n_bchunks,
-        eps, s.pdg, s.pdb);
-  gn_bwd_rowsum<<<B, kThreads, 0, stream>>>(
-      scale, lengths, s.pdg, s.pdb, T_, C, G, n_bchunks, s.rdg, s.rdb, s.ms);
-  gn_bwd_param<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      s.rdg, s.rdb, B, C, dscale, dbias);
-  const dim3 grid((T_ + kApplyRows - 1) / kApplyRows, B);
-  if (glu)
-    gn_bwd_dx<T, true><<<grid, kThreads, 0, stream>>>(
-        xt, scale, bias, gt, lengths, s.part, s.ms, T_, C, G, n_chunks, eps,
-        dt);
-  else
-    gn_bwd_dx<T, false><<<grid, kThreads, 0, stream>>>(
-        xt, scale, bias, gt, lengths, s.part, s.ms, T_, C, G, n_chunks, eps,
-        dt);
+    return run_bwd<T, 1, true>(p, xt, xv, scale, bias, gt, gv, lengths, dt,
+                               ov, dscale, dbias, scratch, B, T_, C, G, eps, s);
+  return run_bwd<T, 1, false>(p, xt, xv, scale, bias, gt, gv, lengths, dt, ov,
+                              dscale, dbias, scratch, B, T_, C, G, eps, s);
+}
+
+View view_of(const long long* strides) {
+  // strides (sb, st, sc) in elements; channels-first when C is not the
+  // unit stride (the wrapper has checked one of st, sc is 1)
+  const bool cf = strides[2] != 1;
+  return {strides[0], strides[1], strides[2], cf ? 1 : 0};
 }
 
 }  // namespace
 
 extern "C" {
 
-// Scratch size in floats the caller allocates for `part`.
-int gn_scratch_floats(int B, int T_, int G) {
-  return B * G * ((T_ + kRowsPerChunk - 1) / kRowsPerChunk) * 3;
-}
-
 int gn_max_groups() { return kMaxGroups; }
 
-// x, out: (B, T, C) / (B, T, C or C/2) contiguous, fp32 (is_bf16 = 0) or
-// bf16 (is_bf16 = 1); scale, bias: (C,) fp32; lengths: (B,) int32 or null.
-int gn_forward(const void* x, const float* scale, const float* bias,
-               const int* lengths, void* out, float* part, int B, int T_,
+// The cluster size a launch of this shape takes: 8 or 16 (a row held on
+// chip), 0 (streaming chunks) or -1 (a row too wide for either).
+int gn_plan(int B, int T_, int C, int glu, int is_bf16, int backward,
+            int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  return is_bf16 ? make_plan<__nv_bfloat16>(B, T_, C, glu, backward).nb
+                 : make_plan<float>(B, T_, C, glu, backward).nb;
+}
+
+// fp32 scratch floats the caller allocates for one launch (-1: too wide).
+long long gn_scratch_floats(int B, int T_, int C, int G, int glu, int is_bf16,
+                            int backward, int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  return is_bf16 ? scratch_floats<__nv_bfloat16>(B, T_, C, G, glu, backward)
+                 : scratch_floats<float>(B, T_, C, G, glu, backward);
+}
+
+// x, out: (B, T, C) / (B, T, C or C/2) fp32 (is_bf16 = 0) or bf16, with
+// element strides x_strides / out_strides (sb, st, sc), st or sc equal to
+// 1; scale, bias: (C,) fp32; lengths: (B,) int32 or null.
+int gn_forward(const void* x, const long long* x_strides, const float* scale,
+               const float* bias, const int* lengths, void* out,
+               const long long* out_strides, float* scratch, int B, int T_,
                int C, int G, int glu, int is_bf16, float eps, int device,
                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    launch<__nv_bfloat16>(x, scale, bias, lengths, out, part, B, T_, C, G, glu,
-                          eps, s);
-  else
-    launch<float>(x, scale, bias, lengths, out, part, B, T_, C, G, glu, eps, s);
+  const View xv = view_of(x_strides), ov = view_of(out_strides);
+  err = is_bf16 ? forward<__nv_bfloat16>(x, xv, scale, bias, lengths, out, ov,
+                                         scratch, B, T_, C, G, glu, eps, s)
+                : forward<float>(x, xv, scale, bias, lengths, out, ov,
+                                 scratch, B, T_, C, G, glu, eps, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Scratch size in floats the caller allocates for gn_backward.
-long long gn_bwd_scratch_floats(int B, int T_, int C, int G) {
-  return bwd_scratch(B, T_, C, G).total;
-}
-
-// x, dx: (B, T, C); g: (B, T, C or C/2) contiguous, all fp32 (is_bf16 = 0)
-// or bf16 (is_bf16 = 1); scale, bias, dscale, dbias: (C,) fp32; lengths:
-// (B,) int32 or null.
-int gn_backward(const void* x, const float* scale, const float* bias,
-                const void* g, const int* lengths, void* dx, float* dscale,
-                float* dbias, float* scratch, int B, int T_, int C, int G,
-                int glu, int is_bf16, float eps, int device, void* stream) {
+// x, dx: (B, T, C); g: (B, T, C or C/2), all fp32 (is_bf16 = 0) or bf16,
+// strides as in gn_forward; scale, bias, dscale, dbias: (C,) fp32;
+// lengths: (B,) int32 or null.
+int gn_backward(const void* x, const long long* x_strides, const float* scale,
+                const float* bias, const void* g, const long long* g_strides,
+                const int* lengths, void* dx, const long long* dx_strides,
+                float* dscale, float* dbias, float* scratch, int B, int T_,
+                int C, int G, int glu, int is_bf16, float eps, int device,
+                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    launch_bwd<__nv_bfloat16>(x, scale, bias, g, lengths, dx, dscale, dbias,
-                              scratch, B, T_, C, G, glu, eps, s);
-  else
-    launch_bwd<float>(x, scale, bias, g, lengths, dx, dscale, dbias, scratch,
-                      B, T_, C, G, glu, eps, s);
+  const View xv = view_of(x_strides), gv = view_of(g_strides),
+             ov = view_of(dx_strides);
+  err = is_bf16
+      ? backward<__nv_bfloat16>(x, xv, scale, bias, g, gv, lengths, dx, ov,
+                                dscale, dbias, scratch, B, T_, C, G, glu, eps,
+                                s)
+      : backward<float>(x, xv, scale, bias, g, gv, lengths, dx, ov, dscale,
+                        dbias, scratch, B, T_, C, G, glu, eps, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

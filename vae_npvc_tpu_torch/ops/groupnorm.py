@@ -23,9 +23,13 @@ in fp32 and does not round it to the compute dtype before the GLU's
 derivative, so in bf16 it differs from autograd through
 :func:`group_norm_plain` by that rounding; in fp32 the two agree.
 
-On the H100 both kernels are bound by bytes; the source note in
-``csrc/groupnorm.cu`` says how the time-chunked passes split a row that
-does not fit one block.
+x and the cotangent are read in place in either layout the convolutions
+hand over (T or C the unit stride), and the output and ``dx`` come back in
+x's memory order, on the CPU as on the card. On the H100 both kernels are
+bound by bytes; the source note in ``csrc/groupnorm.cu`` says how a
+thread-block cluster holds a row on chip (one pass over device memory) and
+how rows too long for it stream in chunks (:func:`plan` says which a shape
+takes).
 """
 
 from __future__ import annotations
@@ -76,7 +80,7 @@ def group_norm_backward_plain(x, scale, bias, g, num_groups, eps=1e-5,
     ``dbias = sum dy``; ``dx = (dxhat - mean(dxhat) - xhat*mean(dxhat*xhat))
     * rstd`` per (row, group) with ``dxhat = dy*scale``. Sums and means run
     over the valid frames; ``dx`` is zero beyond them. ``dx`` has ``x``'s
-    dtype, the parameter gradients are fp32.
+    dtype and memory order, the parameter gradients are fp32.
     """
     B, T, C = x.shape
     G = num_groups
@@ -110,31 +114,58 @@ def group_norm_backward_plain(x, scale, bias, g, num_groups, eps=1e-5,
     m1 = dxn.sum(dim=(1, 3), keepdim=True) / count
     m2 = (dxn * xn4).sum(dim=(1, 3), keepdim=True) / count
     dx = ((dxn - m1 - xn4 * m2) * rstd * m).reshape(B, T, C).to(x.dtype)
-    return dx, dscale, dbias
+    return torch.empty_like(x).copy_(dx), dscale, dbias
 
 
 def _lib():
     lib = _build.library("groupnorm")
     if not getattr(lib, "_typed", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.gn_forward.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
-                                   ctypes.c_float, I, P]
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gn_forward.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                   F, I, P]
         lib.gn_forward.restype = I
-        lib.gn_scratch_floats.argtypes = [I, I, I]
-        lib.gn_scratch_floats.restype = I
-        lib.gn_max_groups.restype = I
-        lib.gn_backward.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                    I, ctypes.c_float, I, P]
+        lib.gn_backward.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, I,
+                                    I, I, I, I, F, I, P]
         lib.gn_backward.restype = I
-        lib.gn_bwd_scratch_floats.argtypes = [I, I, I, I]
-        lib.gn_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.gn_scratch_floats.argtypes = [I, I, I, I, I, I, I, I]
+        lib.gn_scratch_floats.restype = ctypes.c_longlong
+        lib.gn_plan.argtypes = [I, I, I, I, I, I, I]
+        lib.gn_plan.restype = I
+        lib.gn_max_groups.restype = I
         lib._typed = True
     return lib
 
 
+def _strides(t, what):
+    """``(sb, st, sc)`` of a (B, T, C) view with T or C as the unit stride
+    (a size-1 axis counts as either), as a ctypes array the kernels read
+    in place; channels-last wins when both hold. Raises on any other
+    pattern."""
+    B, T, C = t.shape
+    sb, st, sc = t.stride()
+    if sc == 1 or C == 1:
+        sc = 1
+    elif st == 1 or T == 1:
+        st = 1
+    else:
+        raise ValueError(f"{what}: strides {t.stride()} of {tuple(t.shape)} "
+                         "have neither T nor C as the unit stride")
+    return (ctypes.c_longlong * 3)(sb, st, sc)
+
+
+def _like_x(x, channels):
+    """An empty (B, T, channels) tensor in ``x``'s memory order."""
+    B, T, C = x.shape
+    if x.stride(2) == 1 or C == 1:
+        return torch.empty((B, T, channels), dtype=x.dtype, device=x.device)
+    return torch.empty((B, channels, T), dtype=x.dtype,
+                       device=x.device).transpose(1, 2)
+
+
 def _checked(x, scale, bias, G, lengths, glu, what):
-    """Validate and make contiguous what both kernels take; returns
-    ``(lib, x, scale, bias, lengths)``."""
+    """Validate what both kernels take; returns ``(lib, scale, bias,
+    lengths)`` with the parameters as fp32 and lengths as int32 on x's
+    device. x itself is read in place."""
     B, T, C = x.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} takes fp32 or bf16, got {x.dtype}")
@@ -154,7 +185,28 @@ def _checked(x, scale, bias, G, lengths, glu, what):
         if lengths.shape != (B,):
             raise ValueError(f"lengths must be ({B},), got {lengths.shape}")
         lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
-    return lib, x.detach().contiguous(), scale, bias, lengths
+    return lib, scale, bias, lengths
+
+
+def _scratch(lib, x, G, glu, backward, what):
+    B, T, C = x.shape
+    n = lib.gn_scratch_floats(B, T, C, G, int(bool(glu)),
+                              int(x.dtype == torch.bfloat16), int(backward),
+                              x.device.index or 0)
+    if n < 0:
+        raise ValueError(f"{what}: a row of {C} channels is too wide for "
+                         "the kernel's shared memory")
+    return torch.empty((n,), dtype=torch.float32, device=x.device)
+
+
+def plan(x, glu=False, backward=False):
+    """The launch a CUDA ``x`` of this shape takes: 8 or 16 (one thread-block
+    cluster of that many blocks holds each batch row), 0 (streaming chunks)
+    or -1 (too wide)."""
+    B, T, C = x.shape
+    return _lib().gn_plan(B, T, C, int(bool(glu)),
+                          int(x.dtype == torch.bfloat16), int(backward),
+                          x.device.index or 0)
 
 
 def _forward(x, scale, bias, num_groups, eps, lengths, glu):
@@ -163,18 +215,17 @@ def _forward(x, scale, bias, num_groups, eps, lengths, glu):
         return group_norm_plain(x, scale, bias, num_groups, eps, lengths, glu)
     B, T, C = x.shape
     G = int(num_groups)
-    lib, x, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
-                                            "fused_group_norm")
-    out = torch.empty((B, T, C // 2 if glu else C), dtype=x.dtype,
-                      device=x.device)
-    part = torch.empty((lib.gn_scratch_floats(B, T, G),), dtype=torch.float32,
-                       device=x.device)
+    lib, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
+                                         "fused_group_norm")
+    x = x.detach()
+    out = _like_x(x, C // 2 if glu else C)
+    scratch = _scratch(lib, x, G, glu, False, "fused_group_norm")
     code = lib.gn_forward(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        lengths.data_ptr() if lengths is not None else None,
-        out.data_ptr(), part.data_ptr(), B, T, C, G, int(bool(glu)),
-        int(x.dtype == torch.bfloat16), float(eps), x.device.index or 0,
-        _build.stream_of(x))
+        x.data_ptr(), _strides(x, "fused_group_norm"), scale.data_ptr(),
+        bias.data_ptr(), lengths.data_ptr() if lengths is not None else None,
+        out.data_ptr(), _strides(out, "fused_group_norm"), scratch.data_ptr(),
+        B, T, C, G, int(bool(glu)), int(x.dtype == torch.bfloat16),
+        float(eps), x.device.index or 0, _build.stream_of(x))
     _build.check(code, lib, "gn_error_string", "fused_group_norm")
     fused_group_norm.launches += 1
     return out
@@ -183,32 +234,34 @@ def _forward(x, scale, bias, num_groups, eps, lengths, glu):
 def fused_group_norm_backward(x, scale, bias, g, num_groups, eps=1e-5, *,
                               lengths=None, glu=False):
     """``(dx, dscale, dbias)`` of GroupNorm(+GLU) for the output cotangent
-    ``g`` (``x``'s dtype; any strides). CPU tensors take
+    ``g`` (``x``'s dtype; T or C the unit stride of each of x and g). dx
+    is in x's memory order. CPU tensors take
     :func:`group_norm_backward_plain`; CUDA tensors the kernel."""
     if not x.is_cuda:
         return group_norm_backward_plain(x, scale, bias, g, num_groups, eps,
                                          lengths, glu)
     B, T, C = x.shape
     G = int(num_groups)
-    lib, x, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
-                                            "fused_group_norm_backward")
+    what = "fused_group_norm_backward"
+    lib, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
+                                         what)
     if g.shape != (B, T, C // 2 if glu else C) or not g.is_cuda:
         raise ValueError(f"cotangent of shape {tuple(g.shape)} on {g.device} "
                          f"does not match x {tuple(x.shape)} glu={glu}")
-    g = g.detach().to(x.dtype).contiguous()
-    dx = torch.empty_like(x)
+    x, g = x.detach(), g.detach().to(x.dtype)
+    dx = _like_x(x, C)
     dscale = torch.empty((C,), dtype=torch.float32, device=x.device)
     dbias = torch.empty((C,), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((lib.gn_bwd_scratch_floats(B, T, C, G),),
-                          dtype=torch.float32, device=x.device)
+    scratch = _scratch(lib, x, G, glu, True, what)
     code = lib.gn_backward(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), g.data_ptr(),
+        x.data_ptr(), _strides(x, what), scale.data_ptr(), bias.data_ptr(),
+        g.data_ptr(), _strides(g, what),
         lengths.data_ptr() if lengths is not None else None,
-        dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-        scratch.data_ptr(), B, T, C, G, int(bool(glu)),
+        dx.data_ptr(), _strides(dx, what), dscale.data_ptr(),
+        dbias.data_ptr(), scratch.data_ptr(), B, T, C, G, int(bool(glu)),
         int(x.dtype == torch.bfloat16), float(eps), x.device.index or 0,
         _build.stream_of(x))
-    _build.check(code, lib, "gn_error_string", "fused_group_norm_backward")
+    _build.check(code, lib, "gn_error_string", what)
     fused_group_norm_backward.launches += 1
     return dx, dscale, dbias
 
