@@ -128,7 +128,8 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def timed(torch, fn, arg_sets, iters=50, warmup=3, names=None):
+def timed(torch, fn, arg_sets, iters=50, warmup=3, names=None,
+          by_name=None):
     """``(device_ms, events_ms)`` of one ``fn(*args)`` call, averaged over
     ``iters`` back-to-back calls that cycle through ``arg_sets``.
     ``device_ms`` sums the durations of the kernels the call ran
@@ -137,8 +138,9 @@ def timed(torch, fn, arg_sets, iters=50, warmup=3, names=None):
     (a small kernel is host-bound there). One argument set keeps the inputs
     hot in L2, as on the serving path; :func:`l2_cold` sets keep them cold.
     A list given as ``names`` receives the names of the device kernels the
-    profiled calls ran. A profiling window that comes back without device
-    events is taken again, up to three times, and then fails."""
+    profiled calls ran, a dict given as ``by_name`` their device ms per call
+    by name. A profiling window that comes back without device events is
+    taken again, up to three times, and then fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warmup):
@@ -165,6 +167,10 @@ def timed(torch, fn, arg_sets, iters=50, warmup=3, names=None):
     check(bool(device), "timed: the profiler recorded no device kernels")
     if names is not None:
         names.extend(sorted({e.name for e in device}))
+    if by_name is not None:
+        for e in device:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / iters / 1e3)
     us = sum(e.time_range.elapsed_us() for e in device)
     return us / iters / 1e3, events_ms
 
@@ -213,14 +219,18 @@ def attn_bound_ms(H, T, d, itemsize, valid, backward=False, fma=False):
     return _bound(byt, 3 * ops, TF32_OPS_PER_S)
 
 
-def vq_bound_ms(N, K, D, stats=False):
-    """Least time for the fused VQ: max(bytes, fp32 operations). The ids
-    mode reads z and the codebook and writes the ids; the statistics mode
-    also writes z_q, the per-code sums and the counts."""
+def vq_bound_ms(N, K, D, stats=False, fma=False):
+    """Least time for the fused VQ: max(bytes, operations). The ids mode
+    reads z and the codebook and writes the ids; the statistics mode also
+    writes z_q, the per-code sums and the counts. The 2*N*K*D products run
+    as three TF32 products on the tensor cores, or with ``fma`` at the fp32
+    FMA rate (the bound of v1, which kept them in FMA)."""
     byt = 4 * (N * D + K * D + N)
     if stats:
         byt += 4 * (N * D + K * D + K)
-    return _bound(byt, 2 * N * K * D)
+    if fma:
+        return _bound(byt, 2 * N * K * D, FP32_OPS_PER_S)
+    return _bound(byt, 3 * 2 * N * K * D, TF32_OPS_PER_S)
 
 
 def _valid_frames(B, T, lengths):
@@ -288,55 +298,119 @@ def phase_build(torch):
     return smi
 
 
-def _vq_case(torch, N, stats, rng):
+def _vq_inputs(N, K, D, rng, kind):
+    """numpy z (N, D) and codebook (K, D) of a K1 case: ``random``;
+    ``near_tie``, rows within a few ulps of the midpoint of a code and its
+    nearest other code; ``duplicate``, a codebook whose second half repeats
+    its first (and whose last row repeats row 0) with rows near the
+    repeated codes (exact ties: the lowest index wins)."""
+    emb = rng.normal(size=(K, D)).astype(np.float32)
+    if kind == "random":
+        return rng.normal(size=(N, D)).astype(np.float32), emb
+    if kind == "duplicate":
+        emb[K // 2:] = emb[:K - K // 2]
+        emb[K - 1] = emb[0]
+        a = rng.integers(0, K, size=N)
+        a[::7] = 0
+        return (emb[a] + 0.05 * rng.normal(size=(N, D))).astype(
+            np.float32), emb
+    e64 = emb.astype(np.float64)
+    d = (e64 ** 2).sum(1)[:, None] + (e64 ** 2).sum(1)[None] \
+        - 2 * e64 @ e64.T
+    np.fill_diagonal(d, np.inf)
+    a = rng.integers(0, K, size=N)
+    mid = ((e64[a] + e64[d[a].argmin(1)]) / 2).astype(np.float32)
+    ulps = rng.integers(-3, 4, size=(N, D)).astype(np.float32)
+    return (mid + ulps * np.spacing(np.abs(mid))).astype(np.float32), emb
+
+
+def _vq_case(torch, N, stats, rng, K=512, D=128, kind="random"):
+    """One K1 case: ids against the plain version off the 1e-5 near-tie
+    band, every choice within the kernel's margin (a bound on fp32
+    rounding) of the fp64 best, duplicates to the lowest index, z_q the
+    code rows, exact counts, sums within 1e-5 of sum|z|, two runs
+    bit-equal, one kernel launched for ids and at most two for stats; its
+    times by kernel name, the plain time, the bounds and the SGEMM + argmin
+    yardstick."""
     from vae_npvc_tpu_torch.ops.vq_fused import vq_fused, vq_fused_plain
 
     dev = torch.device("cuda")
-    K, D = 512, 128
-    z = torch.tensor(rng.normal(size=(N, D)), dtype=torch.float32,
-                     device=dev)
-    emb = torch.tensor(rng.normal(size=(K, D)), dtype=torch.float32,
-                       device=dev)
+    zn, en = _vq_inputs(N, K, D, rng, kind)
+    z = torch.tensor(zn, device=dev)
+    emb = torch.tensor(en, device=dev)
+    what = f"vq_fused N={N} K={K} D={D} {kind}"
     got = vq_fused(z, emb, stats=stats)
+    rescored, all_codes = vq_fused.rescored.sum(1).tolist()
+    again = vq_fused(z, emb, stats=stats)
     ref = vq_fused_plain(z, emb, stats=stats)
     torch.cuda.synchronize()
-    d64 = (emb.double() ** 2).sum(1)[None] - 2 * z.double() @ emb.double().T
+    check(all((a is None and b is None) or torch.equal(a, b)
+              for a, b in zip(got, again)), f"{what}: reruns differ")
+    e64 = emb.double()
+    d64 = (e64 ** 2).sum(1)[None] - 2 * z.double() @ e64.T
     top2 = torch.topk(d64, 2, dim=1, largest=False).values
     clear = (top2[:, 1] - top2[:, 0]) > 1e-5 * top2[:, 0].abs().clamp(min=1)
     check(torch.equal(got.idx[clear], ref.idx[clear]),
-          f"vq_fused N={N}: ids differ from the plain version")
+          f"{what}: ids differ from the plain version")
     rows = torch.arange(N, device=dev)
+    emax = float(e64.norm(dim=1).max())
+    margin = 2.0 ** -20 * ((D + 8) * z.double().norm(dim=1) * emax
+                           + emax ** 2)
+    lost = d64[rows, got.idx.long()] - top2[:, 0]
+    check(bool((lost <= margin).all()),
+          f"{what}: a choice loses {float(lost.max())} against the fp64 "
+          "best, beyond fp32 rounding")
+    if kind == "duplicate":
+        check(int(got.idx.max()) < K - K // 2,
+              f"{what}: a repeated code did not go to the lowest index")
     # distance lost by the kernel's choice against the plain one (0 when
     # the ids agree; near ties may differ by rounding)
     err = (d64[rows, got.idx.long()] - d64[rows, ref.idx.long()]).abs().max()
-    case = {"N": N, "K": K, "D": D, "mode": "stats" if stats else "ids",
+    case = {"N": N, "K": K, "D": D, "kind": kind,
+            "mode": "stats" if stats else "ids",
             "near_ties": int((~clear).sum()),
             "ids_differ": int((got.idx != ref.idx).sum()),
-            "max_abs_err": float(err)}
+            "rescored_rows": rescored, "rescored_all_codes": all_codes,
+            "max_abs_err": float(err), "max_loss_vs_fp64": float(lost.max())}
     if stats:
-        same = got.idx == ref.idx
-        check(torch.equal(got.z_q[same], ref.z_q[same]),
-              f"vq_fused N={N}: z_q differs from the gathered codes")
+        check(torch.equal(got.z_q, emb[got.idx.long()]),
+              f"{what}: z_q differs from the gathered codes")
         ids = got.idx.long()
         check(torch.equal(got.batch_elem,
                           torch.bincount(ids, minlength=K).float()),
-              f"vq_fused N={N}: counts are not exact")
+              f"{what}: counts are not exact")
         exact = torch.zeros((K, D), dtype=torch.float64, device=dev) \
             .index_add_(0, ids, z.double())
         scale = torch.zeros((K, D), dtype=torch.float64, device=dev) \
             .index_add_(0, ids, z.double().abs())
         sum_err = (got.batch_sum.double() - exact).abs()
         check(bool((sum_err <= 1e-5 * scale + 1e-6).all()),
-              f"vq_fused N={N}: sums beyond 1e-5 of sum|z|")
+              f"{what}: sums beyond 1e-5 of sum|z|")
         case["sum_max_abs_err"] = float(sum_err.max())
+    names, by_kernel = [], {}
     case["ms"], case["ms_events"] = timed(
-        torch, lambda z, e: vq_fused(z, e, stats=stats), [(z, emb)])
+        torch, lambda z, e: vq_fused(z, e, stats=stats), [(z, emb)],
+        names=names)
     case["ms_l2_cold"], _ = timed(
-        torch, lambda z, e: vq_fused(z, e, stats=stats), l2_cold((z, emb)))
+        torch, lambda z, e: vq_fused(z, e, stats=stats), l2_cold((z, emb)),
+        by_name=by_kernel)
+    case["kernels"] = names
+    case["ms_l2_cold_by_kernel"] = by_kernel
+    check(all("vq_" in n for n in names) and len(names) == (2 if stats
+                                                            else 1),
+          f"{what}: a call ran {names}, not one kernel (ids) or two "
+          "(stats) of vq.cu")
     case["plain_ms"], case["plain_ms_events"] = timed(
         torch, lambda z, e: vq_fused_plain(z, e, stats=stats), [(z, emb)])
+    # not a library call of the same function (two calls, no statistics):
+    # cuBLAS's fp32 SGEMM (TF32 off) plus an argmin
+    case["sgemm_argmin_ms"], _ = timed(
+        torch, lambda z, e, e2: torch.argmin(torch.addmm(e2, z, e.T,
+                                                         alpha=-2), 1),
+        [(a, b, (b * b).sum(1)) for a, b in l2_cold((z, emb))])
     case["library_ms"] = None
     case["bound_ms"], case["bound_by"] = vq_bound_ms(N, K, D, stats)
+    case["fma_bound_ms"], _ = vq_bound_ms(N, K, D, stats, fma=True)
     return case
 
 
@@ -625,13 +699,21 @@ def _attn_case(torch, B, H, T, d, lengths, dtype, rng, q_scale=1.0,
 def phase_kernels(torch):
     rng = np.random.default_rng(0)
     # ids mode at the serving path's row counts: B=8 x bucket 256, B=8 x
-    # bucket 512 (its last codebook split is empty), one 256-frame request;
-    # stats mode at the training shape and a ragged N
+    # bucket 512, one 256-frame request; stats mode at the training shape
+    # and a ragged N
     vq = [_vq_case(torch, 8 * 256, False, rng),
           _vq_case(torch, 8 * 512, False, rng),
           _vq_case(torch, 256, False, rng),
           _vq_case(torch, 32768, True, rng),
           _vq_case(torch, 20011, True, rng)]
+    # constructed near ties and repeated codes at both modes' shapes, and
+    # the recipes' other codebooks (egs/*/*/conf/*.yaml) at the training
+    # shape
+    for kind in ("near_tie", "duplicate"):
+        vq.append(_vq_case(torch, 8 * 256, False, rng, kind=kind))
+        vq.append(_vq_case(torch, 32768, True, rng, kind=kind))
+    for K, D in ((128, 128), (64, 32)):
+        vq.append(_vq_case(torch, 32768, True, rng, K=K, D=D))
     gn = []
     for dtype in (torch.float32, torch.bfloat16):
         for masked in (False, True):
@@ -1648,10 +1730,22 @@ def main():
          "ms_l2_cold": vq_main["ms_l2_cold"],
          "plain_ms": vq_main["plain_ms"], "bound_ms": vq_main["bound_ms"],
          "bound_by": vq_main["bound_by"], "library_ms": None,
+         "fma_bound_ms": vq_main["fma_bound_ms"],
+         "sgemm_argmin_ms_not_library": vq_main["sgemm_argmin_ms"],
+         "kernels_per_call": vq_main["kernels"],
+         "ms_l2_cold_by_kernel": vq_main["ms_l2_cold_by_kernel"],
+         "rescored_rows": vq_main["rescored_rows"],
+         "rescored_all_codes": vq_main["rescored_all_codes"],
          "launches_train": train_launches["vq_fused"],
          "train_shape": {k: vq_train[k] for k in (
              "N", "mode", "ms", "ms_l2_cold", "plain_ms", "bound_ms",
-             "bound_by", "sum_max_abs_err")}},
+             "bound_by", "fma_bound_ms", "sgemm_argmin_ms", "kernels",
+             "ms_l2_cold_by_kernel", "rescored_rows", "rescored_all_codes",
+             "sum_max_abs_err")},
+         "near_ties": [{k: c[k] for k in (
+             "N", "K", "D", "kind", "mode", "rescored_rows",
+             "rescored_all_codes", "ids_differ",
+             "max_loss_vs_fp64")} for c in vq if c["kind"] != "random"]},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",

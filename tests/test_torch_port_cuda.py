@@ -37,6 +37,8 @@ def dev():
 def _near_tie_free(z, emb, rel=1e-5):
     """Rows whose two best distances differ by more than ``rel``*|d|."""
     d = ((emb.double() ** 2).sum(1)[None] - 2 * z.double() @ emb.double().T)
+    if d.shape[1] < 2:
+        return torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
     top2 = torch.topk(d, 2, dim=1, largest=False).values
     return (top2[:, 1] - top2[:, 0]) > rel * top2[:, 0].abs().clamp(min=1.0)
 
@@ -67,6 +69,124 @@ def test_vq_kernel_matches_plain(dev, N, stats):
             .index_add_(0, ids, z.double())
         assert ((got.batch_sum.double() - ref_sum).abs()
                 <= 1e-5 * abs_sum.double() + 1e-6).all()
+
+
+def _vq_case(N, K, D, seed, kind="random"):
+    """numpy inputs of the K1 tests: ``random`` rows and codes;
+    ``near_tie`` rows at the midpoint of a code and its nearest other
+    code, nudged by a few ulps (the two best distances within fp32
+    rounding); ``duplicate`` codebooks whose rows repeat (twice, and one
+    row three times), rows near the repeated codes (exact ties)."""
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(K, D)).astype(np.float32)
+    if kind == "random":
+        return rng.normal(size=(N, D)).astype(np.float32), emb
+    if kind == "duplicate":
+        emb[K // 2:] = emb[:K - K // 2]
+        emb[K - 1] = emb[0]
+        a = rng.integers(0, K, size=N)
+        a[::7] = 0
+        z = emb[a] + 0.05 * rng.normal(size=(N, D)).astype(np.float32)
+        return z.astype(np.float32), emb
+    e64 = emb.astype(np.float64)
+    d = ((e64[:, None] - e64[None]) ** 2).sum(-1)
+    np.fill_diagonal(d, np.inf)
+    a = rng.integers(0, K, size=N)
+    mid = ((e64[a] + e64[d[a].argmin(1)]) / 2).astype(np.float32)
+    ulps = rng.integers(-3, 4, size=(N, D)).astype(np.float32)
+    z = mid + ulps * np.spacing(np.abs(mid)).astype(np.float32)
+    return z.astype(np.float32), emb
+
+
+def _vq_margin(z, emb):
+    """The kernel's re-scoring margin per row (csrc/vq.cu): a bound on the
+    fp32 rounding of a distance, used here as the tolerance on the fp64
+    distance a near-tie choice may lose."""
+    D = z.shape[1]
+    emax = float(emb.double().norm(dim=1).max())
+    return 2.0 ** -20 * ((D + 8) * z.double().norm(dim=1) * emax + emax ** 2)
+
+
+def _vq_check(dev, z, emb, stats):
+    """Run the kernel twice; hold it against the plain version and fp64
+    distances; return the first result."""
+    got = vq_fused(z, emb, stats=stats)
+    res = vq_fused.rescored.clone()
+    again = vq_fused(z, emb, stats=stats)
+    ref = vq_fused_plain(z, emb, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(vq_fused.rescored, res)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    N, K = z.shape[0], emb.shape[0]
+    d64 = ((emb.double() ** 2).sum(1)[None]
+           - 2 * z.double() @ emb.double().T)
+    rows = torch.arange(N, device=dev)
+    assert bool(((got.idx >= 0) & (got.idx < K)).all())
+    lost = d64[rows, got.idx.long()] - d64.min(1).values
+    assert bool((lost <= _vq_margin(z, emb)).all()), float(lost.max())
+    ok = _near_tie_free(z, emb)
+    assert torch.equal(got.idx[ok], ref.idx[ok])
+    if stats:
+        assert torch.equal(got.z_q, emb[got.idx.long()])
+        ids = got.idx.long()
+        assert torch.equal(got.batch_elem,
+                           torch.bincount(ids, minlength=K).float())
+        exact = torch.zeros((K, z.shape[1]), dtype=torch.float64,
+                            device=dev).index_add_(0, ids, z.double())
+        scale = torch.zeros_like(exact).index_add_(0, ids, z.double().abs())
+        assert bool(((got.batch_sum.double() - exact).abs()
+                     <= 1e-5 * scale + 1e-6).all())
+    else:
+        assert got.z_q is None and got.batch_sum is None
+    return got, int(res[0].sum())
+
+
+# the recipes' codebooks (egs/*/*/conf/*.yaml), a ragged N, N = 1, K not a
+# multiple of a rank's share, D that needs padding to the MMA's k step
+VQ_SHAPES = [(512, 128), (128, 128), (64, 32), (100, 128), (3, 8), (1, 16),
+             (77, 37), (300, 20)]
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("K,D", VQ_SHAPES)
+@pytest.mark.parametrize("N", [1, 130, 4099])
+def test_vq_kernel_shapes(dev, N, K, D, stats):
+    z, emb = (torch.from_numpy(a).to(dev)
+              for a in _vq_case(N, K, D, N + K + D))
+    _vq_check(dev, z, emb, stats)
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("K,D", [(512, 128), (128, 128), (64, 32)])
+def test_vq_kernel_near_ties(dev, K, D, stats):
+    """Rows within a few ulps of the midpoint of two codes: the kernel
+    re-scores them in exact fp32 and loses at most fp32 rounding of the
+    fp64 best distance."""
+    z, emb = (torch.from_numpy(a).to(dev)
+              for a in _vq_case(2048, K, D, K + D, "near_tie"))
+    _, rescored = _vq_check(dev, z, emb, stats)
+    assert rescored > 0
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("K,D", [(512, 128), (128, 128), (64, 32)])
+def test_vq_kernel_duplicate_codes_take_the_lowest_index(dev, K, D, stats):
+    z, emb = (torch.from_numpy(a).to(dev)
+              for a in _vq_case(3000, K, D, K * D, "duplicate"))
+    got, rescored = _vq_check(dev, z, emb, stats)
+    # every code equals a lower-indexed one from K - K//2 on
+    assert int(got.idx.max()) < K - K // 2
+    assert rescored >= int((got.idx == 0).sum())
+
+
+def test_vq_kernel_refuses_what_it_does_not_take(dev):
+    z = torch.ones((4, 8), device=dev)
+    with pytest.raises(TypeError):
+        vq_fused(z.double(), z.double())
+    with pytest.raises(ValueError, match="does not fit"):
+        vq_fused(torch.ones((4, 4096), device=dev),
+                 torch.ones((8, 4096), device=dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -191,6 +311,40 @@ def test_groupnorm_function_backward_on_the_card(dev):
     ref = group_norm_backward_plain(x.detach(), scale.detach(), bias.detach(),
                                     g, 2, glu=True)
     _assert_gn_backward(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("glu", [False, True])
+def test_groupnorm_sum_backward_takes_a_stride0_cotangent(dev, dtype, glu):
+    """``.sum().backward()`` hands the backward a cotangent with all
+    strides 0; the Function makes it contiguous and launches K3. Held
+    against autograd through the plain version, except bf16 with the GLU,
+    where autograd takes the gate's derivative from the bf16-rounded y and
+    the contract (ops/groupnorm.py) from the unrounded one: there against
+    the plain analytic backward for a cotangent of ones."""
+    rng = np.random.default_rng(11)
+    B, T, C = 3, 40, 64
+    x0 = torch.tensor(rng.normal(1.0, 2.0, size=(B, T, C)), device=dev) \
+        .to(dtype)
+    s0 = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                      device=dev)
+    b0 = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                      device=dev)
+    n = torch.tensor([40, 17, 1], dtype=torch.int32, device=dev)
+    grads = []
+    for fn in (fused_group_norm, group_norm_plain):
+        x, s, b = (t.clone().requires_grad_(True) for t in (x0, s0, b0))
+        k0 = fused_group_norm_backward.launches
+        fn(x, s, b, 2, lengths=n, glu=glu).sum().backward()
+        if fn is fused_group_norm:
+            assert fused_group_norm_backward.launches == k0 + 1
+        grads.append((x.grad, s.grad, b.grad))
+    if dtype == torch.bfloat16 and glu:
+        ones = torch.ones((B, T, C // 2), dtype=dtype, device=dev)
+        grads[1] = group_norm_backward_plain(x0, s0, b0, ones, 2, lengths=n,
+                                             glu=True)
+    torch.cuda.synchronize()
+    _assert_gn_backward(*grads, dtype)
 
 
 def test_wrappers_count_launches(dev):

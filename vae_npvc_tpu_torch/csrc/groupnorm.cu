@@ -970,37 +970,46 @@ gn_bwd_param(const float* __restrict__ pdg, const float* __restrict__ pdb,
 }
 
 // -------------------------------------------------------------------- host
-// Let a kernel take kClusterSmem of dynamic shared memory and clusters of
-// 16; once per kernel.
+// Host-side caches, each keyed by (device, kernel[, nb]): an attribute set
+// or a fit answered on one card says nothing of another. The device is the
+// entry point's `device` argument (already made current there).
 std::mutex host_mutex;  // guards the caches below (ctypes drops the GIL)
+constexpr int kCacheSlots = 256;
 
-cudaError_t prepare(const void* fn) {
+// Let a kernel take kClusterSmem of dynamic shared memory and clusters of
+// 16; once per (device, kernel).
+cudaError_t prepare(const void* fn, int dev) {
   std::lock_guard<std::mutex> guard(host_mutex);
-  static const void* done[64];
+  static const void* done[kCacheSlots];
+  static int devs[kCacheSlots];
   static int n_done = 0;
   for (int i = 0; i < n_done; ++i)
-    if (done[i] == fn) return cudaSuccess;
+    if (done[i] == fn && devs[i] == dev) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
-  if (e == cudaSuccess && n_done < 64) done[n_done++] = fn;
+  if (e == cudaSuccess && n_done < kCacheSlots) {
+    done[n_done] = fn;
+    devs[n_done++] = dev;
+  }
   return e;
 }
 
 // Whether clusters of nb blocks with kClusterSmem each can be scheduled
-// (cudaOccupancyMaxActiveClusters > 0); asked once per (kernel, nb).
-bool cluster_fits(const void* fn, int nb) {
-  static const void* fns[64];
-  static int nbs[64], ok[64], n_seen = 0;
+// (cudaOccupancyMaxActiveClusters > 0); asked once per (device, kernel,
+// nb).
+bool cluster_fits(const void* fn, int nb, int dev) {
+  static const void* fns[kCacheSlots];
+  static int devs[kCacheSlots], nbs[kCacheSlots], ok[kCacheSlots], n_seen = 0;
   {
     std::lock_guard<std::mutex> guard(host_mutex);
     for (int i = 0; i < n_seen; ++i)
-      if (fns[i] == fn && nbs[i] == nb) return ok[i];
+      if (fns[i] == fn && devs[i] == dev && nbs[i] == nb) return ok[i];
   }
   int active = 0;
-  if (prepare(fn) == cudaSuccess) {
+  if (prepare(fn, dev) == cudaSuccess) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(nb);
     cfg.blockDim = dim3(kThreads);
@@ -1017,22 +1026,27 @@ bool cluster_fits(const void* fn, int nb) {
   }
   cudaGetLastError();  // a refused query is an answer, not a launch error
   std::lock_guard<std::mutex> guard(host_mutex);
-  if (n_seen < 64) {
+  if (n_seen < kCacheSlots) {
     fns[n_seen] = fn;
+    devs[n_seen] = dev;
     nbs[n_seen] = nb;
     ok[n_seen++] = active > 0;
   }
   return active > 0;
 }
 
-int num_sms() {
-  static const int n = [] {
-    int dev = 0, v = 132;
-    cudaGetDevice(&dev);
+// SM count of a device, read once per device
+int num_sms(int dev) {
+  constexpr int kMaxDevices = 64;
+  static int n[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return 132;
+  std::lock_guard<std::mutex> guard(host_mutex);
+  if (n[dev] == 0) {
+    int v = 132;
     cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
+    n[dev] = v;
+  }
+  return n[dev];
 }
 
 int round_up(int a, int m) { return (a + m - 1) / m * m; }
@@ -1047,11 +1061,11 @@ long long bwd_param_bytes(int C, int glu, int backward) {
 // holding `frames` frames; nb == 0 streaming chunks of `frames` frames;
 // nb < 0 a row too wide for either.
 struct Plan {
-  int nb, frames, rows;
+  int nb, frames, rows, dev;
 };
 
 template <typename T>
-Plan make_plan(int B, int T_, int C, int glu, int backward) {
+Plan make_plan(int B, int T_, int C, int glu, int backward, int dev) {
   const int Cout = glu ? C / 2 : C;
   const long long row_bytes =
       (long long)(C + (backward ? Cout : 0)) * sizeof(T);
@@ -1060,28 +1074,29 @@ Plan make_plan(int B, int T_, int C, int glu, int backward) {
       ? (const void*)gn_bwd_cluster<T, 1, false>
       : (const void*)gn_fwd_cluster<T, 1, false>;
   const int order[2][2] = {{8, 16}, {16, 8}};
-  const int* nbs = order[B * 8 < num_sms() ? 1 : 0];
+  const int* nbs = order[B * 8 < num_sms(dev) ? 1 : 0];
   // the first cluster size whose blocks fit two to an SM, else the first
   // that fits at all
   for (const long long budget : {(long long)kTwoPerSm, (long long)kClusterSmem})
     for (int k = 0; k < 2; ++k) {
       const int nb = nbs[k];
       const int frames = round_up((T_ + nb - 1) / nb, kFrameAlign);
-      if (frames * row_bytes + extra <= budget && cluster_fits(fn, nb))
-        return {nb, frames, nb};
+      if (frames * row_bytes + extra <= budget && cluster_fits(fn, nb, dev))
+        return {nb, frames, nb, dev};
     }
   long long fit = (kStreamSmem - extra) / row_bytes / kFrameAlign * kFrameAlign;
   if (fit < kFrameAlign) fit = kFrameAlign;
   const int frames = (int)(fit < kStreamMaxFrames ? fit : kStreamMaxFrames);
-  if (frames * row_bytes + extra > kClusterSmem) return {-1, 0, 0};
-  return {0, frames, (T_ + frames - 1) / frames};
+  if (frames * row_bytes + extra > kClusterSmem) return {-1, 0, 0, dev};
+  return {0, frames, (T_ + frames - 1) / frames, dev};
 }
 
 // scratch floats of a launch: backward (B, rows, C) x 2 partials, then
 // (streaming) the chunk statistics and the backward's group sums
 template <typename T>
-long long scratch_floats(int B, int T_, int C, int G, int glu, int backward) {
-  const Plan p = make_plan<T>(B, T_, C, glu, backward);
+long long scratch_floats(int B, int T_, int C, int G, int glu, int backward,
+                         int dev) {
+  const Plan p = make_plan<T>(B, T_, C, glu, backward, dev);
   if (p.nb < 0) return -1;
   long long n = backward ? 2LL * B * p.rows * C : 0;
   if (p.nb == 0) n += 3LL * B * G * p.rows + (backward ? 2LL * B * p.rows * G : 0);
@@ -1089,9 +1104,9 @@ long long scratch_floats(int B, int T_, int C, int G, int glu, int backward) {
 }
 
 template <typename Kern, typename... Args>
-cudaError_t launch_cluster(Kern k, int nb, int B, size_t smem,
+cudaError_t launch_cluster(Kern k, int nb, int B, size_t smem, int dev,
                            cudaStream_t s, Args... args) {
-  cudaError_t e = prepare((const void*)k);
+  cudaError_t e = prepare((const void*)k, dev);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * nb);
@@ -1123,11 +1138,12 @@ cudaError_t run_fwd(const Plan& p, const T* x, View xv, const float* scale,
                     cudaStream_t s) {
   const size_t tile = (size_t)p.frames * C * sizeof(T);
   if (p.nb > 0)
-    return launch_cluster(gn_fwd_cluster<T, V, GLU>, p.nb, B, tile, s, x, xv,
-                          scale, bias, lengths, out, ov, T_, C, G, p.frames,
-                          eps);
-  cudaError_t e = prepare((const void*)gn_stream_stats<T, V>);
-  if (e == cudaSuccess) e = prepare((const void*)gn_fwd_stream_apply<T, V, GLU>);
+    return launch_cluster(gn_fwd_cluster<T, V, GLU>, p.nb, B, tile, p.dev, s,
+                          x, xv, scale, bias, lengths, out, ov, T_, C, G,
+                          p.frames, eps);
+  cudaError_t e = prepare((const void*)gn_stream_stats<T, V>, p.dev);
+  if (e == cudaSuccess)
+    e = prepare((const void*)gn_fwd_stream_apply<T, V, GLU>, p.dev);
   if (e != cudaSuccess) return e;
   const dim3 grid(p.rows, B);
   gn_stream_stats<T, V><<<grid, kThreads, tile, s>>>(x, xv, lengths, T_, C, G,
@@ -1151,8 +1167,8 @@ cudaError_t run_bwd(const Plan& p, const T* x, View xv, const float* scale,
   float* pdb = scratch + n_part;
   cudaError_t e;
   if (p.nb > 0) {
-    e = launch_cluster(gn_bwd_cluster<T, V, GLU>, p.nb, B, smem, s, x, xv,
-                       scale, bias, g, gv, lengths, dx, ov, T_, C, G,
+    e = launch_cluster(gn_bwd_cluster<T, V, GLU>, p.nb, B, smem, p.dev, s, x,
+                       xv, scale, bias, g, gv, lengths, dx, ov, T_, C, G,
                        p.frames, eps, pdg, pdb);
     if (e != cudaSuccess) return e;
   } else {
@@ -1163,7 +1179,7 @@ cudaError_t run_bwd(const Plan& p, const T* x, View xv, const float* scale,
                           (const void*)gn_bwd_stream_partial<T, V, GLU>,
                           (const void*)gn_bwd_stream_dx<T, V, GLU>};
     for (const void* fn : fns)
-      if ((e = prepare(fn)) != cudaSuccess) return e;
+      if ((e = prepare(fn, p.dev)) != cudaSuccess) return e;
     const dim3 grid(p.rows, B);
     gn_stream_stats<T, V><<<grid, kThreads, tile, s>>>(x, xv, lengths, T_, C,
                                                         G, p.frames, part);
@@ -1183,9 +1199,9 @@ template <typename T>
 cudaError_t forward(const void* x, View xv, const float* scale,
                     const float* bias, const int* lengths, void* out,
                     View ov, float* scratch, int B, int T_, int C, int G,
-                    int glu, float eps, cudaStream_t s) {
+                    int glu, float eps, int dev, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  const Plan p = make_plan<T>(B, T_, C, glu, 0);
+  const Plan p = make_plan<T>(B, T_, C, glu, 0, dev);
   if (p.nb < 0) return cudaErrorInvalidValue;
   const int Cout = glu ? C / 2 : C;
   const bool vec = vec_ok(x, xv, T_, C, V) && vec_ok(out, ov, T_, Cout, V)
@@ -1210,9 +1226,9 @@ cudaError_t backward(const void* x, View xv, const float* scale,
                      const float* bias, const void* g, View gv,
                      const int* lengths, void* dx, View ov, float* dscale,
                      float* dbias, float* scratch, int B, int T_, int C,
-                     int G, int glu, float eps, cudaStream_t s) {
+                     int G, int glu, float eps, int dev, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  const Plan p = make_plan<T>(B, T_, C, glu, 1);
+  const Plan p = make_plan<T>(B, T_, C, glu, 1, dev);
   if (p.nb < 0) return cudaErrorInvalidValue;
   const int Cout = glu ? C / 2 : C;
   const bool vec = vec_ok(x, xv, T_, C, V) && vec_ok(dx, ov, T_, C, V)
@@ -1253,16 +1269,18 @@ int gn_max_groups() { return kMaxGroups; }
 int gn_plan(int B, int T_, int C, int glu, int is_bf16, int backward,
             int device) {
   if (cudaSetDevice(device) != cudaSuccess) return -1;
-  return is_bf16 ? make_plan<__nv_bfloat16>(B, T_, C, glu, backward).nb
-                 : make_plan<float>(B, T_, C, glu, backward).nb;
+  return is_bf16
+      ? make_plan<__nv_bfloat16>(B, T_, C, glu, backward, device).nb
+      : make_plan<float>(B, T_, C, glu, backward, device).nb;
 }
 
 // fp32 scratch floats the caller allocates for one launch (-1: too wide).
 long long gn_scratch_floats(int B, int T_, int C, int G, int glu, int is_bf16,
                             int backward, int device) {
   if (cudaSetDevice(device) != cudaSuccess) return -1;
-  return is_bf16 ? scratch_floats<__nv_bfloat16>(B, T_, C, G, glu, backward)
-                 : scratch_floats<float>(B, T_, C, G, glu, backward);
+  return is_bf16 ? scratch_floats<__nv_bfloat16>(B, T_, C, G, glu, backward,
+                                                device)
+                 : scratch_floats<float>(B, T_, C, G, glu, backward, device);
 }
 
 // x, out: (B, T, C) / (B, T, C or C/2) fp32 (is_bf16 = 0) or bf16, with
@@ -1278,9 +1296,10 @@ int gn_forward(const void* x, const long long* x_strides, const float* scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const View xv = view_of(x_strides), ov = view_of(out_strides);
   err = is_bf16 ? forward<__nv_bfloat16>(x, xv, scale, bias, lengths, out, ov,
-                                         scratch, B, T_, C, G, glu, eps, s)
+                                         scratch, B, T_, C, G, glu, eps, device,
+                                         s)
                 : forward<float>(x, xv, scale, bias, lengths, out, ov,
-                                 scratch, B, T_, C, G, glu, eps, s);
+                                 scratch, B, T_, C, G, glu, eps, device, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1302,9 +1321,9 @@ int gn_backward(const void* x, const long long* x_strides, const float* scale,
   err = is_bf16
       ? backward<__nv_bfloat16>(x, xv, scale, bias, g, gv, lengths, dx, ov,
                                 dscale, dbias, scratch, B, T_, C, G, glu, eps,
-                                s)
+                                device, s)
       : backward<float>(x, xv, scale, bias, g, gv, lengths, dx, ov, dscale,
-                        dbias, scratch, B, T_, C, G, glu, eps, s);
+                        dbias, scratch, B, T_, C, G, glu, eps, device, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -136,20 +136,28 @@ def _lib():
     return lib
 
 
+def _unit_stride(t):
+    """Whether T or C is the unit stride of a (B, T, C) view (a size-1
+    axis counts as either): the views the kernels read in place."""
+    B, T, C = t.shape
+    sb, st, sc = t.stride()
+    return sc == 1 or C == 1 or st == 1 or T == 1
+
+
 def _strides(t, what):
     """``(sb, st, sc)`` of a (B, T, C) view with T or C as the unit stride
     (a size-1 axis counts as either), as a ctypes array the kernels read
     in place; channels-last wins when both hold. Raises on any other
     pattern."""
+    if not _unit_stride(t):
+        raise ValueError(f"{what}: strides {t.stride()} of {tuple(t.shape)} "
+                         "have neither T nor C as the unit stride")
     B, T, C = t.shape
     sb, st, sc = t.stride()
     if sc == 1 or C == 1:
         sc = 1
-    elif st == 1 or T == 1:
-        st = 1
     else:
-        raise ValueError(f"{what}: strides {t.stride()} of {tuple(t.shape)} "
-                         "have neither T nor C as the unit stride")
+        st = 1
     return (ctypes.c_longlong * 3)(sb, st, sc)
 
 
@@ -283,6 +291,10 @@ class _GroupNorm(torch.autograd.Function):
     def backward(ctx, g):
         x, scale, bias = ctx.saved_tensors
         num_groups, eps, glu = ctx.args
+        if g.is_cuda and not _unit_stride(g):
+            # autograd may hand over any strides (a stride-0 expansion from
+            # .sum()); the kernel reads only T or C as the unit stride
+            g = g.contiguous()
         dx, dscale, dbias = fused_group_norm_backward(
             x, scale, bias, g, num_groups, eps, lengths=ctx.lengths, glu=glu)
         return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None,

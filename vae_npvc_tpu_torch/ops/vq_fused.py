@@ -10,11 +10,14 @@ the lowest index, ``z_q = emb[idx]``, and per-code ``batch_sum (K, D)`` /
   kernel's oracle).
 - :func:`vq_fused` is the wrapper: a CPU tensor takes the plain version; a
   CUDA tensor launches the kernel of ``csrc/vq.cu`` or raises.
-  ``vq_fused.launches`` counts kernel launches.
+  ``vq_fused.launches`` counts wrapper calls that launched it.
 
 ``stats=False`` is the ids-only mode of inference (no z_q, no statistics);
-its fields come back as ``None``. On the H100 the kernel is bound by its
-fp32 products; the source note in ``csrc/vq.cu`` gives the design.
+its fields come back as ``None``. On the H100 the kernel takes the
+distances on the tensor cores (3xTF32) and re-scores near ties in exact
+fp32, so its ids are those of fp32 FMA distances; the source note in
+``csrc/vq.cu`` gives the design and the margin. Ids mode is one kernel
+launch; statistics mode adds a second, which sums in v1's order.
 """
 
 from __future__ import annotations
@@ -55,25 +58,38 @@ def _lib():
     lib = _build.library("vq")
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.vq_fused_launch.argtypes = [P, P, I, I, I, P, P, P, P, P, P, P,
-                                        P, I, P]
+        lib.vq_fused_launch.argtypes = [P, P, I, I, I, P, P, P, P, P, I, P]
         lib.vq_fused_launch.restype = I
-        lib.vq_scratch_argmin_words.argtypes = [I, I, I]
-        lib.vq_scratch_argmin_words.restype = I
-        lib.vq_scratch_sum_floats.argtypes = [I, I]
-        lib.vq_scratch_sum_floats.restype = I
-        lib.vq_scratch_cnt_floats.argtypes = [I]
-        lib.vq_scratch_cnt_floats.restype = I
-        lib.vq_max_dim.restype = I
+        lib.vq_plan.argtypes = [I, I, I, I, P]
+        lib.vq_plan.restype = I
         lib._typed = True
     return lib
+
+
+_plans: dict = {}
+
+
+def _plan(lib, N, K, D, device):
+    """``(cluster size, clusters, re-scored counters)`` of a launch, asked
+    of the library once per (device, N, K, D)."""
+    key = (device, N, K, D)
+    plan = _plans.get(key)
+    if plan is None:
+        out = (ctypes.c_int * 3)()
+        code = lib.vq_plan(N, K, D, device, out)
+        _build.check(code, lib, "vq_error_string", "vq_fused")
+        plan = _plans[key] = tuple(out)
+    return plan
 
 
 def vq_fused(z_flat, emb, *, stats=True):
     """Fused VQ of ``z_flat`` (N, D) against ``emb`` (K, D), both fp32.
 
     Returns :class:`VqOut`; with ``stats=False`` only ``idx`` is computed.
-    CPU tensors take :func:`vq_fused_plain`; CUDA tensors the kernel.
+    CPU tensors take :func:`vq_fused_plain`; CUDA tensors the kernels, which
+    leave in ``vq_fused.rescored`` (an int32 CUDA tensor, 2 x blocks) each
+    block's rows re-scored in exact fp32 and, of those, the rows re-scored
+    over every code; ``.sum(1)`` gives the call's.
     """
     if not z_flat.is_cuda:
         return vq_fused_plain(z_flat, emb, stats=stats)
@@ -87,35 +103,33 @@ def vq_fused(z_flat, emb, *, stats=True):
     if N < 1 or K < 1:
         raise ValueError(f"empty input: N={N}, K={K}")
     lib = _lib()
-    if D > lib.vq_max_dim():
-        raise ValueError(f"D={D} exceeds the kernel's {lib.vq_max_dim()}")
+    dev = z_flat.device
+    cr, _, n_res = _plan(lib, N, K, D, dev.index or 0)
+    if cr == 0:
+        raise ValueError(f"a ({K}, {D}) codebook does not fit the kernel's "
+                         "shared memory")
     z_flat = z_flat.contiguous()
     emb = emb.contiguous()
-    dev = z_flat.device
     idx = torch.empty((N,), dtype=torch.int32, device=dev)
-    n_part = lib.vq_scratch_argmin_words(N, K, dev.index or 0)
-    pbest = torch.empty((n_part,), dtype=torch.float32, device=dev)
-    pidx = torch.empty((n_part,), dtype=torch.int32, device=dev)
-    z_q = bsum = belem = psum = pcnt = None
+    rescored = torch.empty((2, n_res // 2), dtype=torch.int32, device=dev)
+    z_q = bsum = belem = None
     if stats:
         z_q = torch.empty((N, D), dtype=torch.float32, device=dev)
         bsum = torch.empty((K, D), dtype=torch.float32, device=dev)
         belem = torch.empty((K,), dtype=torch.float32, device=dev)
-        psum = torch.empty((lib.vq_scratch_sum_floats(K, D),),
-                           dtype=torch.float32, device=dev)
-        pcnt = torch.empty((lib.vq_scratch_cnt_floats(K),),
-                           dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     code = lib.vq_fused_launch(
         z_flat.data_ptr(), emb.data_ptr(), N, K, D, idx.data_ptr(), ptr(z_q),
-        pbest.data_ptr(), pidx.data_ptr(), ptr(psum), ptr(pcnt), ptr(bsum),
-        ptr(belem), dev.index or 0, _build.stream_of(z_flat))
+        ptr(bsum), ptr(belem), rescored.data_ptr(), dev.index or 0,
+        _build.stream_of(z_flat))
     _build.check(code, lib, "vq_error_string", "vq_fused")
     vq_fused.launches += 1
+    vq_fused.rescored = rescored
     return VqOut(idx, z_q, bsum, belem)
 
 
 vq_fused.launches = 0
+vq_fused.rescored = None
