@@ -23,7 +23,15 @@ port against the committed JAX fixture of a small transformer model
 seeded random weights) decoding eight utterances through ``bin/decode_tts``
 and training for ten steps at B = 32 on a synthetic token-mel corpus
 (``tts``), with the attention kernels' launches counted per ``infer`` and
-per step. Each phase prints one JSON line; any
+per step. Then the hierarchical VQ-VAE of
+``egs/vcc20/vae2/conf/train_vqvae2.yaml`` (``HIER``): the port against the
+committed JAX fixture of a small vqvae2 (``hier_golden``), every gradient
+at full width in fp32 against the CPU (``hier_grad_fp32``), sixteen bf16
+optimizer steps at B = 96, T = 256 on a synthetic corpus staged on the
+device with the launch counts per step (``hier_train``), a
+``ConversionEngine`` on the trained checkpoint answering eight requests
+(``hier_serve``), and vqvae2a / vqvae2b at test width against the CPU
+(``hier_small``). Each phase prints one JSON line; any
 failure exits non-zero. The last lines are the kernel summary, the card's
 name and power limit as ``nvidia-smi`` gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -117,6 +125,117 @@ TRAIN = {
     "steps_per_call": 8, "device_resident": True,
 }
 TRAIN_STEPS = 20
+
+# egs/vcc20/vae2/conf/train_vqvae2.yaml, every key (the GPU host has no
+# YAML parser; tests/test_torch_port_hier_train.py checks this equals the
+# file): the hierarchical VQ-VAE of the vae2 recipe
+HIER = {
+    "trainer_type": "vae_npvc.trainer.basic",
+    "dataset_type": "vae_npvc.dataset.utt2mel_spk",
+    "model_type": "vae_npvc.model.vqvae2",
+    "max_iter": 1000000, "iters_per_checkpoint": 20000, "iters_per_log": 1000,
+    "steps_per_call": 8, "device_resident": True, "seed": 777, "num_jobs": 8,
+    "prefetch_factor": 2, "batch_size": 96, "crop_length": 256,
+    "optim_type": "Adam", "learning_rate": 0.001, "max_grad_norm": 10,
+    "lr_scheduler": "StepLR", "lr_param": {"step_size": 100000, "gamma": 0.5},
+    "levels": 3, "y_dim": 128, "y_num": 117, "beta": 0.01, "use_gst": True,
+    "gst_scale_penalty": 0.0, "use_ema": False, "jitter_p": 0.0,
+    "encoder.0": {"in_channels": [80], "out_channels": [512],
+                  "kernel_size": 3, "downsample_scales": [1],
+                  "z_channels": 128, "dilation": False,
+                  "stack_kernel_size": 3, "stack_layers": 1, "stacks": [6],
+                  "use_weight_norm": True},
+    "encoder.1": {"in_channels": [512, 512], "out_channels": [512, 512],
+                  "kernel_size": 3, "downsample_scales": [2, 2],
+                  "z_channels": 128, "dilation": False,
+                  "stack_kernel_size": 3, "stack_layers": 1,
+                  "stacks": [3, 3], "use_weight_norm": True},
+    "encoder.2": {"in_channels": [512, 512], "out_channels": [512, 512],
+                  "kernel_size": 3, "downsample_scales": [4, 4],
+                  "z_channels": 128, "dilation": False,
+                  "stack_kernel_size": 3, "stack_layers": 1,
+                  "stacks": [3, 3], "use_weight_norm": True},
+    "quantizer.0": {"z_dim": 128, "z_num": 512, "normalize": True},
+    "quantizer.1": {"z_dim": 128, "z_num": 512, "normalize": True},
+    "quantizer.2": {"ref_embed_dim": 128, "gst_tokens": 10,
+                    "gst_token_dim": 128, "gst_heads": 4},
+    "decoder.0": {"in_channels": [384], "out_channels": [512],
+                  "cond_channels": 128, "skip_channels": 128,
+                  "final_channels": 80, "kernel_size": 3,
+                  "upsample_scales": [1], "dilation": False,
+                  "stack_kernel_size": 3, "stacks": [10],
+                  "use_weight_norm": True},
+    "decoder.1": {"in_channels": [128], "out_channels": [512],
+                  "cond_channels": 256, "skip_channels": 128,
+                  "final_channels": 128, "kernel_size": 3,
+                  "upsample_scales": [1], "dilation": False,
+                  "stack_kernel_size": 3, "stacks": [6],
+                  "use_weight_norm": True},
+    "decoder.2": {"in_channels": [128], "out_channels": [512],
+                  "cond_channels": 128, "skip_channels": 128,
+                  "final_channels": 128, "kernel_size": 3,
+                  "upsample_scales": [1], "dilation": False,
+                  "stack_kernel_size": 3, "stacks": [6],
+                  "use_weight_norm": True},
+    "compute_dtype": "bfloat16", "use_native_loader": True,
+    "decode_bucket_size": 256, "decode_batch_size": 8,
+}
+HIER_STEPS, HIER_REQUESTS = 16, 8
+# per training step of the recipe's model: K1 once per VQ level (ids mode,
+# N = 96 x 64 and 96 x 256), K2/K3 once per GroupNorm (18 in the encoders,
+# 22 in the decoders); per infer K1 twice and K2 40 times
+HIER_STEP_LAUNCHES = {"vq_fused": 2, "fused_group_norm": 40,
+                      "fused_group_norm_backward": 40}
+HIER_INFER_LAUNCHES = {"vq_fused": 2, "fused_group_norm": 40}
+
+
+def _small_layer(kind, cin, ds_or_us=1, **kw):
+    """A test-width encoder or decoder arch dict of the hierarchies."""
+    if kind == "enc":
+        arch = {"in_channels": [cin], "out_channels": [16], "kernel_size": 3,
+                "downsample_scales": [ds_or_us], "z_channels": 8,
+                "dilation": False, "stack_kernel_size": 3, "stack_layers": 1,
+                "stacks": [1], "use_weight_norm": True}
+    else:
+        arch = {"in_channels": [cin], "out_channels": [16],
+                "cond_channels": 8, "skip_channels": 8, "final_channels": 8,
+                "kernel_size": 3, "upsample_scales": [ds_or_us],
+                "dilation": False, "stack_kernel_size": 3, "stacks": [1],
+                "use_weight_norm": True}
+    arch.update(kw)
+    return arch
+
+
+_Q8 = {"z_dim": 8, "z_num": 16, "normalize": True}
+_GST8 = {"ref_embed_dim": 8, "gst_tokens": 4, "gst_token_dim": 8,
+         "gst_heads": 2}
+# vqvae2a (per-level speakers, decode-then-upsample) and vqvae2b (GST top,
+# fusion decoder) at test width, plain normalized codebooks, fp32
+HIER_SMALL = {
+    "vqvae2a": {
+        "model_type": "vae_npvc.model.vqvae2a", "levels": 3, "y_dim": 8,
+        "y_num": 4, "beta": 0.01, "use_gst": False, "use_ema": False,
+        "pooling_last": False, "upsample_last": True, "use_embeds": True,
+        "encoder.0": _small_layer("enc", 10),
+        "encoder.1": _small_layer("enc", 16, 2),
+        "encoder.2": _small_layer("enc", 16, 4),
+        "decoder.2": _small_layer("dec", 8),
+        "decoder.1": _small_layer("dec", 16),
+        "decoder.0": _small_layer("dec", 16, final_channels=10),
+        "quantizer.0": _Q8, "quantizer.1": _Q8, "quantizer.2": _Q8},
+    "vqvae2b": {
+        "model_type": "vae_npvc.model.vqvae2b", "levels": 3, "y_dim": 8,
+        "y_num": 4, "beta": 0.01, "use_gst": True, "use_ema": False,
+        "pooling_last": True,
+        "encoder.0": _small_layer("enc", 10),
+        "encoder.1": _small_layer("enc", 16, 2),
+        "encoder.2": _small_layer("enc", 16, 4),
+        "decoder.0": _small_layer("dec", 8), "decoder.1": _small_layer("dec", 8),
+        "decoder.2": _small_layer("dec", 8),
+        "final_decoder": _small_layer("dec", 24, cond_channels=0,
+                                      final_channels=10),
+        "quantizer.0": _Q8, "quantizer.1": _Q8, "quantizer.2": _GST8},
+}
 
 
 def emit(obj):
@@ -300,6 +419,8 @@ def phase_build(torch):
 
 def _vq_inputs(N, K, D, rng, kind):
     """numpy z (N, D) and codebook (K, D) of a K1 case: ``random``;
+    ``unit``, random rows and codes scaled to unit norm (the normalized
+    plain codebooks' search, where distances differ only in 2 z.e);
     ``near_tie``, rows within a few ulps of the midpoint of a code and its
     nearest other code; ``duplicate``, a codebook whose second half repeats
     its first (and whose last row repeats row 0) with rows near the
@@ -307,6 +428,12 @@ def _vq_inputs(N, K, D, rng, kind):
     emb = rng.normal(size=(K, D)).astype(np.float32)
     if kind == "random":
         return rng.normal(size=(N, D)).astype(np.float32), emb
+    if kind == "unit":
+        z = rng.normal(size=(N, D))
+        return ((z / np.linalg.norm(z, axis=1, keepdims=True))
+                .astype(np.float32),
+                (emb / np.linalg.norm(emb, axis=1, keepdims=True))
+                .astype(np.float32))
     if kind == "duplicate":
         emb[K // 2:] = emb[:K - K // 2]
         emb[K - 1] = emb[0]
@@ -760,6 +887,32 @@ def phase_kernels(torch):
                          torch.bfloat16, rng, iters=20, cf=True))
     check(gn[-1]["plan"] == 0 and gnb[-1]["plan"] == 0,
           "the 4096-frame rows did not take the streaming path")
+    # the vae2 recipe's hierarchy (HIER): K1 ids mode on unit-norm rows and
+    # codes at the training step's two VQ levels (96 x 64, 96 x 256 rows);
+    # the strided levels' short GroupNorm rows, channels-first as the
+    # strided convs hand them over: the encoders' G = 1 norms at T = 128,
+    # 64, 16 and 4 and decoder 2's GLU at T = 64, masked serving rows down
+    # to one valid frame, and fp32 rows of 4 frames
+    for N in (96 * 64, 96 * 256):
+        vq.append(_vq_case(torch, N, False, rng, kind="unit"))
+    for T in (128, 64, 16, 4):
+        gn.append(_gn_case(torch, 96, T, 512, 1, False, False,
+                           torch.bfloat16, rng, cf=True))
+        gnb.append(_gnb_case(torch, 96, T, 512, 1, False, False,
+                             torch.bfloat16, rng, iters=20, cf=True))
+    gn.append(_gn_case(torch, 96, 64, 1024, 2, True, False, torch.bfloat16,
+                       rng, cf=True))
+    gnb.append(_gnb_case(torch, 96, 64, 1024, 2, True, False, torch.bfloat16,
+                         rng, iters=20, cf=True))
+    for T in (16, 4):
+        gn.append(_gn_case(torch, 8, T, 512, 1, False, True, torch.bfloat16,
+                           rng, cf=True))
+    gn.append(_gn_case(torch, 8, 4, 512, 1, False, [4, 1, 2, 1, 3, 4, 1, 2],
+                       torch.float32, rng, cf=True))
+    gnb.append(_gnb_case(torch, 96, 4, 512, 1, False, False, torch.float32,
+                         rng, cf=True))
+    gnb.append(_gnb_case(torch, 8, 4, 1024, 2, True, [4, 1, 2, 1, 3, 4, 1, 2],
+                         torch.float32, rng, cf=True))
     # the synthesizer's shapes: encoder and decoder of a training batch
     # (B = 32, ragged lengths), one decoded utterance, and odd sizes
     attn = []
@@ -985,6 +1138,8 @@ def _profiled(torch, fn):
     by_op = {a.key: a.self_device_time_total / 1e3
              for a in prof.key_averages() if a.self_device_time_total > 0
              and a.device_type != torch.autograd.DeviceType.CUDA}
+    copies = sum(a.count for a in prof.key_averages()
+                 if a.key == "aten::copy_")
 
     def top(d, k):
         return dict(sorted(d.items(), key=lambda kv: -kv[1])[:k])
@@ -993,7 +1148,8 @@ def _profiled(torch, fn):
             "idle_share": (1 - busy / wall_ms) if n else None,
             "device_ms_by_class": top(by_class, 10),
             "top_kernels_ms": top(by_name, 8),
-            "device_ms_by_operator": top(by_op, 12)}
+            "device_ms_by_operator": top(by_op, 12),
+            "aten_copy_calls": copies}
 
 
 def phase_profile(torch, engine, wav):
@@ -1661,6 +1817,534 @@ def phase_tts(torch):
             "fused_attention_backward": train_launches[1]}
 
 
+def phase_hier_golden(torch):
+    """The port on the card against the committed JAX fixture of a small
+    vqvae2 in the recipe's form (tests/test_torch_port_hier_train.py), in
+    fp32: the evaluation batch's valid-mode losses, ``encode`` ids (equal)
+    and style and ``infer`` mel (1e-4 of the peak) from the JAX checkpoint,
+    then six ``Trainer`` steps against JAX's per-step losses and gradient
+    norm and its final parameters and Adam moments."""
+    from vae_npvc_tpu_torch.models.vqvae import Encoder
+    from vae_npvc_tpu_torch.train import build_trainer
+    from vae_npvc_tpu_torch.utils import msgpack_io
+
+    cfg = json.loads((FIXTURES / "hier_golden_config.json").read_text())
+    g = np.load(FIXTURES / "hier_golden.npz")
+    steps = len(g["detail/Total"])
+    tr = build_trainer(cfg, device="cuda")
+    tr.load_checkpoint(FIXTURES / "hier_golden.msgpack")
+    x, y, n = (torch.as_tensor(g[k], device=tr.device)
+               for k in ("eval/feats", "eval/spks", "eval/lengths"))
+    with torch.no_grad():
+        _, _, fwd = tr.model(x, y, False)
+        ids, style = tr.model.encode(x, n)
+        mel = tr.model.infer(x, y, n).cpu().numpy()
+    worst = {}
+
+    def held(what, got, want):
+        rel = abs(float(got) - float(want)) / max(abs(float(want)), 1e-12)
+        worst[what] = max(worst.get(what, 0.0), rel)
+        check(rel <= GOLDEN_LOSS_RTOL,
+              f"hier_golden: {what} {float(got)}, JAX {float(want)}")
+
+    for k in (f for f in g.files if f.startswith("fwd/")):
+        held(k, fwd[k[4:]], g[k])
+    # ids are compared over each level's real frames (coarse -> fine:
+    # level 1, then level 0)
+    lengths = g["eval/lengths"]
+    len_levels = [lengths]
+    for i in range(cfg["levels"]):
+        len_levels.append(Encoder.out_lengths(cfg[f"encoder.{i}"],
+                                              len_levels[-1]))
+    id_diff = 0
+    for j, lvl in enumerate((1, 0)):
+        got, want = ids[j].cpu().numpy(), g[f"eval/ids_{j}"]
+        for b, m in enumerate(len_levels[lvl + 1]):
+            id_diff += int((got[b, :m] != want[b, :m]).sum())
+    check(id_diff == 0, f"hier_golden: {id_diff} ids differ from JAX")
+    style_err = float(np.abs(style.cpu().numpy() - g["eval/style"]).max())
+    style_peak = float(np.abs(g["eval/style"]).max())
+    check(style_err <= 1e-4 * style_peak,
+          f"hier_golden: style differs from JAX by {style_err}")
+    valid = np.arange(mel.shape[1])[None] < lengths[:, None]
+    mel_peak = float(np.abs(g["eval/mel"][valid]).max())
+    mel_err = float(np.abs(mel[valid] - g["eval/mel"][valid]).max())
+    check(mel_err <= 1e-4 * mel_peak,
+          f"hier_golden: mel differs from JAX by {mel_err} (peak "
+          f"{mel_peak})")
+    keys = [k[len("detail/"):] for k in g.files if k.startswith("detail/")]
+    for i in range(steps):
+        detail = tr.train_step((g[f"feats_{i}"], g[f"spks_{i}"]))
+        for k in keys:
+            if k == "skipped_nonfinite":
+                check(float(detail[k]) == 0.0,
+                      f"hier_golden: step {i + 1} skipped")
+            else:
+                held(k, detail[k], g["detail/" + k][i])
+    with tempfile.TemporaryDirectory() as tmp:
+        tr.save_checkpoint(Path(tmp) / "final")
+        got = _leaves(msgpack_io.msgpack_restore(
+            (Path(tmp) / "final").read_bytes()))
+    want = _leaves(msgpack_io.msgpack_restore(
+        (FIXTURES / "hier_golden_final.msgpack").read_bytes()))
+    check(set(got) == set(want), "hier_golden: checkpoint trees differ")
+    atol, rtol = GOLDEN_STATE_TOL
+    reach = 2 * steps * cfg["learning_rate"]
+    state_err = 0.0
+    for k in want:
+        a, b = got[k].astype(np.float64), want[k].astype(np.float64)
+        check(a.shape == b.shape, f"hier_golden: {k} shape {a.shape}")
+        err = np.abs(a - b)
+        if _tts_free_leaf(k):     # the GST's key-projection bias
+            check(bool(np.all(err <= reach)), f"hier_golden: {k} beyond "
+                  f"the reach of {steps} steps")
+            continue
+        state_err = max(state_err, float(err.max()) if err.size else 0.0)
+        check(bool(np.all(err <= atol + rtol * np.abs(b))),
+              f"hier_golden: {k} differs from JAX by {float(err.max())}")
+    emit({"phase": "hier_golden", "steps": steps, "ids_differ": id_diff,
+          "style_max_abs_err": style_err, "mel_max_abs_err": mel_err,
+          "mel_peak": mel_peak, "tolerance_of_peak": 1e-4,
+          "worst_rel_err": worst, "loss_rtol": GOLDEN_LOSS_RTOL,
+          "state_leaves": len(want), "state_max_abs_err": state_err,
+          "state_atol_rtol": list(GOLDEN_STATE_TOL)})
+
+
+def _counters():
+    from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
+                                                  fused_group_norm_backward)
+    from vae_npvc_tpu_torch.ops.vq_fused import vq_fused
+
+    return {"vq_fused": vq_fused, "fused_group_norm": fused_group_norm,
+            "fused_group_norm_backward": fused_group_norm_backward}
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _shared_kinks(torch, masks=None):
+    """A ``TorchFunctionMode`` around every ``relu`` / ``leaky_relu``: without
+    ``masks`` it records each input's sign pattern (in call order); with
+    the masks of such a run it applies them, ``x * (1 if mask else
+    slope)``, and counts the elements whose own sign differs
+    (``.flips``). Two runs of one model on two devices then take every
+    kink the same way: an input within rounding of zero otherwise opens
+    on one device and not the other, and the gradient behind it differs
+    by (1 - slope) of its value there."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class SharedKinks(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.record = masks is None
+            self.masks = [] if masks is None else masks
+            self.i, self.flips = 0, 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func not in (F.relu, F.leaky_relu, torch.relu):
+                return func(*args, **kwargs)
+            x = args[0]
+            if self.record:
+                self.masks.append((x > 0).detach().cpu())
+                return func(*args, **kwargs)
+            slope = 0.0
+            if func is F.leaky_relu:
+                slope = args[1] if len(args) > 1 else kwargs.get(
+                    "negative_slope", 0.01)
+            m = self.masks[self.i].to(x.device)
+            self.i += 1
+            self.flips += int(((x > 0) != m).sum())
+            return x * torch.where(m, 1.0, slope).to(x.dtype)
+
+    return SharedKinks()
+
+
+def _hier_grad_fp32(torch):
+    """The recipe's vqvae2 at full width in fp32 at B = 2, T = 256: the
+    training loss and every parameter gradient on the card (K1 ids mode,
+    K2, K3) against the same weights on the CPU (plain versions), within
+    ``GRAD_TOL`` of each gradient's peak; the GST's key-projection bias,
+    zero in exact arithmetic, within 1e-6 of the largest gradient. The
+    card takes every ReLU kink as the CPU did (:func:`_shared_kinks`;
+    the elements whose own sign differed are reported): one leaky-ReLU
+    input within rounding of zero, in a model with ~10^7 of them, moved a
+    stack's gradients by 1 % of their peak."""
+    from vae_npvc_tpu_torch.models import build_model
+
+    cfg = dict(HIER, compute_dtype="float32")
+    rng = np.random.default_rng(6)
+    B, T, D = 2, 256, cfg["encoder.0"]["in_channels"][0]
+    t = np.linspace(0, 1, T)[None, :, None]
+    feats = (np.sin(2 * np.pi * (rng.uniform(1, 4, (B, 1, D)) * t
+                                 + rng.uniform(0, 1, (B, 1, D))))
+             + 0.3 * rng.normal(size=(B, T, D))).astype(np.float32)
+    spks = np.array([0, 116], np.int64)
+    cpu = build_model(cfg, device="cpu").init_random(0)
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    n_params = sum(p.numel() for p in cpu.parameters())
+    runs = {}
+    kinks = _shared_kinks(torch)
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        dev = next(model.parameters()).device
+        x = torch.as_tensor(feats, device=dev)
+        _zero_counts()
+        if name == "cuda":
+            kinks = _shared_kinks(torch, kinks.masks)
+        with kinks:
+            _, loss, detail = model(x, torch.as_tensor(spks, device=dev),
+                                    True)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        with torch.no_grad():
+            ids, _ = model.encode(x)
+        runs[name] = (float(loss.detach()), [g.cpu() for g in grads],
+                      [i.cpu() for i in ids])
+    launched = _read_counts()
+    (loss_d, grads_d, ids_d), (loss_c, grads_c, ids_c) = runs["cuda"], \
+        runs["cpu"]
+    top = max(float(g.abs().max()) for g in grads_c)
+    worst, worst_name = 0.0, None
+    for (name, _), a, b in zip(cpu.named_parameters(), grads_d, grads_c):
+        check(bool(torch.isfinite(a).all()), f"hier: grad {name} not finite")
+        if name == "gst.mha.linear_k.bias":
+            check(float(a.abs().max()) <= 1e-6 * top,
+                  f"hier: grad {name} {float(a.abs().max())}")
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+        if rel > worst:
+            worst, worst_name = rel, name
+    ids_differ = sum(int((a != b).sum()) for a, b in zip(ids_d, ids_c))
+    out = {"B": B, "T": T, "parameters": n_params,
+           "parameter_tensors": len(grads_c), "relu_inputs": sum(
+               m.numel() for m in kinks.masks),
+           "relu_sign_flips_on_the_card": kinks.flips, "loss_gpu": loss_d,
+           "loss_cpu": loss_c, "ids_differ": ids_differ,
+           "worst_grad_err_over_peak": worst, "worst_grad": worst_name,
+           "tolerance": GRAD_TOL, "launches": launched}
+    emit({"phase": "hier_grad_fp32", **out})
+    # one training forward and backward (K1 twice, 40 norms, 40 backward)
+    # and one encode (K1 twice, the encoders' 18 norms and decoders 2 and
+    # 1's twelve)
+    check(launched == {"vq_fused": 4, "fused_group_norm": 70,
+                       "fused_group_norm_backward": 40},
+          f"hier: grad_fp32 launches {launched}")
+    check(abs(loss_d - loss_c) <= 1e-4 * abs(loss_c),
+          f"hier: loss {loss_d} on the card, {loss_c} on the CPU")
+    check(worst <= GRAD_TOL,
+          f"hier: gradient of {worst_name} differs by {worst} of its peak")
+    return n_params
+
+
+def _record_k1_calls(torch, calls):
+    """A stand-in for ``ops.vq.nearest_code`` that records each K1 call:
+    rows re-scored in exact fp32 (and over every code), near ties (top-2
+    fp64 distances within 1e-5 relative) and ids that differ from the
+    plain version off them."""
+    from vae_npvc_tpu_torch.ops.vq_fused import (nearest_code,
+                                                 nearest_code_plain, vq_fused)
+
+    def recording(z, emb):
+        idx = nearest_code(z, emb)
+        rescored, all_codes = vq_fused.rescored.sum(1).tolist()
+        ref = nearest_code_plain(z, emb)
+        e64 = emb.double()
+        d64 = (e64 ** 2).sum(1)[None] - 2 * z.double() @ e64.T
+        top2 = torch.topk(d64, 2, dim=1, largest=False).values
+        clear = (top2[:, 1] - top2[:, 0]) > 1e-5 * top2[:, 0].abs() \
+            .clamp(min=1)
+        calls.append({"N": int(z.shape[0]), "rescored_rows": rescored,
+                      "rescored_all_codes": all_codes,
+                      "near_ties": int((~clear).sum()),
+                      "ids_differ_clear": int(((idx != ref) & clear).sum()),
+                      "ids_differ_near_tie": int(((idx != ref)
+                                                  & ~clear).sum())})
+        return idx
+
+    return recording
+
+
+def _hier_train(torch, root):
+    """``HIER_STEPS`` bf16 optimizer steps of the recipe's model at B = 96,
+    T = 256 through ``Trainer`` on a synthetic corpus staged on the device
+    (two calls of ``steps_per_call: 8``), with the launch counts per step, a
+    fixed batch's ``X like`` before and after, one more step with every K1
+    call recorded, a save/load round trip and one profiled step. Returns
+    (launches of the counted steps, checkpoint path)."""
+    from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
+                                                 batch_iterator,
+                                                 index_iterator)
+    from vae_npvc_tpu_torch.ops import vq as vq_ops
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    cfg = dict(HIER)
+    B, T = cfg["batch_size"], cfg["crop_length"]
+    _synthetic_corpus(root, 256, seed=7)
+    dataset = UttMelSpkDataset(root, cfg)
+    tr = build_trainer(cfg, device="cuda")
+    tr.init_state()
+    staged = tr.stage_dataset(dataset, B)
+    pairs = index_iterator(dataset, B, shuffle=True, drop_last=True,
+                           seed=cfg["seed"])
+
+    def chunk(k):
+        got = [next(pairs) for _ in range(k)]
+        return (np.stack([p[0] for p in got]), np.stack([p[1] for p in got]))
+
+    held = [next(batch_iterator(dataset, B, shuffle=False, drop_last=True,
+                                num_workers=0, epochs=1))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    held_x_like, details, times, done = [], [], [], 0
+    while done < HIER_STEPS:
+        k = min(cfg["steps_per_call"], HIER_STEPS - done)
+        idx, starts = chunk(k)
+        t0 = time.perf_counter()
+        details.append(tr.train_steps_indices(idx, starts))
+        torch.cuda.synchronize()
+        times.append(((time.perf_counter() - t0) * 1e3, k))
+        done += k
+        if done == k or done == HIER_STEPS:
+            # the scoring pass is no training step: its launches are kept
+            # out of the per-step counts
+            counts = _read_counts()
+            held_x_like.append(tr.valid(held)["X like"][0])
+            for name, fn in _counters().items():
+                fn.launches = counts[name]
+    launches = _read_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    detail = {k: torch.cat([d[k] for d in details]).float().cpu().numpy()
+              for k in details[0]}
+    check(tr.iteration == HIER_STEPS, f"hier: {tr.iteration} steps")
+    for k, v in detail.items():
+        check(bool(np.all(np.isfinite(v))), f"hier: {k} not finite: {v}")
+    check(float(detail["skipped_nonfinite"].sum()) == 0.0,
+          f"hier: steps skipped: {detail['skipped_nonfinite']}")
+    check(held_x_like[1] < held_x_like[0],
+          f"hier: X like of a fixed batch {held_x_like[0]} -> "
+          f"{held_x_like[1]} did not fall")
+    check(launches == {k: v * HIER_STEPS
+                       for k, v in HIER_STEP_LAUNCHES.items()},
+          f"hier: launches {launches} over {HIER_STEPS} steps")
+
+    # one more step with every K1 call recorded (not counted or timed)
+    calls = []
+    original = vq_ops.nearest_code
+    vq_ops.nearest_code = _record_k1_calls(torch, calls)
+    try:
+        tr.train_steps_indices(*chunk(1))
+    finally:
+        vq_ops.nearest_code = original
+    check([c["N"] for c in calls] == [B * T // 4, B * T],
+          f"hier: K1 calls {[c['N'] for c in calls]}")
+    check(all(c["ids_differ_clear"] == 0 for c in calls),
+          f"hier: K1 ids differ from the plain version off near ties: "
+          f"{calls}")
+
+    # save -> load into a second trainer -> the same next step
+    ckpt = root / f"iter.{tr.iteration}"
+    tr.save_checkpoint(ckpt)
+    other = build_trainer(cfg, device="cuda")
+    check(other.load_checkpoint(ckpt) == tr.iteration, "hier: iteration")
+    other.stage_dataset(dataset, B)
+    idx, starts = chunk(1)
+    a = float(other.train_steps_indices(idx, starts)["Total"][0])
+    b = float(tr.train_steps_indices(idx, starts)["Total"][0])
+    check(math.isfinite(a) and abs(a - b) <= 1e-6 * abs(a),
+          f"hier: next step {b}, after save/load {a}")
+    del other
+    idx, starts = chunk(1)
+    profile = _profiled(torch, lambda: tr.train_steps_indices(idx, starts))
+    steady_ms = sum(ms for ms, _ in times[1:]) / sum(k for _, k in times[1:])
+    emit({"phase": "hier_train", "config": "train_vqvae2.yaml",
+          "steps": HIER_STEPS, "B": B, "T": T,
+          "dtype": cfg["compute_dtype"], "utterances": len(dataset),
+          "staged_bytes": staged, "parameters": int(tr.flat.numel()),
+          "chunk_ms": [round(ms, 3) for ms, _ in times],
+          "ms_per_step": steady_ms, "frames_per_s": B * T / steady_ms * 1e3,
+          "peak_memory_bytes": peak_bytes,
+          "held_batch_x_like_after_first_chunk_and_last": held_x_like,
+          "total": [float(v) for v in detail["Total"]],
+          "x_like": [float(v) for v in detail["X like"]],
+          "gst_in_rms_first_last": [float(detail["gst_in_rms"][0]),
+                                    float(detail["gst_in_rms"][-1])],
+          "grad_norm_first_last": [float(detail["grad_norm"][0]),
+                                   float(detail["grad_norm"][-1])],
+          "launches": launches, "launches_per_step": HIER_STEP_LAUNCHES,
+          "k1_calls_of_one_step": calls,
+          "next_step_total": b, "next_step_total_after_load": a,
+          "one_step_profile": profile})
+    return launches, calls, ckpt
+
+
+def _hier_serve(torch, ckpt):
+    """A ``ConversionEngine`` on the trained checkpoint answering
+    ``HIER_REQUESTS`` requests of 1-4 s from four threads (Griffin-Lim),
+    the launches of one ``infer`` and one profiled ``infer`` of a B = 8,
+    T = 256 batch. Returns the launches of one ``infer``."""
+    from vae_npvc_tpu_torch.serve import ConversionEngine
+
+    fs, shift, D = 24000, 256, 80
+    stats = np.zeros((2, D + 1), np.float64)
+    stats[0, :-1] = -3.0 * 1000
+    stats[0, -1] = 1000
+    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
+    engine = ConversionEngine(HIER, ckpt, stats, vocoder="gl", device="cuda")
+    try:
+        t0 = time.monotonic()
+        engine.warmup(2)
+        warm_s = time.monotonic() - t0
+        durations = np.linspace(1.0, 4.0, HIER_REQUESTS)
+        wavs = [_speechlike(int(d * fs), fs, 20 + i)
+                for i, d in enumerate(durations)]
+
+        def one(i):
+            t = time.monotonic()
+            out, sr = engine.convert(wavs[i], fs, (5 * i) % 117)
+            return out, sr, (time.monotonic() - t) * 1e3
+
+        calls0 = engine.batcher.calls
+        _zero_counts()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(4) as ex:
+            results = list(ex.map(one, range(len(wavs))))
+        wall_s = time.monotonic() - t0
+        launches = _read_counts()
+        calls = engine.batcher.calls - calls0
+        for i, (out, sr, _) in enumerate(results):
+            T_true = 1 + wavs[i].size // shift
+            check(sr == fs and out.shape == (T_true * shift,),
+                  f"hier: request {i} gave {out.shape} at {sr} Hz")
+            check(bool(np.all(np.isfinite(out))) and np.abs(out).max() > 0,
+                  f"hier: request {i} not finite or silent")
+        check(launches["vq_fused"] == HIER_INFER_LAUNCHES["vq_fused"] * calls
+              and launches["fused_group_norm"]
+              == HIER_INFER_LAUNCHES["fused_group_norm"] * calls,
+              f"hier: serving launches {launches} over {calls} infer calls")
+        feats = np.random.default_rng(8).normal(size=(8, 256, D)) \
+            .astype(np.float32)
+        tgts = np.arange(8, dtype=np.int32)
+        lengths = np.array([256, 200, 256, 64, 100, 256, 180, 90], np.int32)
+        engine.converter.infer(feats, tgts, lengths)
+        _zero_counts()
+        mel = engine.converter.infer(feats, tgts, lengths)
+        per_infer = _read_counts()
+        # the same batch's K1 calls recorded (padded rows are zero rows,
+        # every code equally near after the normalization)
+        from vae_npvc_tpu_torch.ops import vq as vq_ops
+
+        k1_calls = []
+        original = vq_ops.nearest_code
+        vq_ops.nearest_code = _record_k1_calls(torch, k1_calls)
+        try:
+            engine.converter.infer(feats, tgts, lengths)
+        finally:
+            vq_ops.nearest_code = original
+        check(all(c["ids_differ_clear"] == 0 for c in k1_calls),
+              f"hier: K1 ids of an infer differ from the plain version off "
+              f"near ties: {k1_calls}")
+        check(bool(np.isfinite(mel).all()), "hier: infer not finite")
+        check({k: per_infer[k] for k in HIER_INFER_LAUNCHES}
+              == HIER_INFER_LAUNCHES, f"hier: one infer launched "
+              f"{per_infer}")
+        profile = _profiled(
+            torch, lambda: engine.converter.infer(feats, tgts, lengths))
+        lat = [r[2] for r in results]
+        emit({"phase": "hier_serve", "requests": len(results),
+              "threads": 4, "seconds_per_request_min_max":
+                  [float(durations[0]), float(durations[-1])],
+              "warmup_s": warm_s, "wall_s": wall_s,
+              "requests_per_s": len(results) / wall_s,
+              "latency_ms_median": float(np.median(lat)),
+              "latency_ms_max": float(np.max(lat)), "infer_calls": calls,
+              "launches": launches, "launches_per_infer": per_infer,
+              "k1_calls_of_one_infer": k1_calls,
+              "infer_b8_t256_profile": profile})
+        return per_infer
+    finally:
+        engine.close()
+
+
+def _hier_small(torch, root):
+    """vqvae2a and vqvae2b at test width in fp32: one ``Trainer`` step and
+    one masked ``infer`` on the card against the CPU from the same
+    checkpoint."""
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    out = {}
+    rng = np.random.default_rng(9)
+    batch = (rng.normal(size=(4, 32, 10)).astype(np.float32),
+             np.array([0, 3, 1, 2], np.int32))
+    x = rng.normal(size=(3, 32, 10)).astype(np.float32)
+    lengths = np.array([32, 21, 9], np.int32)
+    x[np.arange(32)[None] >= lengths[:, None]] = 0.0
+    y = np.array([3, 0, 2], np.int32)
+    for name, arch in HIER_SMALL.items():
+        cfg = dict(arch, compute_dtype="float32", seed=3, optim_type="Adam",
+                   learning_rate=1e-3, max_grad_norm=1.0)
+        cpu = build_trainer(cfg, device="cpu")
+        cpu.init_state()
+        ckpt = root / f"{name}.ckpt"
+        cpu.save_checkpoint(ckpt)
+        gpu = build_trainer(cfg, device="cuda")
+        gpu.load_checkpoint(ckpt)
+        _zero_counts()
+        dg = gpu.train_step(batch)
+        launched = _read_counts()
+        dc = cpu.train_step(batch)
+        rel = {k: abs(float(dg[k]) - float(dc[k])) / max(abs(float(dc[k])),
+                                                         1e-12)
+               for k in ("Total", "X like", "VQ loss", "grad_norm")}
+        a, b = gpu.flat.cpu().double(), cpu.flat.double()
+        state_err = float((a - b).abs().max())
+        mels = []
+        for tr in (gpu, cpu):
+            with torch.no_grad():
+                mels.append(tr.model.infer(*(
+                    torch.as_tensor(v, device=tr.device)
+                    for v in (x, y, lengths))).cpu().numpy())
+        valid = np.arange(32)[None] < lengths[:, None]
+        peak = float(np.abs(mels[1][valid]).max())
+        mel_err = float(np.abs(mels[0][valid] - mels[1][valid]).max())
+        out[name] = {"rel_err": rel, "params_max_abs_err": state_err,
+                     "mel_max_abs_err": mel_err, "mel_peak": peak,
+                     "launches_one_step": launched}
+        check(all(v <= GOLDEN_LOSS_RTOL for v in rel.values()),
+              f"hier: {name} step on the card differs from the CPU: {rel}")
+        atol, rtol = GOLDEN_STATE_TOL
+        check(bool(((a - b).abs() <= atol + rtol * b.abs()).all()),
+              f"hier: {name} parameters after a step differ by {state_err}")
+        check(mel_err <= 1e-4 * peak,
+              f"hier: {name} mel differs from the CPU by {mel_err}")
+        check(all(v > 0 for v in launched.values()),
+              f"hier: {name} step launched {launched}")
+    emit({"phase": "hier_small", "cases": out})
+
+
+def phase_hier(torch):
+    """The vae2 recipe's hierarchical VQ-VAE (``HIER``) at full width with
+    seeded random weights: gradients in fp32 against the CPU, bf16
+    training, serving from the trained checkpoint; then vqvae2a and
+    vqvae2b at test width against the CPU. Returns the launch counts of the
+    training run and of one ``infer``, and the K1 calls of one step."""
+    n_params = _hier_grad_fp32(torch)
+    print(f"hier: train_vqvae2.yaml has {n_params:,} parameters", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        train_launches, k1_calls, ckpt = _hier_train(torch, root)
+        infer_launches = _hier_serve(torch, ckpt)
+        _hier_small(torch, root)
+    return train_launches, infer_launches, k1_calls
+
+
 def main():
     import torch
 
@@ -1682,6 +2366,8 @@ def main():
     train_launches = phase_train(torch)
     phase_tts_golden(torch)
     tts_launches = phase_tts(torch)
+    phase_hier_golden(torch)
+    hier_train, hier_infer, hier_k1 = phase_hier(torch)
 
     vq_main = vq[0]
     # K2 and K3 in the layout the model hands them (channels-first x)
@@ -1705,6 +2391,19 @@ def main():
     gn_keys = ("B", "T", "C", "dtype", "layout", "plan", "ms", "ms_l2_cold",
                "plain_ms", "bound_ms", "bound_by", "library_ms",
                "max_abs_err")
+    # the hierarchy's cases (HIER): K1 on unit-norm rows, the strided
+    # levels' short GroupNorm rows
+    vq_hier = [{k: c[k] for k in (
+        "N", "mode", "ms", "ms_l2_cold", "plain_ms", "bound_ms", "bound_by",
+        "fma_bound_ms", "sgemm_argmin_ms", "rescored_rows",
+        "rescored_all_codes", "near_ties", "ids_differ", "max_abs_err")}
+        for c in vq if c["kind"] == "unit"]
+
+    def short_rows(cases):
+        return [dict({k: c[k] for k in gn_keys}, G=c["G"], glu=c["glu"],
+                     masked=c["masked"])
+                for c in cases if c["T"] <= 128 and c["B"] in (8, 96)
+                and c["layout"] == "channels-first" and c["C"] >= 512]
     # the synthesizer's shapes in fp32, the recipe's type: a training batch's
     # decoder (32, 4, 768, 96) and encoder (32, 4, 192, 96) attention with
     # ragged lengths, and one decoded utterance's decoder (1, 4, 768, 96)
@@ -1745,7 +2444,11 @@ def main():
          "near_ties": [{k: c[k] for k in (
              "N", "K", "D", "kind", "mode", "rescored_rows",
              "rescored_all_codes", "ids_differ",
-             "max_loss_vs_fp64")} for c in vq if c["kind"] != "random"]},
+             "max_loss_vs_fp64")} for c in vq if c["kind"] not in (
+                 "random", "unit")],
+         "launches_hier_train": hier_train["vq_fused"],
+         "launches_hier_infer": hier_infer["vq_fused"],
+         "hier_shapes": vq_hier, "hier_calls_of_one_step": hier_k1},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",
@@ -1757,7 +2460,10 @@ def main():
          "launches_train": train_launches["fused_group_norm"],
          "train_shape": {k: gn_train[k] for k in gn_keys},
          "encoder_shape": {k: gn_enc[k] for k in gn_keys},
-         "long_row": {k: gn_long[k] for k in gn_keys}},
+         "long_row": {k: gn_long[k] for k in gn_keys},
+         "launches_hier_train": hier_train["fused_group_norm"],
+         "launches_hier_infer": hier_infer["fused_group_norm"],
+         "hier_shapes": short_rows(gn)},
         {"name": "fused_group_norm_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",
@@ -1769,7 +2475,9 @@ def main():
          "bound_by": gnb_train["bound_by"], "library_ms": None,
          "encoder_shape": {k: gnb_enc[k] for k in gn_keys},
          "encoder_shape_fp32": {k: gnb_enc32[k] for k in gn_keys},
-         "long_row": {k: gnb_long[k] for k in gn_keys}},
+         "long_row": {k: gnb_long[k] for k in gn_keys},
+         "launches_hier_train": hier_train["fused_group_norm_backward"],
+         "hier_shapes": short_rows(gnb)},
         {"name": "fused_attention", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/attention.cu",
          "replaces": "vae_npvc_tpu/ops/attention_pallas.py:121",

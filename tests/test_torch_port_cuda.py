@@ -450,6 +450,59 @@ def test_groupnorm_kernels_read_layouts_in_place(dev, dtype, B, T, C, G, glu,
     _check_gn_both(x, scale, bias, g, G, glu, n, dtype)
 
 
+# the vae2 recipe's hierarchy (egs/vcc20/vae2/conf/train_vqvae2.yaml): its
+# strided levels give rows of 128, 64, 16 and 4 frames, channels-first as
+# the strided convs hand them over; at T = 16 and 4 most ranks of a
+# cluster hold no frame, and in serving a row may have one valid frame
+HIER_GN_CASES = [
+    # B, T, C, G, glu, lengths
+    (96, 128, 512, 1, False, None),
+    (96, 64, 512, 1, False, None),
+    (96, 16, 512, 1, False, None),
+    (96, 4, 512, 1, False, None),
+    (96, 64, 1024, 2, True, None),
+    (8, 16, 512, 1, False, "spread"),
+    (8, 4, 512, 1, False, "spread"),
+    (8, 4, 1024, 2, True, [4, 1, 2, 1, 3, 4, 1, 2]),
+    (1, 4, 512, 1, False, [1]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,G,glu,lengths", HIER_GN_CASES)
+def test_groupnorm_kernels_short_hierarchy_rows(dev, dtype, B, T, C, G, glu,
+                                                lengths):
+    x, scale, bias, g = _gn_layout_inputs(dev, dtype, B, T, C, glu,
+                                          B + T + C, True, True)
+    if lengths == "spread":
+        lengths = np.linspace(T, 1, B).round().astype(np.int32).tolist()
+    n = (torch.tensor(lengths, dtype=torch.int32, device=dev)
+         if lengths else None)
+    assert plan(x, glu) > 0 and plan(x, glu, backward=True) > 0
+    _check_gn_both(x, scale, bias, g, G, glu, n, dtype)
+
+
+@pytest.mark.parametrize("N", [96 * 64, 96 * 256, 8 * 64, 8 * 256])
+def test_vq_kernel_ids_on_unit_norm_rows_and_codes(dev, N):
+    """The normalized plain codebooks' search (ids mode): unit-norm rows
+    and codes, where every distance is 2 - 2 z.e; the hierarchy's training
+    rows (96 x 64, 96 x 256) and serving rows (8 x 64, 8 x 256)."""
+    rng = np.random.default_rng(N)
+    z = rng.normal(size=(N, 128))
+    emb = rng.normal(size=(512, 128))
+    z = torch.tensor(z / np.linalg.norm(z, axis=1, keepdims=True),
+                     dtype=torch.float32, device=dev)
+    emb = torch.tensor(emb / np.linalg.norm(emb, axis=1, keepdims=True),
+                       dtype=torch.float32, device=dev)
+    _vq_check(dev, z, emb, False)
+    from vae_npvc_tpu_torch.ops.vq_fused import nearest_code
+
+    n0 = vq_fused.launches
+    assert torch.equal(nearest_code(z, emb), vq_fused(z, emb,
+                                                      stats=False).idx)
+    assert vq_fused.launches == n0 + 2
+
+
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("side", ["below", "above"])
 def test_groupnorm_cluster_path_boundary(dev, backward, side):

@@ -193,15 +193,50 @@ def test_registry_and_unported_families():
     from vae_npvc_tpu_torch.models.token_tts import Model as TtsModel
 
     assert get_model_cls("vae_npvc.model.token_tts") is TtsModel
-    for name in ("vae_npvc.model.vqvae2", "vqvae2b", "vae_npvc.model.vae"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model_cls(name)
+    from vae_npvc_tpu_torch.models import vqvae2, vqvae2b
+
+    assert get_model_cls("vae_npvc.model.vqvae2") is vqvae2.Model
+    assert get_model_cls("vqvae2b") is vqvae2b.Model
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model_cls("vae_npvc.model.vae")
     with pytest.raises(KeyError):
         get_model_cls("nope")
+    # a strided flat model (x2 down in the encoder, x2 up in the decoder)
+    # builds and matches JAX on a padded batch
     cfg = _tiny_config()
     cfg["encoder"] = dict(cfg["encoder"], downsample_scales=[2])
-    with pytest.raises(NotImplementedError, match="strided"):
-        build_model(cfg, device="cpu")
+    cfg["decoder"] = dict(cfg["decoder"], upsample_scales=[2])
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, 40, 12)).astype(np.float32)
+    lengths = np.array([40, 23, 4], np.int32)
+    x[np.arange(40)[None, :] >= lengths[:, None]] = 0.0
+    y = np.array([1, 7, 2], np.int32)
+    jm = jax_build_model(cfg)
+    v = jm.init({"params": jax.random.PRNGKey(0),
+                 "vq": jax.random.PRNGKey(1)}, jnp.asarray(x),
+                jnp.asarray(y), train=True)
+    emb = rng.normal(0.0, 0.3, size=(32, 16)).astype(np.float32)
+    q = {"initted": np.array(True), "emb": emb, "emb_sum": emb.copy(),
+         "emb_elem": np.ones(32, np.float32)}
+    params = _np_params(v)
+    jvars = {"params": params, "ema": {"quantizer": EmaVqState(**q)}}
+    pm = build_model(cfg, device="cpu")
+    pm.load_state_dict(from_jax_variables(
+        {"params": params, "ema": {"quantizer": q}}), strict=True)
+    ids = jm.apply(jvars, jnp.asarray(x), jnp.asarray(lengths),
+                   method=jm.encode)
+    mel = jm.apply(jvars, jnp.asarray(x), jnp.asarray(y),
+                   jnp.asarray(lengths), method=jm.infer)
+    with torch.no_grad():
+        pids = pm.encode(torch.from_numpy(x), torch.from_numpy(lengths))
+        pmel = pm.infer(torch.from_numpy(x), torch.from_numpy(y),
+                        torch.from_numpy(lengths))
+    assert pids.shape == (3, 20) and pmel.shape == (3, 40, 12)
+    zl = np.array([20, 11, 2])
+    for b in range(3):
+        np.testing.assert_array_equal(pids[b, :zl[b]].numpy(),
+                                      np.asarray(ids)[b, :zl[b]])
+    np.testing.assert_allclose(pmel.numpy(), np.asarray(mel), atol=1e-4)
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_cpu():

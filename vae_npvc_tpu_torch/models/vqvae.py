@@ -1,9 +1,10 @@
 """Flat speaker-conditioned VQ-VAE: training forward and inference.
 
 Counterpart of ``vae_npvc_tpu/models/vqvae.py`` (``Encoder``, ``Decoder``,
-``Model``), same config keys, same channels-last layout, same casts.
-Stride-1 encoders and decoders only: the strided (hierarchical) layers
-raise until that slice is ported.
+``Model``), same config keys, same channels-last layout, same casts. The
+encoder's downsampling convs (kernel 2s, stride s, padding s//2 + s%2) and
+the decoder's transposed upsampling convs are the hierarchical families'
+resampling layers (models/vqvae2*.py).
 """
 
 from __future__ import annotations
@@ -13,19 +14,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.blocks import (Conditions, ConvResStack, GLUResSkip, WNConv1d,
-                         init_parameters, length_mask)
+                         WNConvTranspose1d, init_parameters, length_mask)
 from ..ops import vq as vq_ops
 from ..ops.jitter import jitter as jitter_op
 from ..ops.losses import log_loss
 
-_STRIDED = ("strided conv layers are not ported yet (ROADMAP Queue A, "
-            "hierarchical family)")
-
-
 class Encoder(nn.Module):
-    """Conv encoder: per scale [conv -> res-stack x n -> LReLU], final 1x1."""
+    """Conv encoder: per scale [conv -> res-stack x n -> LReLU], final 1x1.
 
-    def __init__(self, arch, dtype=torch.float32):
+    A scale ``s != 1`` downsamples with a kernel-2s, stride-s conv padded
+    by s//2 + s%2. ``return_hidden`` also returns the pre-projection
+    features, which the next level of a hierarchy reads.
+    """
+
+    def __init__(self, arch, dtype=torch.float32, return_hidden=False):
         super().__init__()
         a = dict(arch)
         in_channels = a.get("in_channels", [513, 1024, 512, 256])
@@ -37,13 +39,20 @@ class Encoder(nn.Module):
         stack_layers = a.get("stack_layers", 2)
         stacks = a.get("stacks", [3] * len(in_channels))
         use_wn = a.get("use_weight_norm", True)
-        if any(ds != 1 for ds in scales):
-            raise NotImplementedError(_STRIDED)
         self.stacks = list(stacks)
+        self.scales = list(scales)
+        self.return_hidden = return_hidden
         ch = in_channels[0]
-        for i, (out_ch, n_stack) in enumerate(zip(out_channels, stacks)):
-            setattr(self, f"conv_{i}", WNConv1d(
-                ch, out_ch, kernel_size, use_weight_norm=use_wn, dtype=dtype))
+        for i, (out_ch, ds, n_stack) in enumerate(zip(out_channels, scales,
+                                                      stacks)):
+            if ds == 1:
+                conv = WNConv1d(ch, out_ch, kernel_size,
+                                use_weight_norm=use_wn, dtype=dtype)
+            else:
+                p = ds // 2 + ds % 2
+                conv = WNConv1d(ch, out_ch, 2 * ds, stride=ds, padding=(p, p),
+                                use_weight_norm=use_wn, dtype=dtype)
+            setattr(self, f"conv_{i}", conv)
             for j in range(n_stack):
                 setattr(self, f"stack_{i}_{j}", ConvResStack(
                     out_ch, stack_kernel, stack_layers,
@@ -79,27 +88,49 @@ class Encoder(nn.Module):
         return t
 
     def forward(self, x, lengths=None):
+        """(B, T, C) -> (B, T', z) (and the (B, T', C') hidden features
+        with ``return_hidden``); ``lengths`` follow the downsampling, each
+        step clamped to at least one frame."""
         h = x
         mask = None
         if lengths is not None:
             mask = length_mask(lengths, h.shape[1])
             h = h * mask.to(h.dtype)
-        for i, n_stack in enumerate(self.stacks):
+        for i, (ds, n_stack) in enumerate(zip(self.scales, self.stacks)):
+            p = ds // 2 + ds % 2
+            if ds != 1 and (h.shape[1] + 2 * p - 2 * ds) // ds + 1 <= 0:
+                # checked before the conv, which refuses an input shorter
+                # than its kernel
+                raise ValueError(
+                    f"input too short for this encoder's x{ds} "
+                    f"downsampling (0 frames after conv_{i}); pad the "
+                    "input to >= Encoder.min_input_frames(...) frames — "
+                    "the bucketed conversion path does this "
+                    "automatically. (torch would crash here too: Conv1d "
+                    "input smaller than its kernel)")
             h = getattr(self, f"conv_{i}")(h)
+            if ds != 1 and lengths is not None:
+                lengths = ((lengths + 2 * p - 2 * ds) // ds + 1).clamp(min=1)
+                mask = length_mask(lengths, h.shape[1])
             if mask is not None:
                 h = h * mask.to(h.dtype)
             for j in range(n_stack):
                 h = getattr(self, f"stack_{i}_{j}")(h, lengths)
             h = F.leaky_relu(h, 0.2)
+        hidden = h
         h = self.proj(h)
         if mask is not None:
             h = h * mask.to(h.dtype)
+        if self.return_hidden:
+            return h, hidden
         return h
 
 
 class Decoder(nn.Module):
     """Decoder with speaker-conditioned GLU res-skip stacks; the skips are
-    summed, scaled by sqrt(1/total_layers), then ReLU/1x1/ReLU/1x1."""
+    summed, scaled by sqrt(1/total_layers), then ReLU/1x1/ReLU/1x1. A scale
+    ``us != 1`` upsamples x``us`` with a transposed conv (``lengths`` too).
+    """
 
     def __init__(self, arch, dtype=torch.float32):
         super().__init__()
@@ -114,15 +145,21 @@ class Decoder(nn.Module):
         stack_kernel = a.get("stack_kernel_size", 3)
         stacks = a.get("stacks", [3] * len(in_channels))
         use_wn = a.get("use_weight_norm", True)
-        if any(us != 1 for us in scales):
-            raise NotImplementedError(_STRIDED)
         self.stacks = list(stacks)
+        self.scales = list(scales)
         self.total_layers = len(in_channels) + sum(stacks)
         ch = in_channels[0]
-        for i, (out_ch, n_stack) in enumerate(zip(out_channels, stacks)):
-            setattr(self, f"up_{i}", WNConv1d(
-                ch, out_ch, kernel_size, use_weight_norm=use_wn, wn_dim="in",
-                dtype=dtype))
+        for i, (out_ch, us, n_stack) in enumerate(zip(out_channels, scales,
+                                                      stacks)):
+            if us == 1:
+                # the reference's stride-1 ConvTranspose1d: a forward conv
+                # with the input-side weight-norm scale
+                up = WNConv1d(ch, out_ch, kernel_size, use_weight_norm=use_wn,
+                              wn_dim="in", dtype=dtype)
+            else:
+                up = WNConvTranspose1d(ch, out_ch, us, use_weight_norm=use_wn,
+                                       dtype=dtype)
+            setattr(self, f"up_{i}", up)
             for j in range(n_stack):
                 setattr(self, f"stack_{i}_{j}", GLUResSkip(
                     out_ch, cond, skip, stack_kernel,
@@ -149,8 +186,11 @@ class Decoder(nn.Module):
             mask = length_mask(lengths, h.shape[1])
             h = h * mask.to(h.dtype)
         skip_sum = None
-        for i, n_stack in enumerate(self.stacks):
+        for i, (us, n_stack) in enumerate(zip(self.scales, self.stacks)):
             h = getattr(self, f"up_{i}")(h)
+            if us != 1 and lengths is not None:
+                lengths = lengths * us
+                mask = length_mask(lengths, h.shape[1])
             if mask is not None:
                 h = h * mask.to(h.dtype)
             for j in range(n_stack):

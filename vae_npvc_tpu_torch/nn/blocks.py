@@ -12,7 +12,8 @@ conv in the compute dtype, ``(y + b)`` in fp32 then cast to the compute
 dtype; GroupNorm statistics in fp32 with the output cast before the mask
 and the GLU. The stride-1 "ConvTranspose" layers of the reference are
 forward convs with the input-side weight-norm scale (``wn_dim="in"``),
-as in the JAX package.
+as in the JAX package; the strided upsampling layer is a real transposed
+conv (``WNConvTranspose1d``).
 """
 
 from __future__ import annotations
@@ -133,11 +134,60 @@ class WNConv1d(nn.Module):
         xc = x.to(self.dtype).transpose(1, 2)               # (B, C, T)
         if self.padding == "SAME_TORCH":
             pad = (self.kernel_size - 1) // 2 * self.dilation
+        elif self.padding[0] == self.padding[1]:
+            pad = self.padding[0]       # symmetric: the conv pads, no copy
         else:
             xc = F.pad(xc, tuple(self.padding))
             pad = 0
         y = F.conv1d(xc, w, stride=self.stride, padding=pad,
                      dilation=self.dilation).transpose(1, 2)
+        if scale is not None:
+            y = y * scale.to(y.dtype)
+        return (y + self.b).to(self.dtype)
+
+
+class WNConvTranspose1d(nn.Module):
+    """Weight-normalized strided transposed conv: x``scale`` upsampling,
+    (B, T, C) -> (B, T * scale, C').
+
+    The reference's resampling layer: kernel 2s, stride s, padding
+    s//2 + s%2, output padding s%2, so the output has exactly T*s frames.
+    ``v`` (2s, in, out) as the JAX package stores it; the JAX module flips
+    it and convolves the s-dilated input, which is what
+    ``F.conv_transpose1d`` computes from the unflipped (in, out, K) weight.
+    ``g`` is per input channel by default (torch's ``ConvTranspose1d``
+    weight-norm axis), applied as an input channel scale.
+    """
+
+    def __init__(self, in_channels, features, scale, use_weight_norm=True,
+                 wn_dim="in", dtype=torch.float32):
+        super().__init__()
+        if wn_dim not in ("out", "in"):
+            raise ValueError(f"wn_dim must be 'out' or 'in', got {wn_dim!r}")
+        self.scale, self.wn_dim, self.dtype = scale, wn_dim, dtype
+        self.v = nn.Parameter(torch.empty(2 * scale, in_channels, features))
+        if use_weight_norm:
+            self.g = nn.Parameter(torch.empty(
+                in_channels if wn_dim == "in" else features))
+        else:
+            self.register_parameter("g", None)
+        self.b = nn.Parameter(torch.empty(features))
+
+    init_ = WNConv1d.init_
+    _norm = WNConv1d._norm
+
+    def forward(self, x):
+        s = self.scale
+        scale = None
+        if self.g is not None:
+            scale = self.g / self._norm(self.v)
+            if self.wn_dim == "in":
+                x = x * scale.to(x.dtype)
+                scale = None
+        w = self.v.to(self.dtype).permute(1, 2, 0)          # (in, out, K)
+        y = F.conv_transpose1d(x.to(self.dtype).transpose(1, 2), w, stride=s,
+                               padding=s // 2 + s % 2,
+                               output_padding=s % 2).transpose(1, 2)
         if scale is not None:
             y = y * scale.to(y.dtype)
         return (y + self.b).to(self.dtype)

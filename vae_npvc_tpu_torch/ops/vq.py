@@ -6,7 +6,9 @@ is channels-last (B, T, D). The EMA codebook is explicit state
 writes no buffer itself, so a trainer can keep the old state when it skips
 a step. ``ema_vq_encode`` and :func:`ema_vq_forward` go through the fused
 VQ wrapper (ids-only mode, and ids + gathered codes + cluster statistics
-in training), so a CUDA tensor runs the kernel of ``csrc/vq.cu``.
+in training), and the plain codebooks' :func:`vq_encode` and
+:func:`vq_forward` through its ids mode (``nearest_code``), so a CUDA
+tensor runs the kernel of ``csrc/vq.cu``.
 
 Random draws (lazy init, dead-code restarts) come from a
 ``torch.Generator`` on the tensors' device; they are not JAX's draws.

@@ -11,6 +11,8 @@ the lowest index, ``z_q = emb[idx]``, and per-code ``batch_sum (K, D)`` /
 - :func:`vq_fused` is the wrapper: a CPU tensor takes the plain version; a
   CUDA tensor launches the kernel of ``csrc/vq.cu`` or raises.
   ``vq_fused.launches`` counts wrapper calls that launched it.
+- :func:`nearest_code` is the ids mode behind the same rule: the plain
+  (gradient) codebooks' search in ``ops/vq.py`` goes through it.
 
 ``stats=False`` is the ids-only mode of inference (no z_q, no statistics);
 its fields come back as ``None``. On the H100 the kernel takes the
@@ -37,15 +39,24 @@ class VqOut(NamedTuple):
     batch_elem: Optional[torch.Tensor]     # (K,) fp32
 
 
-def nearest_code(z_flat, emb):
+def nearest_code_plain(z_flat, emb):
     """(N, D), (K, D) fp32 -> (N,) int32 nearest-code ids (first on ties)."""
     dots = z_flat @ emb.T
     dist = (emb * emb).sum(dim=1)[None, :] - 2.0 * dots
     return torch.argmin(dist, dim=1).to(torch.int32)
 
 
+def nearest_code(z_flat, emb):
+    """Nearest-code ids (the JAX package's ``ops/vq.py`` ``nearest_code``):
+    :func:`nearest_code_plain` for a CPU tensor, the kernel's ids mode (one
+    launch) for a CUDA tensor."""
+    if not z_flat.is_cuda:
+        return nearest_code_plain(z_flat, emb)
+    return vq_fused(z_flat, emb, stats=False).idx
+
+
 def vq_fused_plain(z_flat, emb, *, stats=True):
-    idx = nearest_code(z_flat, emb)
+    idx = nearest_code_plain(z_flat, emb)
     if not stats:
         return VqOut(idx, None, None, None)
     K = emb.shape[0]

@@ -6,25 +6,28 @@ Counterpart of the core of ``vae_npvc_tpu/train/trainer.py`` (``Trainer``:
 ``save_checkpoint`` / ``load_checkpoint`` in the JAX checkpoint format).
 Meshes, model-axis sharding and multi-host assembly belong to the parallel
 slice. It drives any registered model: the flat VQ-VAE with its EMA
-codebook and ``(feats, spks)`` batches, and models without EMA state such
-as the token->mel synthesizer with its six-entry batches (``tokens,
+codebook and ``(feats, spks)`` batches, the hierarchical VQ-VAEs with one
+EMA codebook per level (or plain codebooks), and models without EMA state
+such as the token->mel synthesizer with its six-entry batches (``tokens,
 durations, mels, spks, tok_lens, mel_lens``); a batch is a tuple the model's
-``forward`` takes entry by entry.
+``forward`` takes entry by entry. The EMA codebooks are the model's
+``EmaQuantizer`` children, kept by name (``quantizer``, ``quantizer_{i}``).
 
-One step, in the JAX trainer's order: renorm (plain VQ only) -> forward and
-gradient -> clip -> optimizer -> guard. Every parameter lives in one flat
+One step, in the JAX trainer's order: renorm (normalized plain VQ only) ->
+forward and gradient -> clip -> optimizer -> guard -> EMA commit. Every parameter lives in one flat
 fp32 vector (``self.flat``; the model's parameters are views into it), and
 so do Adam's moments, so the optimizer and the guard are a few kernels over
 flat tensors, and the checkpoint's trees are slices of them. The guard
 (``skip_nonfinite_updates``, default on) keeps the old parameters,
-optimizer state and EMA codebook with tensor selects when the squared
+optimizer state and every EMA codebook with tensor selects when the squared
 gradient norm is not finite; nothing in a step reads a tensor on the host,
 and ``detail`` values stay device tensors until the caller logs them.
 
 Random draws (lazy codebook init, dead-code restarts, jitter) come from a
 ``torch.Generator`` on the trainer's device, reseeded from ``(seed, step)``
-at every step, so a resumed run draws what an uninterrupted one would.
-They are not the JAX package's draws.
+at every step, so a resumed run draws what an uninterrupted one would; each
+EMA level of a hierarchy draws from its own generator, reseeded from
+``(seed, step, level)``. They are not the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import torch
 
 from ..infer.convert import WN_AXIS_FORMAT, read_checkpoint
 from ..models import build_model, codebook_renorm_fn
+from ..models.hier_common import HierVQMixin
+from ..models.vqvae import EmaQuantizer
 from ..ops.vq import ema_vq_init
 from ..utils import msgpack_io
 from ..utils.bridge import (from_jax_variables, optimizer_from_jax,
@@ -56,11 +61,19 @@ class Trainer:
         self.config = config
         self.model = build_model(config, device)
         self.device = next(self.model.parameters()).device
-        # models without an EMA collection carry use_ema = False
-        self.has_ema = bool(getattr(self.model, "use_ema", False))
+        # the EMA codebooks by name (the JAX ``ema`` collection's roots)
+        self.ema = {n: m for n, m in self.model.named_children()
+                    if isinstance(m, EmaQuantizer)}
+        self.has_ema = bool(self.ema)
+        # a hierarchy takes its EMA states as a dict by name, and draws
+        # each level's lazy init and restarts from that level's generator
+        self._hier = isinstance(self.model, HierVQMixin)
         self.tx = build_optimizer(config)
         self.seed = int(config.get("seed", 777) if seed is None else seed)
         self.gen = torch.Generator(device=self.device)
+        self.level_gens = ({i: torch.Generator(device=self.device)
+                            for i in range(self.model.levels)}
+                           if self._hier and self.has_ema else None)
         self._renorm = codebook_renorm_fn(config)
         self.skip_nonfinite = config.get("skip_nonfinite_updates", True)
         self.grad_accum = int(config.get("grad_accum", 1))
@@ -91,8 +104,7 @@ class Trainer:
         state at step 0. ``example_batch`` is accepted for the JAX
         trainer's signature; the port's shapes come from the config."""
         self.model.init_random(self.seed)
-        if self.has_ema:
-            q = self.model.quantizer
+        for q in self.ema.values():
             q.set_state(ema_vq_init(*q.emb.shape, device=self.device))
         self._flatten_parameters()
         self.opt_state = self.tx.init(self.flat)
@@ -107,20 +119,34 @@ class Trainer:
         return tuple(torch.as_tensor(a, device=self.device) for a in batch)
 
     def _begin_step(self):
-        self.gen.manual_seed((self.seed * 1_000_003 + self._host_iter)
-                             % (1 << 63))
+        step_seed = self.seed * 1_000_003 + self._host_iter
+        self.gen.manual_seed(step_seed % (1 << 63))
+        if self.level_gens is not None:
+            for i, g in self.level_gens.items():
+                g.manual_seed((step_seed * 1_000_033 + i + 1) % (1 << 63))
         if self._renorm is not None:
             self._renorm(self.model)
 
-    def _loss_and_grad(self, batch, ema_state=None):
-        """Flat gradient, the pending EMA state and the detail of one
-        (micro)batch."""
-        kwargs = {"ema_state": ema_state} if self.has_ema else {}
+    def _ema_states(self):
+        """The committed EMA states, by name."""
+        return {n: q.state() for n, q in self.ema.items()}
+
+    def _loss_and_grad(self, batch, ema=None):
+        """Flat gradient, the pending EMA states (by name) and the detail
+        of one (micro)batch; ``ema`` chains microbatches."""
+        kwargs = {}
+        if self._hier:
+            kwargs = {"ema_state": ema, "level_gens": self.level_gens}
+        elif self.has_ema:
+            kwargs = {"ema_state": None if ema is None else ema["quantizer"]}
         _, loss, detail = self.model(*batch, True, gen=self.gen, **kwargs)
         grads = torch.autograd.grad(loss, self.params)
         flat_g = torch.cat([g.float().reshape(-1) for g in grads])
         detail = {k: v.detach() for k, v in detail.items()}
-        return flat_g, self.model.pending_ema, detail
+        pending = self.model.pending_ema if self.has_ema else None
+        if pending is not None and not self._hier:
+            pending = {"quantizer": pending}
+        return flat_g, pending, detail
 
     def _train_step(self, batch):
         self._begin_step()
@@ -138,7 +164,7 @@ class Trainer:
                 f"grad_accum={k} requires the batch size to be divisible; "
                 f"got {B}")
         self._begin_step()
-        ema = self.model.quantizer.state() if self.has_ema else None
+        ema = self._ema_states() if self.has_ema else None
         gsum, details = None, []
         for i in range(k):
             mb = tuple(a[i * (B // k):(i + 1) * (B // k)] for a in batch)
@@ -151,7 +177,7 @@ class Trainer:
 
     def _finish_step(self, flat_g, new_ema, detail):
         """Optimizer update and non-finite guard; commits the parameters,
-        the optimizer state and the EMA codebook."""
+        the optimizer state and the EMA codebooks."""
         update, opt_state = self.tx.update(flat_g, self.opt_state)
         new_flat = self.flat + update
         grad_sq = torch.sum(flat_g * flat_g)
@@ -160,13 +186,14 @@ class Trainer:
             new_flat = torch.where(ok, new_flat, self.flat)
             opt_state = _select(ok, opt_state, self.opt_state)
             if new_ema is not None:
-                new_ema = _select(ok, new_ema, self.model.quantizer.state())
+                new_ema = {n: _select(ok, s, self.ema[n].state())
+                           for n, s in new_ema.items()}
             detail["skipped_nonfinite"] = 1.0 - ok.float()
         with torch.no_grad():
             self.flat.copy_(new_flat)
         self.opt_state = opt_state
-        if new_ema is not None:
-            self.model.quantizer.set_state(new_ema)
+        for n, s in (new_ema or {}).items():
+            self.ema[n].set_state(s)
         self._host_iter += 1
         detail["grad_norm"] = torch.sqrt(grad_sq)
         return detail

@@ -13,8 +13,12 @@ Embed ``embedding`` (``tok_embed``, ``spk_embed``); its checkpoints carry an
 empty ``ema`` collection. The
 port's modules use the flax names, so a ``state_dict`` key is the flax path
 joined with dots (``encoder.stack_0_0.conv_0.v``) and the bridge only
-flattens and converts. The ``ema`` collection's roots (``quantizer``) sit
-beside the parameters.
+flattens and converts. The ``ema`` collection's roots (the EMA codebooks:
+``quantizer``, or ``quantizer_{i}`` per level of a hierarchy) sit beside the
+parameters. A hierarchy's modules carry their flax names too
+(``encoder_{i}``, ``decoder_{i}``, ``final_decoder``, ``gst``, ``embeds``
+or ``embeds_{i}``/``embed``, ``quantizer_embedding[_{i}]``); a GST top
+level has no codebook.
 
 The trainer's optimizer state crosses the same way. The port keeps every
 parameter, and Adam's two moments, in one flat vector in
@@ -28,12 +32,19 @@ between the two.
 
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
-EMA_ROOTS = ("quantizer",)
+# roots of the ``ema`` collection: the flat model's (and vqvae2a's shared)
+# ``quantizer``, a hierarchy's per-level ``quantizer_{i}``
+EMA_ROOTS = re.compile(r"quantizer(_\d+)?")
+
+
+def is_ema_root(name):
+    return EMA_ROOTS.fullmatch(name) is not None
 
 
 def _flatten(tree, prefix, out):
@@ -54,7 +65,7 @@ def from_jax_variables(variables) -> "OrderedDict[str, torch.Tensor]":
     ema = OrderedDict()
     _flatten(variables.get("ema", {}), "", ema)
     for k in ema:
-        if k in flat or k.split(".")[0] not in EMA_ROOTS:
+        if k in flat or not is_ema_root(k.split(".")[0]):
             raise ValueError(f"unexpected ema variable {k!r}")
     flat.update(ema)
     return OrderedDict(
@@ -67,7 +78,7 @@ def to_jax_variables(state_dict):
     out = {"params": {}, "ema": {}}
     for key, t in state_dict.items():
         parts = key.split(".")
-        node = out["ema" if parts[0] in EMA_ROOTS else "params"]
+        node = out["ema" if is_ema_root(parts[0]) else "params"]
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = t.detach().cpu().numpy()
