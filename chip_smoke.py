@@ -31,7 +31,13 @@ optimizer steps at B = 96, T = 256 on a synthetic corpus staged on the
 device with the launch counts per step (``hier_train``), a
 ``ConversionEngine`` on the trained checkpoint answering eight requests
 (``hier_serve``), and vqvae2a / vqvae2b at test width against the CPU
-(``hier_small``). Each phase prints one JSON line; any
+(``hier_small``). Then the recipes' offline path (``offline``): on a
+synthetic corpus of 18 utterances of 1-10 s, ``make_fbank``, CMVN and
+speaker ids, ``bin/decode`` over trials with the flagship flat model and
+its ``--all-targets`` sweep with the trained hierarchy, de-normalization
+and Griffin-Lim, with the port's decode and sweep held against the
+committed JAX decode fixture and padded batches against unpadded runs in
+fp32. Each phase prints one JSON line; any
 failure exits non-zero. The last lines are the kernel summary, the card's
 name and power limit as ``nvidia-smi`` gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -913,6 +919,22 @@ def phase_kernels(torch):
                          rng, cf=True))
     gnb.append(_gnb_case(torch, 8, 4, 1024, 2, True, [4, 1, 2, 1, 3, 4, 1, 2],
                          torch.float32, rng, cf=True))
+    # the offline decode's long buckets (the offline phase's corpus,
+    # channels-first): the 1,024-frame bucket's decoder rows (B = 4 of
+    # 769-938 frames) and the 768-frame bucket's encoder rows (B = 5 of
+    # 544-713), in bf16 (the flagship decode) and fp32 (its fp32 checks),
+    # and the flat sweep's B = 1 encode of the longest utterance; the
+    # throughput decode's full batch of 8 at 1,024 frames in bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        gn.append(_gn_case(torch, 4, 1024, 1024, 2, True,
+                           [938, 882, 825, 769], dtype, rng, cf=True))
+        gn.append(_gn_case(torch, 5, 768, 512, 1, False,
+                           [713, 703, 656, 600, 544], dtype, rng, cf=True))
+        gn.append(_gn_case(torch, 1, 1024, 512, 1, False, [938], dtype, rng,
+                           cf=True))
+    gn.append(_gn_case(torch, 8, 1024, 1024, 2, True,
+                       [938, 882, 825, 769] * 2, torch.bfloat16, rng,
+                       cf=True))
     # the synthesizer's shapes: encoder and decoder of a training batch
     # (B = 32, ragged lengths), one decoded utterance, and odd sizes
     attn = []
@@ -2043,29 +2065,33 @@ def _hier_grad_fp32(torch):
     return n_params
 
 
+def _k1_call(torch, z, emb, idx, rescored):
+    """One K1 call's record: rows re-scored in exact fp32 (and over every
+    code), near ties (top-2 fp64 distances within 1e-5 relative) and ids
+    that differ from the plain version off them."""
+    from vae_npvc_tpu_torch.ops.vq_fused import nearest_code_plain
+
+    ref = nearest_code_plain(z, emb)
+    e64 = emb.double()
+    d64 = (e64 ** 2).sum(1)[None] - 2 * z.double() @ e64.T
+    top2 = torch.topk(d64, 2, dim=1, largest=False).values
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-5 * top2[:, 0].abs().clamp(min=1)
+    return {"N": int(z.shape[0]), "rescored_rows": rescored[0],
+            "rescored_all_codes": rescored[1],
+            "near_ties": int((~clear).sum()),
+            "ids_differ_clear": int(((idx != ref) & clear).sum()),
+            "ids_differ_near_tie": int(((idx != ref) & ~clear).sum())}
+
+
 def _record_k1_calls(torch, calls):
-    """A stand-in for ``ops.vq.nearest_code`` that records each K1 call:
-    rows re-scored in exact fp32 (and over every code), near ties (top-2
-    fp64 distances within 1e-5 relative) and ids that differ from the
-    plain version off them."""
-    from vae_npvc_tpu_torch.ops.vq_fused import (nearest_code,
-                                                 nearest_code_plain, vq_fused)
+    """A stand-in for ``ops.vq.nearest_code`` that records each K1 call
+    (:func:`_k1_call`) in ``calls``."""
+    from vae_npvc_tpu_torch.ops.vq_fused import nearest_code, vq_fused
 
     def recording(z, emb):
         idx = nearest_code(z, emb)
-        rescored, all_codes = vq_fused.rescored.sum(1).tolist()
-        ref = nearest_code_plain(z, emb)
-        e64 = emb.double()
-        d64 = (e64 ** 2).sum(1)[None] - 2 * z.double() @ e64.T
-        top2 = torch.topk(d64, 2, dim=1, largest=False).values
-        clear = (top2[:, 1] - top2[:, 0]) > 1e-5 * top2[:, 0].abs() \
-            .clamp(min=1)
-        calls.append({"N": int(z.shape[0]), "rescored_rows": rescored,
-                      "rescored_all_codes": all_codes,
-                      "near_ties": int((~clear).sum()),
-                      "ids_differ_clear": int(((idx != ref) & clear).sum()),
-                      "ids_differ_near_tie": int(((idx != ref)
-                                                  & ~clear).sum())})
+        calls.append(_k1_call(torch, z, emb, idx,
+                              vq_fused.rescored.sum(1).tolist()))
         return idx
 
     return recording
@@ -2329,20 +2355,526 @@ def _hier_small(torch, root):
     emit({"phase": "hier_small", "cases": out})
 
 
-def phase_hier(torch):
+def phase_hier(torch, root):
     """The vae2 recipe's hierarchical VQ-VAE (``HIER``) at full width with
     seeded random weights: gradients in fp32 against the CPU, bf16
     training, serving from the trained checkpoint; then vqvae2a and
     vqvae2b at test width against the CPU. Returns the launch counts of the
-    training run and of one ``infer``, and the K1 calls of one step."""
+    training run and of one ``infer``, the K1 calls of one step and the
+    trained checkpoint (in ``root``)."""
     n_params = _hier_grad_fp32(torch)
     print(f"hier: train_vqvae2.yaml has {n_params:,} parameters", flush=True)
+    train_launches, k1_calls, ckpt = _hier_train(torch, root)
+    infer_launches = _hier_serve(torch, ckpt)
+    _hier_small(torch, root)
+    return train_launches, infer_launches, k1_calls, ckpt
+
+
+# stages 1-6 of egs/vcc20/vae1/run.sh (fbank settings :13-18, 64 Griffin-Lim
+# iterations :43) on a synthetic corpus: 16 utterances of 1-10 s at 24 kHz
+# over 4 speakers and 2 at 16 kHz that make_fbank resamples; frames run
+# from 94 to 938, so the decode's buckets are 256, 512, 768 and 1,024
+OFFLINE_FEATURE = {"fs": 24000, "n_fft": 1024, "n_shift": 256, "n_mels": 80,
+                   "fmin": 80.0, "fmax": 7600.0}
+OFFLINE_UTTS = ([(float(d), 24000) for d in np.linspace(1.0, 10.0, 16)]
+                + [(2.5, 16000), (7.5, 16000)])
+OFFLINE_GL_ITERS = 64
+OFFLINE_TOL = 1e-4
+# decode throughput: the dump's utterances 8 times each (144 utterances,
+# 18 full batches of 8), decoded 3 times after one warm-up
+OFFLINE_COPIES, OFFLINE_REPEATS = 8, 3
+# K1 and K2 launches per call, counted from the code: a flat decode batch
+# (one infer) 1 and 20, and so does a flat sweep utterance (1 and 10 for
+# the encode at B = 1, 10 for the decode at B = K); a hierarchy sweep batch
+# encodes once (K1 2; K2 30: 18 encoder norms and the 12 of the upper
+# levels' decoders the encode runs) and runs the final decoder per target
+# (K2 10)
+FLAT_LAUNCHES = {"vq_fused": 1, "fused_group_norm": 20}
+HIER_ENCODE_LAUNCHES = {"vq_fused": 2, "fused_group_norm": 30}
+HIER_DECODE_LAUNCHES = {"vq_fused": 0, "fused_group_norm": 10}
+
+
+def _offline_corpus(root):
+    """A Kaldi data dir (``wav.scp``, ``utt2spk``, ``spk2utt``) of
+    ``OFFLINE_UTTS`` written as int16 wavs; utterance i is speaker i % 4."""
+    from scipy.io import wavfile
+
+    wav = root / "wav"
+    wav.mkdir(parents=True)
+    utt2spk = {}
+    for i, (sec, fs) in enumerate(OFFLINE_UTTS):
+        utt, spk = f"utt{i:02d}", f"spk{i % 4}"
+        x = _speechlike(int(round(sec * fs)), fs, 100 + i)
+        wavfile.write(wav / f"{utt}.wav", fs, (x * 32767).astype(np.int16))
+        utt2spk[utt] = spk
+    data = root / "data"
+    data.mkdir()
+    (data / "wav.scp").write_text("".join(
+        f"{u} {wav}/{u}.wav\n" for u in utt2spk))
+    (data / "utt2spk").write_text("".join(
+        f"{u} {s}\n" for u, s in utt2spk.items()))
+    (data / "spk2utt").write_text("".join(
+        f"spk{s} " + " ".join(u for u, v in utt2spk.items()
+                              if v == f"spk{s}") + "\n" for s in range(4)))
+    return data, utt2spk
+
+
+def _replicated(dump, root, copies):
+    """A decode dir of every utterance of ``dump`` ``copies`` times, keyed
+    ``<utt>-<copy>``, each with the utterance's trials target."""
+    from vae_npvc_tpu_torch.data import kaldi_io
+
+    root.mkdir()
+    scp = kaldi_io.load_dict_data(dump / "feats.scp")
+    trials = {p[0]: p[1:] for p in kaldi_io.load_list_data(dump / "trials")}
+    (root / "feats.scp").write_text("".join(
+        f"{u}-{c} {rx}\n" for u, rx in scp.items() for c in range(copies)))
+    (root / "trials").write_text("".join(
+        f"{u}-{c} {' '.join(trials[u])}\n" for u in scp
+        for c in range(copies)))
+    (root / "spk2spk_id").write_text((dump / "spk2spk_id").read_text())
+    return root
+
+
+def _max_err(a_items, b_items):
+    """Largest |a - b| over matched ``read_outputs`` lists (keys, order and
+    shapes checked)."""
+    check([k for k, _ in a_items] == [k for k, _ in b_items],
+          f"offline: keys {[k for k, _ in a_items]} vs "
+          f"{[k for k, _ in b_items]}")
+    err = 0.0
+    for (k, a), (_, b) in zip(a_items, b_items):
+        check(a.shape == b.shape, f"offline: {k} {a.shape} vs {b.shape}")
+        err = max(err, float(np.abs(a.astype(np.float64) - b).max()))
+    return err
+
+
+def _offline_golden(torch, root):
+    """The port's Converter on the card in fp32, with the committed golden
+    checkpoints, over the seeded decode dir: decode and sweep against the
+    committed JAX fixture (same keys in the same order, equal lengths, mel
+    within 1e-4)."""
+    from vae_npvc_tpu_torch.infer.convert import Converter
+    from vae_npvc_tpu_torch.utils import offline_fixture as fx
+
+    g = np.load(FIXTURES / "offline_golden.npz")
+    errs = {}
+    for model, name in fx.OFFLINE_MODELS.items():
+        cfg = fx.offline_config(FIXTURES, name)
+        dim = (cfg.get("encoder") or cfg["encoder.0"])["in_channels"][0]
+        d = fx.offline_decode_dir(root / f"golden_{model}", dim)
+        cv = Converter(cfg, device="cuda")
+        cv.load_checkpoint(FIXTURES / f"{name}.msgpack")
+        cv.decode(d, d / "decode", compress=False)
+        cv.sweep(d, d / "sweep", fx.OFFLINE_TARGETS, compress=False)
+        for mode in ("decode", "sweep"):
+            err = _max_err(fx.read_outputs(d / mode),
+                           fx.unpack_outputs(g, f"{model}/{mode}"))
+            check(err <= OFFLINE_TOL, f"offline: {model} {mode} differs "
+                  f"from the JAX fixture by {err}")
+            errs[f"{model}_{mode}"] = err
+    return errs
+
+
+def _batches(frames, bucket, batch, min_frames=1):
+    """Batches a bucketed decode of utterances of ``frames`` runs (fixed
+    grid of ``bucket``, chunks of ``batch``)."""
+    counts = {}
+    for T in frames:
+        T_pad = max(-(-T // bucket) * bucket, min_frames)
+        counts[T_pad] = counts.get(T_pad, 0) + 1
+    return sum(-(-n // batch) for n in counts.values())
+
+
+def _recording(torch, k1, k2):
+    """Patches that record every K1 call of the flat model's EMA search and
+    of the plain codebooks' search in ``k1`` (:func:`_k1_call`: the ids
+    against the plain version), and every K2 call in ``k2`` by shape, dtype,
+    GLU and plan, with its output held against the plain version at
+    ``K2_TOL``; returns the undo function."""
+    from vae_npvc_tpu_torch.ops import groupnorm as gn_ops
+    from vae_npvc_tpu_torch.ops import vq as vq_ops
+    from vae_npvc_tpu_torch.ops.vq_fused import vq_fused as k1_fn
+
+    saved = (vq_ops.vq_fused, vq_ops.nearest_code, gn_ops._forward)
+    fused, _, forward = saved
+
+    def vq_rec(z, emb, *, stats=True):
+        out = fused(z, emb, stats=stats)
+        k1.append(_k1_call(torch, z, emb, out.idx,
+                           k1_fn.rescored.sum(1).tolist()))
+        return out
+
+    def gn_rec(x, scale, bias, num_groups, eps, lengths, glu):
+        out = forward(x, scale, bias, num_groups, eps, lengths, glu)
+        ref = gn_ops.group_norm_plain(x, scale, bias, num_groups, eps,
+                                      lengths, glu).float()
+        dtype = str(x.dtype).split(".")[-1]
+        atol, rtol = K2_TOL[dtype]
+        err = (out.float() - ref).abs()
+        key = (tuple(x.shape), dtype, bool(glu), gn_ops.plan(x, glu))
+        calls, worst, beyond = k2.get(key, (0, 0.0, 0))
+        k2[key] = (calls + 1, max(worst, float(err.max())),
+                   beyond + int((err > atol + rtol * ref.abs()).sum()))
+        return out
+
+    vq_ops.vq_fused = vq_rec
+    vq_ops.nearest_code = _record_k1_calls(torch, k1)
+    gn_ops._forward = gn_rec
+
+    def undo():
+        vq_ops.vq_fused, vq_ops.nearest_code, gn_ops._forward = saved
+    return undo
+
+
+def _check_recorded(k1, k2, what):
+    """K1's ids equal the plain version's off near ties and every K2 output
+    is within ``K2_TOL`` of the plain version in the recorded run."""
+    check(all(c["ids_differ_clear"] == 0 for c in k1),
+          f"offline: {what}: K1 ids differ from the plain version off near "
+          f"ties: {[c for c in k1 if c['ids_differ_clear']]}")
+    bad = {k: v for k, v in k2.items() if v[2]}
+    check(not bad, f"offline: {what}: K2 beyond K2_TOL of the plain version "
+          f"(shape, dtype, glu, plan): (calls, max err, elements) {bad}")
+
+
+def _plans(k2):
+    return [{"shape": list(s), "dtype": d, "glu": g, "plan": p, "calls": n,
+             "max_abs_err_vs_plain": e}
+            for (s, d, g, p), (n, e, _) in sorted(k2.items())]
+
+
+def phase_offline(torch, hier_ckpt):
+    """The VCC2020 recipes' offline stages through the port's CLIs on the
+    card: ``make_fbank`` and ``apply_cmvn compute`` (stage 1),
+    ``make_spk_id`` and ``apply_cmvn apply`` (stage 2), ``bin/decode`` over
+    trials with the flagship flat model (bf16, seeded weights) and its
+    ``--all-targets`` sweep to two targets with the trained ``HIER``
+    checkpoint (stage 5), ``apply_cmvn apply --reverse`` and
+    ``convert_fbank`` (stage 6); the JAX decode fixture on the card in fp32;
+    masked batching and the flat sweep against per-utterance runs at full
+    width in fp32; launch counts, K2 plans and K1 rows re-scored of the
+    decode and the sweep; one profiled decode batch."""
+    from scipy.io import wavfile
+
+    from vae_npvc_tpu_torch.bin import apply_cmvn, convert_fbank, decode
+    from vae_npvc_tpu_torch.bin.make_fbank import make_fbank
+    from vae_npvc_tpu_torch.bin.make_spk_id import make_spk_id
+    from vae_npvc_tpu_torch.data import kaldi_io
+    from vae_npvc_tpu_torch.infer.convert import Converter
+    from vae_npvc_tpu_torch.utils import offline_fixture as fx
+
+    stage_s = {}
+
+    def stage(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        stage_s[name] = time.perf_counter() - t0
+        return out
+
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        train_launches, k1_calls, ckpt = _hier_train(torch, root)
-        infer_launches = _hier_serve(torch, ckpt)
-        _hier_small(torch, root)
-    return train_launches, infer_launches, k1_calls
+        golden_err = _offline_golden(torch, root)
+        data, utt2spk = _offline_corpus(root)
+
+        # stages 1-2: front end, CMVN stats, speaker ids, normalized dump
+        fb, dump = root / "fbank", root / "dump"
+        n = stage("make_fbank", make_fbank, data, fb, device="cuda",
+                  **OFFLINE_FEATURE)
+        check(n == len(OFFLINE_UTTS), f"offline: make_fbank wrote {n}")
+        make_fbank(data, root / "fbank_cpu", device="cpu", **OFFLINE_FEATURE)
+        cpu = dict(kaldi_io.read_ark(root / "fbank_cpu" / "feats_raw.ark"))
+        fbank_err = 0.0
+        for utt, m in kaldi_io.read_ark(fb / "feats_raw.ark"):
+            check(m.shape == cpu[utt].shape, f"offline: {utt} {m.shape}")
+            fbank_err = max(fbank_err, float(np.abs(m - cpu[utt]).max()))
+        check(fbank_err <= 1e-3, f"offline: make_fbank on the card differs "
+              f"from the CPU by {fbank_err}")
+        cmvn_ark = root / "cmvn.ark"
+        stage("apply_cmvn_compute", apply_cmvn.main,
+              ["compute", f"scp:{fb}/feats.scp", str(cmvn_ark)])
+        stage("make_spk_id", make_spk_id, fb)
+        stage("apply_cmvn_apply", apply_cmvn.main,
+              ["apply", str(cmvn_ark), f"scp:{fb}/feats.scp", str(dump)])
+        apply_cmvn.main(["apply", "--reverse", str(cmvn_ark),
+                         f"scp:{dump}/feats.scp", str(root / "back")])
+        back = dict(kaldi_io.read_ark(root / "back" / "feats_cmvn.ark"))
+        cmvn_err = max(float(np.abs(back[u] - m).max())
+                       for u, m in kaldi_io.read_ark(fb / "feats_raw.ark"))
+        check(cmvn_err <= 1e-5, f"offline: reverse(apply(x)) differs from x "
+              f"by {cmvn_err}")
+        spk2spk_id = kaldi_io.load_dict_data(fb / "spk2spk_id")
+        (dump / "spk2spk_id").write_text((fb / "spk2spk_id").read_text())
+        target = {u: f"spk{(int(s[3:]) + 1) % 4}" for u, s in utt2spk.items()}
+        (dump / "trials").write_text("".join(
+            f"{u} {t}\n" for u, t in target.items()))
+        frames = {u: int(v) for u, v in kaldi_io.load_dict_data(
+            dump / "utt2num_frames").items()}
+        n_frames = sum(frames.values())
+
+        # stage 5, flat: bin/decode over trials (bf16, compressed output)
+        flat_ckpt, flat_conf = root / "flat.msgpack", root / "flat.json"
+        _random_checkpoint(torch, flat_ckpt)
+        flat_conf.write_text(json.dumps(FLAGSHIP))
+        args = ["-c", str(flat_conf), "--checkpoint", str(flat_ckpt),
+                "--decode-dir", str(dump)]
+        _zero_counts()
+        n = stage("decode_flat", decode.main,
+                  args + ["--output-dir", str(root / "dec")])
+        flat_launches = _read_counts()
+        batches = _batches(frames.values(), FLAGSHIP["decode_bucket_size"],
+                           FLAGSHIP["decode_batch_size"])
+        check(n == len(frames), f"offline: decode wrote {n}")
+        check({k: flat_launches[k] for k in FLAT_LAUNCHES}
+              == {k: v * batches for k, v in FLAT_LAUNCHES.items()},
+              f"offline: flat decode of {batches} batches launched "
+              f"{flat_launches}")
+
+        # the same decode on a built converter: compression against the
+        # uncompressed output, every K1/K2 call held against the plain
+        # versions
+        cv = Converter(FLAGSHIP, device="cuda")
+        cv.load_checkpoint(flat_ckpt)
+        cv.decode(dump, root / "dec_raw", compress=False)
+        raw = fx.read_outputs(root / "dec_raw")
+        compressed = fx.read_outputs(root / "dec")
+        _max_err(compressed, raw)
+        for (k, a), (_, b) in zip(compressed, raw):
+            check(bool(np.isfinite(b).all()), f"offline: {k} not finite")
+            step = fx.compression_step(b)
+            check(bool(np.all(np.abs(a - b) <= step[None])),
+                  f"offline: compressed {k} beyond one step of the "
+                  f"uncompressed output")
+        jobs = [(u, rx, frames[u]) for u, rx in
+                kaldi_io.load_dict_data(dump / "feats.scp").items()]
+        # throughput: every utterance OFFLINE_COPIES times under keys of its
+        # own, so each batch holds decode_batch_size rows
+        rep = _replicated(dump, root / "rep", OFFLINE_COPIES)
+        rep_jobs = [(u, rx, frames[u.rsplit("-", 1)[0]]) for u, rx in
+                    kaldi_io.load_dict_data(rep / "feats.scp").items()]
+        rep_chunks = list(cv._chunks(rep_jobs))
+        check(all(len(c) == FLAGSHIP["decode_batch_size"]
+                  for _, c in rep_chunks),
+              f"offline: throughput batches of "
+              f"{[len(c) for _, c in rep_chunks]}")
+        k1_flat, k2_flat = [], {}
+        undo = _recording(torch, k1_flat, k2_flat)
+        try:
+            cv.decode(dump, root / "rec", compress=False)
+            cv.decode(rep, root / "rep_out", compress=False)
+        finally:
+            undo()
+        _check_recorded(k1_flat, k2_flat, "flat decode")
+        rep_s = []
+        for _ in range(OFFLINE_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cv.decode(rep, root / "rep_out", compress=False)
+            torch.cuda.synchronize()
+            rep_s.append(time.perf_counter() - t0)
+        T_pad, chunk = rep_chunks[-1]
+        feats, lengths = cv._load(chunk, T_pad)
+        tgts = np.array([int(spk2spk_id[target[j[0].rsplit("-", 1)[0]]])
+                         for j in chunk], np.int32)
+        profile = _profiled(torch, lambda: cv.infer(feats, tgts, lengths))
+        del cv
+
+        # masked batching and the encode-once sweep at full width in fp32,
+        # every K1/K2 call of these runs held against the plain versions
+        cv32 = Converter(dict(FLAGSHIP, compute_dtype="float32"),
+                         device="cuda")
+        cv32.load_checkpoint(flat_ckpt)
+        k1_32, k2_32 = [], {}
+        undo = _recording(torch, k1_32, k2_32)
+        try:
+            cv32.decode(dump, root / "dec32", compress=False)
+            dec32 = dict(fx.read_outputs(root / "dec32"))
+            masked_err = 0.0
+            for utt, rx in kaldi_io.load_dict_data(
+                    dump / "feats.scp").items():
+                x = kaldi_io.load_mat(rx)[None]
+                one = cv32.infer(x, [int(spk2spk_id[target[utt]])],
+                                 [x.shape[1]])[0]
+                masked_err = max(masked_err,
+                                 float(np.abs(one - dec32[utt]).max()))
+            same = root / "same"
+            same.mkdir()
+            for f in ("feats.scp", "spk2spk_id"):
+                (same / f).write_text((dump / f).read_text())
+            (same / "trials").write_text("".join(f"{u} spk1\n"
+                                                 for u in frames))
+            cv32.decode(same, root / "same_out", compress=False)
+            _zero_counts()
+            cv32.sweep(dump, root / "sweep32", ["spk1"], compress=False)
+            flat_sweep_launches = _read_counts()
+        finally:
+            undo()
+        _check_recorded(k1_32, k2_32, "flat fp32 decode and sweep")
+        check(masked_err <= OFFLINE_TOL, f"offline: a bucketed batch differs "
+              f"from unpadded runs by {masked_err}")
+        check({k: flat_sweep_launches[k] for k in FLAT_LAUNCHES}
+              == {k: v * len(frames) for k, v in FLAT_LAUNCHES.items()},
+              f"offline: flat sweep of {len(frames)} utterances launched "
+              f"{flat_sweep_launches}")
+        swept = dict(fx.read_outputs(root / "sweep32"))
+        sweep_err = max(float(np.abs(swept[f"{u}__spk1"] - m).max())
+                        for u, m in fx.read_outputs(root / "same_out"))
+        check(sweep_err <= OFFLINE_TOL, f"offline: the flat sweep differs "
+              f"from decode by {sweep_err}")
+        # reported, not held to a tolerance: a frame whose code flips
+        # between bf16 and fp32 changes the output by the codes' distance
+        peak32 = max(float(np.abs(m).max()) for m in dec32.values())
+        bf16_err = max(float(np.abs(m - dec32[k]).max())
+                       for k, m in raw) / peak32
+        del cv32
+
+        # stage 5, hierarchy: bin/decode --all-targets to two targets
+        hier_conf = root / "hier.json"
+        hier_conf.write_text(json.dumps(HIER))
+        _zero_counts()
+        n = stage("sweep_hier", decode.main,
+                  ["-c", str(hier_conf), "--checkpoint", str(hier_ckpt),
+                   "--decode-dir", str(dump), "--output-dir",
+                   str(root / "hsweep"), "--all-targets", "spk1,spk2"])
+        hier_launches = _read_counts()
+        cvh = Converter(HIER, device="cuda")
+        hier_batches = _batches(frames.values(), HIER["decode_bucket_size"],
+                                HIER["decode_batch_size"], cvh.min_frames)
+        want = {k: hier_batches * (HIER_ENCODE_LAUNCHES[k]
+                                   + 2 * HIER_DECODE_LAUNCHES[k])
+                for k in HIER_ENCODE_LAUNCHES}
+        check(n == 2 * len(frames), f"offline: hier sweep wrote {n}")
+        check({k: hier_launches[k] for k in want} == want,
+              f"offline: hier sweep of {hier_batches} batches launched "
+              f"{hier_launches}, want {want}")
+        for k, m in fx.read_outputs(root / "hsweep"):
+            check(bool(np.isfinite(m).all()), f"offline: {k} not finite")
+            check(m.shape == (frames[k.split("__")[0]], 80),
+                  f"offline: {k} {m.shape}")
+        cvh.load_checkpoint(hier_ckpt)
+        k1_hier, k2_hier = [], {}
+        undo = _recording(torch, k1_hier, k2_hier)
+        try:
+            cvh.sweep(dump, root / "hrec", ["spk1"], compress=False)
+        finally:
+            undo()
+        _check_recorded(k1_hier, k2_hier, "hier sweep")
+        # one hierarchy infer of the longest bucket: K1 re-scores its
+        # padded (zero) rows over every code
+        hT, hchunk = list(cvh._chunks(jobs))[-1]
+        hfeats, hlengths = cvh._load(hchunk, hT)
+        htgts = np.ones((len(hchunk),), np.int32)
+        cvh.infer(hfeats, htgts, hlengths)
+        hier_profile = _profiled(
+            torch, lambda: cvh.infer(hfeats, htgts, hlengths))
+        del cvh
+
+        # the hierarchy in fp32: its encode-once sweep against decode to the
+        # same target, and each bucketed batch against the utterance alone
+        # (padded to the least length its levels take)
+        cvh32 = Converter(dict(HIER, compute_dtype="float32"), device="cuda")
+        cvh32.load_checkpoint(hier_ckpt)
+        k1_h32, k2_h32 = [], {}
+        undo = _recording(torch, k1_h32, k2_h32)
+        try:
+            cvh32.decode(same, root / "hsame", compress=False)
+            cvh32.sweep(dump, root / "hsweep32", ["spk1"], compress=False)
+            hdec = dict(fx.read_outputs(root / "hsame"))
+            hier_masked_err = 0.0
+            mf = cvh32.min_frames
+            for utt, rx in kaldi_io.load_dict_data(
+                    dump / "feats.scp").items():
+                x = kaldi_io.load_mat(rx)
+                T = x.shape[0]
+                xp = np.zeros((1, max(-(-T // mf) * mf, mf), x.shape[1]),
+                              np.float32)
+                xp[0, :T] = x
+                one = cvh32.infer(xp, [int(spk2spk_id["spk1"])], [T])[0, :T]
+                hier_masked_err = max(hier_masked_err,
+                                      float(np.abs(one - hdec[utt]).max()))
+        finally:
+            undo()
+        _check_recorded(k1_h32, k2_h32, "hier fp32 decode and sweep")
+        hswept = dict(fx.read_outputs(root / "hsweep32"))
+        hier_sweep_err = max(float(np.abs(hswept[f"{u}__spk1"] - m).max())
+                             for u, m in hdec.items())
+        check(hier_masked_err <= OFFLINE_TOL, f"offline: a hierarchy batch "
+              f"differs from unpadded runs by {hier_masked_err}")
+        check(hier_sweep_err <= OFFLINE_TOL, f"offline: the hierarchy sweep "
+              f"differs from decode by {hier_sweep_err}")
+        del cvh32
+
+        # stage 6: de-normalize, Griffin-Lim
+        denorm = root / "denorm"
+        stage("apply_cmvn_reverse", apply_cmvn.main,
+              ["apply", "--reverse", str(cmvn_ark),
+               f"scp:{root}/dec/feats.scp", str(denorm)])
+        n = stage("convert_fbank", convert_fbank.convert_fbank,
+                  denorm / "feats.scp", denorm / "wav",
+                  n_iter=OFFLINE_GL_ITERS, device="cuda", **OFFLINE_FEATURE)
+        check(n == len(frames), f"offline: convert_fbank wrote {n}")
+        peak = int(0.95 * 32767)
+        for utt, T in frames.items():
+            sr, w = wavfile.read(denorm / "wav" / f"{utt}.wav")
+            check(sr == OFFLINE_FEATURE["fs"]
+                  and w.shape == (T * OFFLINE_FEATURE["n_shift"],),
+                  f"offline: {utt}.wav {w.shape} at {sr} Hz, {T} frames")
+            check(int(np.abs(w.astype(np.int32)).max()) == peak,
+                  f"offline: {utt}.wav peak {np.abs(w).max()}")
+
+    emit({"phase": "offline", "utterances": len(frames),
+          "seconds_min_max": [OFFLINE_UTTS[0][0], OFFLINE_UTTS[15][0]],
+          "frames": n_frames, "frames_min_max": [min(frames.values()),
+                                                 max(frames.values())],
+          "stage_s": stage_s,
+          "throughput_decode": {
+              "utterances": len(rep_jobs), "batches": len(rep_chunks),
+              "batch": FLAGSHIP["decode_batch_size"],
+              "frames": OFFLINE_COPIES * n_frames, "repeats_s": rep_s,
+              "utts_per_s": len(rep_jobs) * len(rep_s) / sum(rep_s),
+              "frames_per_s": (OFFLINE_COPIES * n_frames * len(rep_s)
+                               / sum(rep_s))},
+          "decode_batches": batches, "hier_sweep_batches": hier_batches,
+          "jax_fixture_max_abs_err": golden_err, "tolerance": OFFLINE_TOL,
+          "fbank_card_vs_cpu_max_abs_err": fbank_err,
+          "cmvn_round_trip_max_abs_err": cmvn_err,
+          "masked_batch_vs_unpadded_fp32": masked_err,
+          "flat_sweep_vs_decode_fp32": sweep_err,
+          "bf16_decode_vs_fp32_over_peak": bf16_err,
+          "hier_masked_batch_vs_unpadded_fp32": hier_masked_err,
+          "hier_sweep_vs_decode_fp32": hier_sweep_err,
+          "k2_vs_plain_in_path": {
+              "calls": sum(v[0] for d in (k2_flat, k2_32, k2_hier, k2_h32)
+                           for v in d.values()),
+              "shapes": sum(len(d) for d in (k2_flat, k2_32, k2_hier,
+                                              k2_h32))},
+          "k1_vs_plain_in_path": {
+              "calls": sum(len(c) for c in (k1_flat, k1_32, k1_hier, k1_h32)),
+              "ids_differ_near_tie": sum(
+                  e["ids_differ_near_tie"] for c in (k1_flat, k1_32, k1_hier,
+                                                      k1_h32) for e in c)},
+          "launches_flat_decode": flat_launches,
+          "launches_flat_sweep_fp32": flat_sweep_launches,
+          "launches_hier_sweep": hier_launches,
+          "launches_per_call": {"flat_decode_batch_or_sweep_utterance":
+                                FLAT_LAUNCHES,
+                                "hier_encode": HIER_ENCODE_LAUNCHES,
+                                "hier_decode_per_target":
+                                    HIER_DECODE_LAUNCHES},
+          "k2_plans_flat_decode": _plans(k2_flat),
+          "k2_plans_flat_fp32": _plans(k2_32),
+          "k2_plans_hier_sweep": _plans(k2_hier),
+          "k2_plans_hier_fp32": _plans(k2_h32),
+          "k1_calls_flat_decode": k1_flat, "k1_calls_hier_sweep": k1_hier,
+          "decode_batch_profile": dict(profile, B=len(chunk), T=T_pad),
+          "hier_infer_profile": dict(hier_profile, B=len(hchunk), T=hT)})
+    return {"flat_decode": flat_launches, "hier_sweep": hier_launches,
+            "decode_batches": batches, "hier_sweep_batches": hier_batches,
+            "k2_plans": _plans(k2_flat) + _plans(k2_32) + _plans(k2_hier)
+            + _plans(k2_h32),
+            "k1_hier": k1_hier}
 
 
 def main():
@@ -2367,7 +2899,10 @@ def main():
     phase_tts_golden(torch)
     tts_launches = phase_tts(torch)
     phase_hier_golden(torch)
-    hier_train, hier_infer, hier_k1 = phase_hier(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        hier_train, hier_infer, hier_k1, hier_ckpt = phase_hier(
+            torch, Path(tmp))
+        offline = phase_offline(torch, hier_ckpt)
 
     vq_main = vq[0]
     # K2 and K3 in the layout the model hands them (channels-first x)
@@ -2448,7 +2983,12 @@ def main():
                  "random", "unit")],
          "launches_hier_train": hier_train["vq_fused"],
          "launches_hier_infer": hier_infer["vq_fused"],
-         "hier_shapes": vq_hier, "hier_calls_of_one_step": hier_k1},
+         "hier_shapes": vq_hier, "hier_calls_of_one_step": hier_k1,
+         "launches_offline_flat_decode": offline["flat_decode"]["vq_fused"],
+         "launches_offline_hier_sweep": offline["hier_sweep"]["vq_fused"],
+         "offline_decode_batches": offline["decode_batches"],
+         "offline_hier_sweep_batches": offline["hier_sweep_batches"],
+         "offline_hier_calls": offline["k1_hier"]},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",
@@ -2463,7 +3003,15 @@ def main():
          "long_row": {k: gn_long[k] for k in gn_keys},
          "launches_hier_train": hier_train["fused_group_norm"],
          "launches_hier_infer": hier_infer["fused_group_norm"],
-         "hier_shapes": short_rows(gn)},
+         "hier_shapes": short_rows(gn),
+         "launches_offline_flat_decode":
+             offline["flat_decode"]["fused_group_norm"],
+         "launches_offline_hier_sweep":
+             offline["hier_sweep"]["fused_group_norm"],
+         "offline_plans": offline["k2_plans"],
+         "offline_shapes": [dict({k: c[k] for k in gn_keys}, G=c["G"],
+                                 glu=c["glu"], masked=c["masked"])
+                            for c in gn if c["T"] in (768, 1024)]},
         {"name": "fused_group_norm_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",

@@ -4,7 +4,8 @@ The msgpack checkpoint codec against flax, CMVN against the JAX package's
 stats arks, the log-mel front-end (1e-4 absolute) and Griffin-Lim with
 JAX's own initial phase (1e-3 of the waveform's peak), plus the port's
 import isolation: no module of the port, and not ``chip_smoke.py``, may
-import JAX, flax, msgpack or the JAX package.
+import JAX, flax, msgpack or the JAX package, nor PyYAML when it is
+imported (the GPU host has none).
 """
 
 import subprocess
@@ -158,7 +159,8 @@ def test_chip_smoke_flagship_config_matches_recipe_yaml():
 
 _BLOCKED_IMPORTS = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "vae_npvc_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "vae_npvc_tpu",
+           "yaml")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:

@@ -290,16 +290,26 @@ def test_checkpoints_load_both_ways(jax_side, tmp_path):
     assert torch.equal(ptr2.opt_state.nu, ptr3.opt_state.nu)
     assert int(ptr2.opt_state.sched_count) == 3
     # a checkpoint without optimizer state re-initializes the moments
+    import jax
+
     from vae_npvc_tpu_torch.utils import msgpack_io
+    from vae_npvc_tpu_torch.utils.bridge import to_jax_variables
     payload = msgpack_io.msgpack_restore(path.read_bytes())
     payload["optimizer"] = {}
     (tmp_path / "bare").write_bytes(msgpack_io.msgpack_serialize(payload))
     ptr2.load_checkpoint(tmp_path / "bare")
     assert int(ptr2.opt_state.count) == 0 and not ptr2.opt_state.mu.any()
+    # weight-norm axis format 1 is migrated as the JAX trainer migrates it
+    # (this tree already has the new layout, so no layer changes)
     payload["wn_axis_format"] = 1
     (tmp_path / "old").write_bytes(msgpack_io.msgpack_serialize(payload))
-    with pytest.raises(ValueError, match="migrate.py"):
-        ptr2.load_checkpoint(tmp_path / "old")
+    assert ptr2.load_checkpoint(tmp_path / "old") == 3
+    assert jtr.load_checkpoint(tmp_path / "old") == 3
+    assert torch.equal(ptr2.flat, ptr3.flat)
+    assert all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(
+        jax.tree_util.tree_leaves(jtr.state.params),
+        jax.tree_util.tree_leaves(to_jax_variables(
+            ptr2.model.state_dict())["params"])))
 
 
 if __name__ == "__main__":

@@ -1,13 +1,17 @@
-"""The part of Kaldi ark/scp I/O that serving and training need, in numpy.
+"""Kaldi ark/scp and data-dir I/O in numpy.
 
 Counterpart of ``vae_npvc_tpu/data/kaldi_io.py`` (the port keeps its own
-copy): :func:`load_dict_data` / :func:`load_list_data` for data-dir text
-files, :func:`read_ark` for whole arks (CMVN stats), :func:`load_mat` and
-:func:`matrix_header` for ``path:offset[s:e]`` specifiers with seek-based
-row ranges (the training crops), over binary float/double matrices and
-vectors (``FM``/``DM``/``FV``/``DV``) and the three compressed formats
-(``CM``/``CM2``/``CM3``). :class:`ArkWriter` writes uncompressed ark + scp;
-compressed writing belongs to the offline decode slice.
+copy): :func:`load_dict_data` / :func:`read_scp` / :func:`load_list_data` /
+:func:`save_dict_data` for data-dir text files, :func:`read_wav_scp_entry`
+for ``wav.scp`` lines (a path or a trailing-pipe command), :func:`read_ark`
+for whole arks, :func:`load_mat` and :func:`matrix_header` for
+``path:offset[s:e]`` specifiers with seek-based row ranges (the training
+crops), over binary float/double matrices and vectors (``FM``/``DM``/
+``FV``/``DV``) and the three compressed formats (``CM``/``CM2``/``CM3``).
+:class:`ArkWriter` (or :func:`write_helper` from a wspecifier) writes ark +
+scp, uncompressed (``FM``, ``DM`` for float64) or with Kaldi compression
+method 1 (per-column percentile headers + uint8; ``CM2`` for 8 rows or
+fewer) or 2 (``CM2``), byte for byte as the JAX package writes them.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import io
 import os
 import re
 import struct
+import subprocess
 
 import numpy as np
 
@@ -33,6 +38,17 @@ def load_dict_data(path):
                 key, rest = line.split(None, 1)
                 out[key] = rest
     return out
+
+
+# the same parse, under the name scp readers use
+read_scp = load_dict_data
+
+
+def save_dict_data(path, d):
+    """Write ``{key: value}`` as ``<key> <value>`` lines."""
+    with open(path, "w") as f:
+        for k, v in d.items():
+            f.write(f"{k} {v}\n")
 
 
 def load_list_data(path):
@@ -93,6 +109,11 @@ def _uint16_to_float(p, min_value, range_value):
     return min_value + range_value * (p.astype(np.float64) / 65535.0)
 
 
+def _float_to_uint16(f, min_value, range_value):
+    x = (np.asarray(f, dtype=np.float64) - min_value) / max(range_value, 1e-20)
+    return np.clip(x * 65535.0 + 0.499, 0, 65535).astype(np.uint16)
+
+
 def _char_to_float(u8, p0, p25, p75, p100):
     """Piecewise-linear uint8 -> float decode of Kaldi format-1 columns."""
     v = u8.astype(np.float64)
@@ -100,6 +121,19 @@ def _char_to_float(u8, p0, p25, p75, p100):
     mid = p25 + (p75 - p25) * ((v - 64.0) / 128.0)
     hi = p75 + (p100 - p75) * ((v - 192.0) / 63.0)
     return np.where(v <= 64, lo, np.where(v <= 192, mid, hi))
+
+
+def _float_to_char(x, p0, p25, p75, p100):
+    """Inverse of :func:`_char_to_float` (Kaldi format-1 quantizer)."""
+    x = np.asarray(x, dtype=np.float64)
+    eps = 1e-20
+    lo = np.clip((x - p0) / max(p25 - p0, eps) * 64.0 + 0.5, 0, 64)
+    mid = np.clip(64.0 + (x - p25) / max(p75 - p25, eps) * 128.0 + 0.5,
+                  65, 192)
+    hi = np.clip(192.0 + (x - p75) / max(p100 - p75, eps) * 63.0 + 0.5,
+                 193, 255)
+    return np.where(x <= p25, lo, np.where(x <= p75, mid, hi)) \
+        .astype(np.uint8)
 
 
 def _read_compressed(f, token):
@@ -206,30 +240,68 @@ def read_ark(path):
             yield key.decode(), read_matrix(f)
 
 
-class ArkWriter:
-    """Write (utt, matrix) pairs into an uncompressed ark file (``FM``, or
-    ``DM`` for float64) with an optional scp index."""
+def _write_matrix(f, mat, compression_method=None):
+    """Write one binary matrix at the file's current position:
+    uncompressed ``FM`` (``DM`` for float64), or compressed by Kaldi's
+    method 1 (``CM``; ``CM2`` for 8 rows or fewer) or 2 (``CM2``)."""
+    mat = np.asarray(mat)
+    if mat.ndim != 2:
+        raise ValueError("only 2-D matrices supported")
+    f.write(_BINARY_FLAG)
+    if compression_method in (None, 0):
+        double = mat.dtype == np.float64
+        f.write(b"DM " if double else b"FM ")
+        for n in mat.shape:
+            f.write(b"\x04" + struct.pack("<i", n))
+        f.write(np.ascontiguousarray(
+            mat, dtype="<f8" if double else "<f4").tobytes())
+        return
+    num_rows, num_cols = mat.shape
+    m = np.asarray(mat, dtype=np.float64)
+    min_value = float(m.min()) if m.size else 0.0
+    max_value = float(m.max()) if m.size else 1.0
+    range_value = max(max_value - min_value, 1e-10)
+    header = struct.pack("<ffii", np.float32(min_value),
+                         np.float32(range_value), num_rows, num_cols)
+    if compression_method == 1 and num_rows > 8:
+        f.write(b"CM " + header)
+        # per-column percentiles on the global uint16 grid, made
+        # non-decreasing so the decode map is valid
+        q16 = _float_to_uint16(np.percentile(m, [0, 25, 75, 100], axis=0).T,
+                               min_value, range_value)
+        q16 = np.maximum.accumulate(q16, axis=1)
+        f.write(q16.astype("<u2").tobytes())
+        pf = _uint16_to_float(q16, min_value, range_value)
+        data = np.empty((num_cols, num_rows), dtype=np.uint8)
+        for c in range(num_cols):
+            data[c] = _float_to_char(m[:, c], *pf[c])
+        f.write(data.tobytes())
+    else:
+        f.write(b"CM2 " + header)
+        f.write(_float_to_uint16(m, min_value, range_value)
+                .astype("<u2").tobytes())
 
-    def __init__(self, ark_path, scp_path=None):
+
+class ArkWriter:
+    """Write (utt, matrix) pairs into an ark file with an optional scp
+    index; ``compression_method`` as :func:`_write_matrix` takes it."""
+
+    def __init__(self, ark_path, scp_path=None, compression_method=None):
         self.ark_path = str(ark_path)
         self._ark = open(ark_path, "wb")
         self._scp = open(scp_path, "w") if scp_path else None
+        self.compression_method = compression_method
 
     def write(self, utt, mat):
-        mat = np.asarray(mat)
-        if mat.ndim != 2:
-            raise ValueError("only 2-D matrices supported")
         self._ark.write(utt.encode() + b" ")
         offset = self._ark.tell()
-        double = mat.dtype == np.float64
-        self._ark.write(_BINARY_FLAG + (b"DM " if double else b"FM "))
-        for n in mat.shape:
-            self._ark.write(b"\x04" + struct.pack("<i", n))
-        self._ark.write(np.ascontiguousarray(
-            mat, dtype="<f8" if double else "<f4").tobytes())
+        _write_matrix(self._ark, mat, self.compression_method)
         if self._scp:
             self._scp.write(
                 f"{utt} {os.path.abspath(self.ark_path)}:{offset}\n")
+
+    def __setitem__(self, utt, mat):
+        self.write(utt, mat)
 
     def close(self):
         self._ark.close()
@@ -241,3 +313,42 @@ class ArkWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def write_helper(wspecifier, compression_method=None):
+    """An :class:`ArkWriter` from a Kaldi wspecifier such as
+    ``ark,scp:a.ark,a.scp``."""
+    kinds, _, paths = wspecifier.partition(":")
+    ark_path = scp_path = None
+    for kind, path in zip(kinds.split(","), paths.split(",")):
+        if kind == "ark":
+            ark_path = path
+        elif kind == "scp":
+            scp_path = path
+    if ark_path is None:
+        raise ValueError(f"wspecifier {wspecifier!r} has no ark target")
+    return ArkWriter(ark_path, scp_path, compression_method)
+
+
+def read_wav_scp_entry(entry, dtype=np.float32):
+    """One ``wav.scp`` entry, a path or a shell command ending in ``|``
+    that writes a RIFF wav to stdout -> (sample rate, samples scaled to
+    [-1, 1] from int16/int32/uint8)."""
+    from scipy.io import wavfile
+
+    entry = entry.strip()
+    if entry.endswith("|"):
+        proc = subprocess.run(entry[:-1], shell=True, stdout=subprocess.PIPE,
+                              check=True)
+        sr, data = wavfile.read(io.BytesIO(proc.stdout))
+    else:
+        sr, data = wavfile.read(entry)
+    if data.dtype == np.int16:
+        data = data.astype(dtype) / 32768.0
+    elif data.dtype == np.int32:
+        data = data.astype(dtype) / 2147483648.0
+    elif data.dtype == np.uint8:
+        data = (data.astype(dtype) - 128.0) / 128.0
+    else:
+        data = data.astype(dtype)
+    return sr, data

@@ -132,13 +132,13 @@ class ConversionEngine:
                  seed=0, data_parallel=False, device="cuda"):
         if bundle is not None:
             raise NotImplementedError("serving bundles are not ported yet "
-                                      "(ROADMAP Queue A, serving)")
+                                      "(ROADMAP Queue A item 12)")
         if data_parallel:
             raise NotImplementedError("data-parallel serving is not ported "
-                                      "yet (ROADMAP Queue A, parallel)")
+                                      "yet (ROADMAP Queue A item 12)")
         if vocoder == "jpwg":
             raise NotImplementedError("the jpwg vocoder is not ported yet "
-                                      "(ROADMAP Queue A, vocoder)")
+                                      "(ROADMAP Queue A item 13)")
         if vocoder not in ("gl", "none"):
             raise ValueError(f"unknown vocoder {vocoder!r}")
         if config is None or checkpoint is None:

@@ -32,10 +32,12 @@ EMA level of a hierarchy draws from its own generator, reseeded from
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
-from ..infer.convert import WN_AXIS_FORMAT, read_checkpoint
+from ..infer.convert import checkpoint_variables, read_payload
 from ..models import build_model, codebook_renorm_fn
 from ..models.hier_common import HierVQMixin
 from ..models.vqvae import EmaQuantizer
@@ -43,6 +45,7 @@ from ..ops.vq import ema_vq_init
 from ..utils import msgpack_io
 from ..utils.bridge import (from_jax_variables, optimizer_from_jax,
                             optimizer_to_jax, to_jax_variables)
+from ..utils.migrate import WN_AXIS_FORMAT, maybe_migrate_model
 from .optim import OptState, build_optimizer
 
 
@@ -289,20 +292,29 @@ class Trainer:
             f.write(msgpack_io.msgpack_serialize(payload))
 
     def load_checkpoint(self, path, example_batch=None):
-        """Restore a checkpoint in the JAX format (weight-norm axis format
-        2 only); the moments are re-initialized when it carries no
-        optimizer state. Returns the stored iteration."""
+        """Restore a checkpoint in the JAX format. One of weight-norm axis
+        format 1 is migrated (``utils/migrate.py``); the moments are
+        re-initialized when it carries no optimizer state or when the
+        migration re-decomposed a layer. Returns the stored iteration."""
         if self.flat is None:
             self.init_state(example_batch)
-        payload, variables = read_checkpoint(path)
-        self.model.load_state_dict(from_jax_variables(variables),
-                                   strict=True)
-        if payload.get("optimizer"):
+        payload = read_payload(path)
+        model, migrated = maybe_migrate_model(
+            payload, to_jax_variables(self.model.state_dict())["params"])
+        self.model.load_state_dict(
+            from_jax_variables(checkpoint_variables(payload, model)),
+            strict=True)
+        if payload.get("optimizer") and not migrated:
             self.opt_state = OptState(*optimizer_from_jax(
                 payload["optimizer"], self.layout, self.tx.clips,
                 self.tx.scheduled, self.device))
         else:
             self.opt_state = self.tx.init(self.flat)
+            if migrated and payload.get("optimizer"):
+                logging.getLogger("vae_npvc_tpu_torch.train").warning(
+                    "weight-norm axis migration applied: optimizer moments "
+                    "re-initialized (checkpoint of weight-norm axis format "
+                    "1)")
         iteration = int(payload["iteration"])
         self._host_iter = iteration
         return iteration
