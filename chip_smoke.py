@@ -37,7 +37,15 @@ speaker ids, ``bin/decode`` over trials with the flagship flat model and
 its ``--all-targets`` sweep with the trained hierarchy, de-normalization
 and Griffin-Lim, with the port's decode and sweep held against the
 committed JAX decode fixture and padded batches against unpadded runs in
-fp32. Each phase prints one JSON line; any
+fp32. Last, the native Parallel WaveGAN vocoder of
+``egs/vcc20/vae1/conf/train_jpwg.yaml`` (``PWG``, fp32, no kernel of its
+own): the port's ``PwgTrainer`` against the committed JAX fixture
+(``voc_golden``), every gradient at full width against the CPU
+(``voc_grad_fp32``), sixteen steps at B = 8 x 24,576 samples on a synthetic
+corpus staged on the device (``voc_train``), a ``ConversionEngine`` with
+``vocoder="jpwg"`` answering eight requests (``voc_serve``, the flat
+model's K1/K2 launches counted) and ``jpwg_decode_scp`` over sixteen
+utterances (``voc_offline``). Each phase prints one JSON line; any
 failure exits non-zero. The last lines are the kernel summary, the card's
 name and power limit as ``nvidia-smi`` gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -54,6 +62,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import wave
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -2877,6 +2886,530 @@ def phase_offline(torch, hier_ckpt):
             "k1_hier": k1_hier}
 
 
+# the vocoder keys of egs/vcc20/vae1/conf/train_jpwg.yaml (the GPU host has
+# no YAML parser; tests/test_torch_port_io.py checks this equals the file)
+PWG = {
+    "fs": 24000, "n_fft": 1024, "n_shift": 256, "n_mels": 80, "fmin": 80,
+    "fmax": 7600, "layers": 30, "stacks": 3, "residual_channels": 64,
+    "gate_channels": 128, "skip_channels": 64, "kernel_size": 3,
+    "upsample_scales": [4, 4, 4, 4], "disc_layers": 10, "disc_channels": 64,
+    "seed": 777, "batch_size": 8, "batch_max_frames": 96,
+    "max_iter": 400000, "iters_per_checkpoint": 50000, "iters_per_log": 500,
+    "lambda_adv": 4.0, "discriminator_train_start_steps": 100000,
+    "generator_param": {"optim_type": "RAdam", "learning_rate": 0.0001,
+                        "lr_scheduler": {"step_size": 200000,
+                                         "gamma": 0.5}},
+    "discriminator_param": {"optim_type": "RAdam", "learning_rate": 0.00005,
+                            "lr_scheduler": {"step_size": 200000,
+                                             "gamma": 0.5}},
+    "steps_per_call": 8, "device_resident": "auto",
+}
+# voc_train: the adversary from step 8 of 16, so both halves of the GAN
+# schedule run (a schedule value; every width and shape is the recipe's)
+VOC_TRAIN = dict(PWG, discriminator_train_start_steps=8)
+VOC_STEPS, VOC_K = 16, 8
+VOC_UTTS = 32                       # the voc_train corpus, 2-6 s each
+VOC_REQUESTS = 8
+VOC_OFFLINE_SECONDS = np.linspace(1.0, 10.0, 16)
+VOC_REPEATS = 3
+VOC_TOL = 1e-5                      # of the peak: same weights, same noise
+# G's RAdam moments, of the network's largest |mu| (resp. |nu|): the
+# log-magnitude gradient at the seeded DC-level output carries each FFT's
+# rounding (tests/test_torch_port_pwg_train.py)
+VOC_G_MOMENT_TOL = 2e-2
+VOC_G_MOMENT_LEAF_TOL = 0.1         # of each leaf's own peak
+# the card's whole-loss generator gradient against the same loss in float64,
+# of each leaf's peak (ill-conditioned at the seeded init: voc_grad_fp32)
+VOC_WHOLE_GRAD_TOL = 0.1
+
+
+def _pwg_free_leaf(name):
+    """The ``in`` conv's direction ``v``: one input channel and kernel 1,
+    so the weight norm keeps only its sign and its exact gradient is 0."""
+    return name == "in.v"
+
+
+def phase_voc_golden(torch):
+    """The port's ``PwgTrainer`` on the card against the committed JAX
+    fixture (tests/test_torch_port_pwg_train.py) in fp32: six steps across
+    ``discriminator_train_start_steps`` from the same state with JAX's
+    noise (per-step losses), the final parameters and RAdam moments, and
+    the generator's output at JAX's final state."""
+    from vae_npvc_tpu_torch.train.pwg import PwgTrainer
+    from vae_npvc_tpu_torch.utils import msgpack_io
+
+    cfg = json.loads((FIXTURES / "pwg_golden_config.json").read_text())
+    g = np.load(FIXTURES / "pwg_golden.npz")
+    steps = len(g["detail/Total"])
+    tr = PwgTrainer(cfg, device="cuda")
+    tr.load_checkpoint(FIXTURES / "pwg_golden.msgpack")
+    worst = {}
+    for i in range(steps):
+        detail = tr.train_step((g[f"wav_{i}"], g[f"mel_{i}"]), g[f"z_{i}"])
+        for k, v in detail.items():
+            want = float(g["detail/" + k][i])
+            rel = abs(float(v) - want) / max(abs(want), 1e-12)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            check(rel <= GOLDEN_LOSS_RTOL, f"voc_golden: step {i + 1} {k} "
+                  f"{float(v)}, JAX {want}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tr.save_checkpoint(Path(tmp) / "final")
+        got = _leaves(msgpack_io.msgpack_restore(
+            (Path(tmp) / "final").read_bytes()))
+    want = _leaves(msgpack_io.msgpack_restore(
+        (FIXTURES / "pwg_golden_final.msgpack").read_bytes()))
+    check(set(got) == set(want), "voc_golden: checkpoint trees differ")
+    atol, rtol = GOLDEN_STATE_TOL
+    state_err = 0.0
+    moments = {"mu": ([], []), "nu": ([], [])}
+    g_leaf = {"mu": (0.0, None), "nu": (0.0, None)}
+    for k in want:
+        a, b = got[k].astype(np.float64), want[k].astype(np.float64)
+        check(a.shape == b.shape, f"voc_golden: {k} shape {a.shape}")
+        kind = k.split("/")[3] if k.startswith("optimizer_G/1/0/") else None
+        if kind in moments:
+            moments[kind][0].append(a.ravel())
+            moments[kind][1].append(b.ravel())
+            leaf = k.split("/", 4)[4]
+            if not _pwg_free_leaf(leaf.replace("/", ".")):
+                err = float(np.abs(a - b).max())
+                r = err / float(np.abs(b).max()) if err else 0.0
+                if r > g_leaf[kind][0]:
+                    g_leaf[kind] = (r, leaf)
+            continue
+        if not b.size:
+            continue
+        err = np.abs(a - b)
+        state_err = max(state_err, float(err.max()))
+        check(bool(np.all(err <= atol + rtol * np.abs(b))),
+              f"voc_golden: {k} differs from JAX by {float(err.max())}")
+    g_moment, g_moment_l2 = {}, {}
+    for kind, (a, b) in moments.items():
+        a, b = np.concatenate(a), np.concatenate(b)
+        g_moment[kind] = float(np.abs(a - b).max() / np.abs(b).max())
+        g_moment_l2[kind] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        check(g_moment[kind] <= VOC_G_MOMENT_TOL, f"voc_golden: G's {kind} "
+              f"differs from JAX by {g_moment[kind]} of its largest")
+        check(g_leaf[kind][0] <= VOC_G_MOMENT_LEAF_TOL, f"voc_golden: G's "
+              f"{kind} of {g_leaf[kind][1]} differs from JAX by "
+              f"{g_leaf[kind][0]} of the leaf's peak")
+    final = PwgTrainer(cfg, device="cuda")
+    final.load_checkpoint(FIXTURES / "pwg_golden_final.msgpack")
+    wav = final.synthesize(g["eval/mel"], g["eval/z"])
+    ref = g["eval/wav"][..., 0]
+    peak = float(np.abs(ref).max())
+    wav_err = float(np.abs(wav - ref).max())
+    check(wav.shape == ref.shape and wav_err <= VOC_TOL * peak,
+          f"voc_golden: generator output differs from JAX by {wav_err} "
+          f"(peak {peak})")
+    emit({"phase": "voc_golden", "steps": steps,
+          "d_start": cfg["discriminator_train_start_steps"],
+          "worst_rel_err": worst, "loss_rtol": GOLDEN_LOSS_RTOL,
+          "state_leaves": len(want), "state_max_abs_err": state_err,
+          "state_atol_rtol": list(GOLDEN_STATE_TOL),
+          "g_moment_err_of_largest": g_moment,
+          "g_moment_rel_l2": g_moment_l2,
+          "g_moment_tol_of_largest": VOC_G_MOMENT_TOL,
+          "g_moment_worst_leaf": g_leaf,
+          "g_moment_tol_of_leaf_peak": VOC_G_MOMENT_LEAF_TOL,
+          "wav_max_abs_err": wav_err, "wav_peak": peak,
+          "tolerance_of_peak": VOC_TOL})
+
+
+def phase_voc_grad_fp32(torch):
+    """Every generator and discriminator gradient of the recipe's vocoder
+    at full width in fp32 on the card against the same weights and inputs
+    on the CPU (B = 2, 32 frames = 8,192 samples), within ``GRAD_TOL`` of
+    each gradient's peak. The generator's gradients are its backward of one
+    cotangent (the CPU's gradient of the whole loss, STFT and adversarial,
+    at its output); the loss's own input gradient is held on a prediction
+    with a speech-like spectrum. At the seeded initialization the
+    generator's output is a DC level with ~0.5 % variation, where the
+    log-magnitude gradient 1/|X| carries each FFT's rounding: the whole
+    loss's gradient there, autograd end to end, is held against the same
+    loss in float64 on the CPU (trunk and STFT loss; fp32 parameters and
+    waveform) within ``VOC_WHOLE_GRAD_TOL`` of each leaf's peak (but
+    ``in.v``); the CPU's fp32 against both is reported."""
+    from vae_npvc_tpu_torch.data.features import logmelspectrogram
+    from vae_npvc_tpu_torch.models.pwg import PWGDiscriminator, PWGGenerator
+    from vae_npvc_tpu_torch.ops.stft_loss import (DEFAULT_RESOLUTIONS,
+                                                  multi_stft_loss,
+                                                  single_stft_loss)
+
+    cfg = dict(PWG, compute_dtype="float32")
+    B, T, hop = 2, 32, 256
+    S = T * hop
+    wav = np.stack([_speechlike(S, 24000, 70 + b) for b in range(B)])
+    mel = logmelspectrogram(torch.from_numpy(wav), fs=24000, n_fft=1024,
+                            n_shift=256, n_mels=80, fmin=80,
+                            fmax=7600)[:, :T].numpy()
+    z = np.random.default_rng(4).normal(size=(B, S, 1)).astype(np.float32)
+    nets = {}
+    for dev in ("cpu", "cuda"):
+        gen = PWGGenerator(cfg).init_random(777).to(dev)
+        disc = PWGDiscriminator(cfg).init_random(778).to(dev)
+        nets[dev] = (gen, disc)
+
+    def loss_terms(wav_hat, target, disc):
+        sc, mag = multi_stft_loss(wav_hat, target)
+        adv = torch.mean((disc(wav_hat[..., None]) - 1.0) ** 2)
+        return sc + mag + 4.0 * adv
+
+    # the CPU's cotangent of the whole loss at the generator's output
+    gen_c, disc_c = nets["cpu"]
+    wav_c = torch.from_numpy(wav)
+    hat_c = gen_c(torch.from_numpy(z), torch.from_numpy(mel))[..., 0]
+    leaf = hat_c.detach().clone().requires_grad_()
+    ct = torch.autograd.grad(loss_terms(leaf, wav_c, disc_c), leaf)[0]
+    results, worst = {}, {}
+    for dev, (gen, disc) in nets.items():
+        t = lambda a: torch.as_tensor(a, device=dev)      # noqa: E731
+        hat = gen(t(z), t(mel))[..., 0]
+        g_grads = torch.autograd.grad(hat, list(gen.parameters()), t(ct))
+        d_loss = (torch.mean((disc(t(wav)[..., None]) - 1.0) ** 2)
+                  + torch.mean(disc(t(hat_c.detach())[..., None]) ** 2))
+        d_grads = torch.autograd.grad(d_loss, list(disc.parameters()))
+        # the loss's input gradient on a speech-like prediction
+        pred = (t(wav) + 0.05 * t(z[..., 0])).requires_grad_()
+        in_grad = torch.autograd.grad(loss_terms(pred, t(wav), disc), pred)[0]
+        # the whole loss's generator gradient, autograd end to end
+        e2e = torch.autograd.grad(
+            loss_terms(gen(t(z), t(mel))[..., 0], t(wav), disc),
+            list(gen.parameters()))
+        results[dev] = ([x.cpu() for x in g_grads],
+                        [x.cpu() for x in d_grads], in_grad.cpu(),
+                        [x.cpu() for x in e2e], d_loss.item(),
+                        hat.detach().cpu())
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+
+    gc, dc, ic, ec, dlc, hc = results["cpu"]
+    gd, dd, idv, ed, dld, hd = results["cuda"]
+    g_peak = max(float(x.abs().max()) for x in gc)
+    for kind, names, got, want in (
+            ("generator", [n for n, _ in gen_c.named_parameters()], gd, gc),
+            ("discriminator", [n for n, _ in disc_c.named_parameters()],
+             dd, dc)):
+        w, wn = 0.0, None
+        for name, a, b in zip(names, got, want):
+            check(bool(torch.isfinite(a).all()),
+                  f"voc_grad_fp32: {kind} {name} not finite")
+            r = (float((a - b).abs().max()) / g_peak
+                 if _pwg_free_leaf(name) else rel(a, b))
+            if r > w:
+                w, wn = r, name
+        worst[kind] = (w, wn)
+        check(w <= GRAD_TOL, f"voc_grad_fp32: {kind} gradient of {wn} "
+              f"differs by {w} of its peak")
+    in_err = rel(idv, ic)
+    check(in_err <= GRAD_TOL, f"voc_grad_fp32: the loss's input gradient "
+          f"differs by {in_err} of its peak")
+    out_err = rel(hd, hc)
+    check(out_err <= VOC_TOL, f"voc_grad_fp32: generator output differs "
+          f"by {out_err} of its peak")
+    check(abs(dld - dlc) <= 1e-5 * abs(dlc), f"voc_grad_fp32: D loss "
+          f"{dld} on the card, {dlc} on the CPU")
+    # the whole loss in float64 on the CPU, on the CPU nets' parameters
+    gen64 = PWGGenerator(cfg, dtype=torch.float64)
+    disc64 = PWGDiscriminator(cfg, dtype=torch.float64)
+    gen64.load_state_dict(gen_c.state_dict())
+    disc64.load_state_dict(disc_c.state_dict())
+    hat64 = gen64(torch.from_numpy(z), torch.from_numpy(mel))[..., 0]
+    stft64 = sum(sum(single_stft_loss(hat64.double(), wav_c.double(), *r))
+                 for r in DEFAULT_RESOLUTIONS) / len(DEFAULT_RESOLUTIONS)
+    loss64 = stft64 + 4.0 * torch.mean((disc64(hat64[..., None]) - 1.0) ** 2)
+    e64 = torch.autograd.grad(loss64, list(gen64.parameters()))
+    names = [n for n, _ in gen_c.named_parameters()]
+    e2e = {}
+    for key, got, want in (("card_vs_cpu", ed, ec), ("card_vs_float64", ed,
+                                                     e64),
+                           ("cpu_vs_float64", ec, e64)):
+        e2e[key] = max((rel(a, b.float()), n) for n, a, b in zip(
+            names, got, want) if not _pwg_free_leaf(n) and b.abs().max() > 0)
+    check(e2e["card_vs_float64"][0] <= VOC_WHOLE_GRAD_TOL, f"voc_grad_fp32: "
+          f"the whole loss's gradient of {e2e['card_vs_float64'][1]} differs "
+          f"from float64 by {e2e['card_vs_float64'][0]} of its peak")
+    emit({"phase": "voc_grad_fp32", "B": B, "samples": S,
+          "generator_parameters": len(gc),
+          "discriminator_parameters": len(dc),
+          "output_err_of_peak": out_err, "output_std": float(hc.std()),
+          "output_mean": float(hc.mean()),
+          "worst_generator_grad": worst["generator"],
+          "worst_discriminator_grad": worst["discriminator"],
+          "loss_input_grad_err_speechlike": in_err,
+          "d_loss_gpu": dld, "d_loss_cpu": dlc, "tolerance": GRAD_TOL,
+          "whole_loss_generator_grad_err_of_leaf_peak": e2e,
+          "whole_loss_tolerance_card_vs_float64": VOC_WHOLE_GRAD_TOL})
+
+
+def _voc_corpus(root, n, seed):
+    """A ``wav.scp`` of ``n`` speech-like int16 wavs of 2-6 s at 24 kHz."""
+    from scipy.io import wavfile
+
+    wav = root / "wav"
+    wav.mkdir(parents=True)
+    lines = []
+    for i, sec in enumerate(np.linspace(2.0, 6.0, n)):
+        x = _speechlike(int(sec * 24000), 24000, seed + i)
+        wavfile.write(wav / f"v{i:03d}.wav", 24000,
+                      (x * 32767).astype(np.int16))
+        lines.append(f"v{i:03d} {wav}/v{i:03d}.wav\n")
+    (root / "wav.scp").write_text("".join(lines))
+    return root
+
+
+def phase_voc_train(torch, root):
+    """The recipe's vocoder (``VOC_TRAIN``: full width, fp32, B = 8 x 96
+    frames = 24,576 samples) for ``VOC_STEPS`` steps through
+    ``train_steps_device`` (K = 8) on a synthetic 24 kHz corpus staged on
+    the device, the adversary from step 8: ms per step of each half,
+    samples/s, peak memory, one profiled adversarial step, a save/load
+    round trip. Returns the checkpoint path."""
+    from vae_npvc_tpu_torch.data.wav_mel import WavMelDataset
+    from vae_npvc_tpu_torch.train.pwg import PwgTrainer
+
+    t0 = time.perf_counter()
+    ds = WavMelDataset(_voc_corpus(root / "voc_corpus", VOC_UTTS, 300),
+                       VOC_TRAIN)
+    load_s = time.perf_counter() - t0
+    tr = PwgTrainer(VOC_TRAIN, device="cuda")
+    tr.init_state()
+    staged = tr.stage_dataset(ds, VOC_TRAIN["batch_size"])
+    d0 = tr.D.flat.clone()
+    calls, details = [], []
+    for c in range(VOC_STEPS // VOC_K):
+        if c == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        details.append(tr.train_steps_device(VOC_K))
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t) * 1e3 / VOC_K)
+        if c == 0:
+            check(torch.equal(tr.D.flat, d0), "voc_train: D moved before "
+                  "discriminator_train_start_steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not torch.equal(tr.D.flat, d0), "voc_train: D never moved")
+    losses = {k: torch.cat([d[k] for d in details]).cpu().numpy()
+              for k in details[0]}
+    for k, v in losses.items():
+        check(v.shape == (VOC_STEPS,) and bool(np.isfinite(v).all()),
+              f"voc_train: {k} {v}")
+    profile = _profiled(torch, lambda: tr.train_steps_device(1))
+    ckpt = root / "voc_model.final"
+    tr.save_checkpoint(ckpt)
+    back = PwgTrainer(VOC_TRAIN, device="cuda")
+    back.load_checkpoint(ckpt)
+    back.save_checkpoint(root / "voc_again")
+    check((root / "voc_again").read_bytes() == ckpt.read_bytes(),
+          "voc_train: save/load round trip changed the checkpoint")
+    check(back.iteration == VOC_STEPS + 1, "voc_train: iteration")
+    samples = VOC_TRAIN["batch_size"] * VOC_TRAIN["batch_max_frames"] \
+        * VOC_TRAIN["n_shift"]
+    emit({"phase": "voc_train", "steps": VOC_STEPS, "steps_per_call": VOC_K,
+          "batch": VOC_TRAIN["batch_size"], "samples_per_step": samples,
+          "corpus_utterances": VOC_UTTS, "corpus_load_s": load_s,
+          "staged_bytes": staged,
+          "ms_per_step_calls": calls,
+          "ms_per_step_generator_only_incl_first": calls[0],
+          "ms_per_step_adversarial": calls[1],
+          "samples_per_s_adversarial": samples / (calls[1] / 1e3),
+          "peak_memory_gb": peak_gb,
+          "losses_first_last": {k: [float(v[0]), float(v[-1])]
+                                for k, v in losses.items()},
+          "adversarial_step_profile": profile,
+          "checkpoint_mb": ckpt.stat().st_size / 1e6})
+    return ckpt
+
+
+def _voc_config_file(root):
+    path = root / "voc.json"
+    path.write_text(json.dumps(VOC_TRAIN))
+    return path
+
+
+def phase_voc_serve(torch, root, voc_ckpt):
+    """A ``ConversionEngine(vocoder="jpwg")`` with the flagship flat model
+    (bf16, seeded weights) and ``voc_train``'s vocoder answering
+    ``VOC_REQUESTS`` requests of 1-4 s from four threads; one 512-frame
+    synthesis profiled; the served wav against the generator run directly
+    on the same canvas and noise. Returns the K1/K2 launches per ``infer``.
+    """
+    from vae_npvc_tpu_torch.serve import ConversionEngine
+
+    fs, shift, D = 24000, 256, 80
+    ckpt = root / "voc_flat.ckpt"
+    _random_checkpoint(torch, ckpt, seed=3)
+    stats = np.zeros((2, D + 1), np.float64)
+    stats[0, :-1] = -3.0 * 1000
+    stats[0, -1] = 1000
+    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
+    engine = ConversionEngine(FLAGSHIP, ckpt, stats, vocoder="jpwg",
+                              voc_config=_voc_config_file(root),
+                              voc_checkpoint=voc_ckpt, seed=5,
+                              device="cuda")
+    try:
+        t0 = time.monotonic()
+        engine.warmup(2)
+        warm_s = time.monotonic() - t0
+        durations = np.linspace(1.0, 4.0, VOC_REQUESTS)
+        wavs = [_speechlike(int(d * fs), fs, 40 + i)
+                for i, d in enumerate(durations)]
+
+        def one(i):
+            t = time.monotonic()
+            out, sr = engine.convert(wavs[i], fs, (7 * i) % 117)
+            return out, sr, (time.monotonic() - t) * 1e3
+
+        calls0 = engine.batcher.calls
+        _zero_counts()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(4) as ex:
+            results = list(ex.map(one, range(len(wavs))))
+        wall_s = time.monotonic() - t0
+        launches = _read_counts()
+        calls = engine.batcher.calls - calls0
+        for i, (out, sr, _) in enumerate(results):
+            T_true = 1 + wavs[i].size // shift
+            check(sr == fs and out.shape == (T_true * shift,),
+                  f"voc_serve: request {i} gave {out.shape} at {sr} Hz")
+            check(bool(np.all(np.isfinite(out))) and np.abs(out).max() > 0,
+                  f"voc_serve: request {i} not finite or silent")
+        per_infer = {k: launches[k] / max(calls, 1)
+                     for k in FLAT_LAUNCHES}
+        check({k: launches[k] for k in FLAT_LAUNCHES}
+              == {k: v * calls for k, v in FLAT_LAUNCHES.items()},
+              f"voc_serve: launches {launches} over {calls} infer calls")
+        # the served wav against the generator on the same canvas and noise
+        wav = wavs[-1]
+        out, _ = engine.convert(wav, fs, 9)
+        mel, _ = engine.convert(wav, fs, 9, return_mel=True)
+        T_pad = engine._pick_pad(mel.shape[0])
+        canvas = engine._silence_canvas(mel, T_pad)
+        z = engine._voc.noise(T_pad, engine.seed)
+        with torch.inference_mode():
+            direct = engine._voc.gen(
+                z[None], torch.as_tensor(canvas[None], device="cuda"))
+        direct = direct[0, :mel.shape[0] * shift, 0].cpu().numpy()
+        served_err = float(np.abs(out - direct).max())
+        served_peak = float(np.abs(direct).max())
+        check(out.shape == direct.shape
+              and served_err <= VOC_TOL * served_peak,
+              f"voc_serve: served wav differs from the generator by "
+              f"{served_err} (peak {served_peak})")
+        canvas512 = engine._silence_canvas(
+            np.random.default_rng(2).normal(size=(512, D)).astype(
+                np.float32) - 3.0, 512)
+        engine._voc.synthesize(canvas512, 0)
+        profile = _profiled(
+            torch, lambda: engine._voc.synthesize(canvas512, 0))
+        lat = [r[2] for r in results]
+        emit({"phase": "voc_serve", "requests": len(results), "threads": 4,
+              "seconds_per_request_min_max":
+                  [float(durations[0]), float(durations[-1])],
+              "warmup_s": warm_s, "wall_s": wall_s,
+              "requests_per_s": len(results) / wall_s,
+              "audio_s_per_wall_s": float(durations.sum()) / wall_s,
+              "latency_ms_median": float(np.median(lat)),
+              "latency_ms_max": float(np.max(lat)), "infer_calls": calls,
+              "launches": launches, "launches_per_infer": per_infer,
+              "launches_per_request": {k: launches[k] / len(results)
+                                       for k in FLAT_LAUNCHES},
+              "served_wav_err": served_err, "served_wav_peak": served_peak,
+              "synthesis_512_frames_profile": profile})
+        return launches, calls
+    finally:
+        engine.close()
+
+
+def phase_voc_offline(torch, root, voc_ckpt):
+    """``jpwg_decode_scp`` (recipe stage 6, ``voc=JPWG``) over a feats.scp
+    of 16 utterances of 1-10 s (log-mel of speech-like wavs): one warm-up
+    decode, ``VOC_REPEATS`` timed; every wav ``frames * 256`` samples; a
+    long utterance through chunked synthesis against its full-length pass
+    on the same noise; a ``chunk_frames`` decode of the corpus."""
+    from vae_npvc_tpu_torch.data import features, kaldi_io
+    from vae_npvc_tpu_torch.infer import vocoder
+
+    d = root / "voc_denorm"
+    d.mkdir()
+    frames = {}
+    with kaldi_io.ArkWriter(d / "feats.ark", d / "feats.scp") as w:
+        for i, sec in enumerate(VOC_OFFLINE_SECONDS):
+            x = _speechlike(int(round(sec * 24000)), 24000, 500 + i)
+            mel = features.logmelspectrogram(
+                torch.as_tensor(x[None], device="cuda"), fs=24000,
+                n_fft=1024, n_shift=256, n_mels=80, fmin=80,
+                fmax=7600)[0].cpu().numpy()
+            w.write(f"d{i:02d}", mel)
+            frames[f"d{i:02d}"] = mel.shape[0]
+    cfg = _voc_config_file(root)
+    scp, out = d / "feats.scp", root / "voc_wav"
+    n = vocoder.jpwg_decode_scp(scp, out, cfg, voc_ckpt,
+                                device="cuda")                # warm-up
+    check(n == len(frames), f"voc_offline: decode wrote {n}")
+    times = []
+    for _ in range(VOC_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vocoder.jpwg_decode_scp(scp, out, cfg, voc_ckpt, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    for u, T in frames.items():
+        with wave.open(str(out / f"{u}.wav")) as wv:
+            check(wv.getnframes() == T * 256 and wv.getframerate() == 24000,
+                  f"voc_offline: {u} has {wv.getnframes()} samples, "
+                  f"{T} frames")
+    # chunked synthesis of the longest utterance against its full pass
+    gen = vocoder.load_generator(cfg, voc_ckpt, 80, device="cuda")
+    u = max(frames, key=frames.get)
+    mel = kaldi_io.load_mat(kaldi_io.read_scp(scp)[u])
+    z = vocoder.decode_noise(0, 0, (mel.shape[0] * 256, 1), "cuda")
+    halo = vocoder.jpwg_receptive_frames(VOC_TRAIN)
+    with torch.inference_mode():
+        full = gen(z[None], torch.as_tensor(mel[None], device="cuda"))[
+            0, :, 0].cpu().numpy()
+    chunked = vocoder.jpwg_synthesize_chunked(gen, mel, z, chunk_frames=200,
+                                              halo_frames=halo, hop=256)
+    chunk_err = float(np.abs(chunked - full).max())
+    chunk_peak = float(np.abs(full).max())
+    check(chunk_err <= VOC_TOL * chunk_peak, f"voc_offline: chunked "
+          f"synthesis differs from the full pass by {chunk_err}")
+    n = vocoder.jpwg_decode_scp(scp, root / "voc_wav_chunked", cfg,
+                                voc_ckpt, chunk_frames=256, device="cuda")
+    n_long = sum(T > 256 for T in frames.values())
+    for u, T in frames.items():
+        with wave.open(str(root / "voc_wav_chunked" / f"{u}.wav")) as wv:
+            check(wv.getnframes() == T * 256, f"voc_offline: chunked {u}")
+    audio_s = sum(frames.values()) * 256 / 24000
+    # each utterance is synthesized on its 64-frame bucket
+    synth = sum(-(-T // 64) * 64 * 256 for T in frames.values())
+    per = float(np.mean(times))
+    emit({"phase": "voc_offline", "utterances": len(frames),
+          "frames": int(sum(frames.values())), "audio_s": audio_s,
+          "decode_s": times, "utterances_per_s": len(frames) / per,
+          "audio_s_per_wall_s": audio_s / per,
+          "batch_size": 8, "bucket_frames": 64,
+          "synthesized_samples": synth,
+          "audio_samples": int(sum(frames.values())) * 256,
+          "chunked_utterance_frames": int(mel.shape[0]),
+          "chunk_frames": 200, "halo_frames": halo,
+          "chunk_max_abs_err": chunk_err, "chunk_peak": chunk_peak,
+          "chunked_decode_long_utterances": n_long, "chunked_decode_n": n})
+
+
+def phase_voc(torch, root):
+    """The vocoder slice: golden, gradients, training, serving, offline.
+    Returns the flat model's launches and ``infer`` calls in serving."""
+    phase_voc_golden(torch)
+    phase_voc_grad_fp32(torch)
+    ckpt = phase_voc_train(torch, root)
+    serve = phase_voc_serve(torch, root, ckpt)
+    phase_voc_offline(torch, root, ckpt)
+    return serve
+
+
 def main():
     import torch
 
@@ -2903,6 +3436,7 @@ def main():
         hier_train, hier_infer, hier_k1, hier_ckpt = phase_hier(
             torch, Path(tmp))
         offline = phase_offline(torch, hier_ckpt)
+        voc_launches, voc_calls = phase_voc(torch, Path(tmp))
 
     vq_main = vq[0]
     # K2 and K3 in the layout the model hands them (channels-first x)
@@ -2988,7 +3522,9 @@ def main():
          "launches_offline_hier_sweep": offline["hier_sweep"]["vq_fused"],
          "offline_decode_batches": offline["decode_batches"],
          "offline_hier_sweep_batches": offline["hier_sweep_batches"],
-         "offline_hier_calls": offline["k1_hier"]},
+         "offline_hier_calls": offline["k1_hier"],
+         "launches_voc_serve": voc_launches["vq_fused"],
+         "voc_serve_infer_calls": voc_calls},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",
@@ -3011,7 +3547,9 @@ def main():
          "offline_plans": offline["k2_plans"],
          "offline_shapes": [dict({k: c[k] for k in gn_keys}, G=c["G"],
                                  glu=c["glu"], masked=c["masked"])
-                            for c in gn if c["T"] in (768, 1024)]},
+                            for c in gn if c["T"] in (768, 1024)],
+         "launches_voc_serve": voc_launches["fused_group_norm"],
+         "voc_serve_infer_calls": voc_calls},
         {"name": "fused_group_norm_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",

@@ -676,3 +676,155 @@ def test_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
     x = torch.zeros((1, 1, 8, 16), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         fused_attention(x, x, x)
+
+
+# ---------------------------------------------- the vocoder (no kernel)
+# The Parallel WaveGAN path reaches no hand-written kernel: its
+# convolutions are cuDNN's. These hold the card against the CPU on the same
+# weights and inputs in fp32.
+PWG_SMALL = {"layers": 6, "stacks": 2, "residual_channels": 16,
+             "gate_channels": 32, "skip_channels": 16, "kernel_size": 3,
+             "upsample_scales": [4, 4], "n_mels": 12, "disc_layers": 4,
+             "disc_channels": 16}
+
+
+def _pwg_nets(cfg, dev):
+    from vae_npvc_tpu_torch.models.pwg import PWGDiscriminator, PWGGenerator
+
+    return (PWGGenerator(cfg).init_random(1).to(dev),
+            PWGDiscriminator(cfg).init_random(2).to(dev))
+
+
+@pytest.mark.parametrize("width,dtype,tol", [
+    ("small", "float32", 1e-5), ("recipe", "float32", 1e-5),
+    ("small", "bfloat16", 2 ** -5)])
+def test_pwg_generator_and_discriminator_match_the_cpu(dev, width, dtype,
+                                                      tol):
+    cfg = dict(PWG_SMALL if width == "small" else {}, compute_dtype=dtype)
+    T = 24 if width == "small" else 8
+    hop = 16 if width == "small" else 256
+    aux = cfg.get("n_mels", 80)
+    rng = np.random.default_rng(0)
+    z = torch.tensor(rng.normal(size=(2, T * hop, 1)), dtype=torch.float32)
+    mel = torch.tensor(rng.normal(size=(2, T, aux)), dtype=torch.float32)
+    outs = {}
+    for d in ("cpu", dev):
+        gen, disc = _pwg_nets(cfg, d)
+        with torch.no_grad():
+            wav = gen(z.to(d), mel.to(d))
+            # the discriminator reads the CPU's wav on both sides
+            wav_in = outs["cpu"][0].to(d) if "cpu" in outs else wav
+            outs[str(d)] = (wav.cpu(), disc(wav_in).cpu())
+    (wc, lc), (wg, lg) = outs["cpu"], outs[str(dev)]
+    torch.testing.assert_close(wg, wc, rtol=0,
+                               atol=tol * float(wc.abs().max()))
+    torch.testing.assert_close(lg, lc, rtol=0,
+                               atol=tol * float(lc.abs().max()))
+
+
+def test_pwg_stft_loss_and_gradient_match_the_cpu(dev):
+    from vae_npvc_tpu_torch.ops.stft_loss import multi_stft_loss
+
+    rng = np.random.default_rng(1)
+    t = np.arange(8192) / 24000.0
+    y = (0.3 * np.sin(2 * np.pi * 220 * t)[None]
+         + 0.02 * rng.normal(size=(2, 8192))).astype(np.float32)
+    x = (y + 0.05 * rng.normal(size=(2, 8192))).astype(np.float32)
+    x[1, -3000:] = y[1, -3000:] = 0.0          # a zero-padded tail
+    res = {}
+    for d in ("cpu", dev):
+        xt = torch.tensor(x, device=d, requires_grad=True)
+        sc, mag = multi_stft_loss(xt, torch.tensor(y, device=d))
+        (sc + mag).backward()
+        res[str(d)] = (sc.item(), mag.item(), xt.grad.cpu())
+    (sc_c, mag_c, g_c), (sc_g, mag_g, g_g) = res["cpu"], res[str(dev)]
+    assert abs(sc_g - sc_c) <= 1e-5 * sc_c
+    assert abs(mag_g - mag_c) <= 1e-5 * mag_c
+    assert bool(torch.isfinite(g_g).all())
+    torch.testing.assert_close(g_g, g_c, rtol=0,
+                               atol=1e-3 * float(g_c.abs().max()))
+
+
+def test_pwg_trainer_steps_match_the_cpu(dev, tmp_path):
+    """Four steps across the adversary's start from one state with the same
+    noise: losses within 1e-4 relative, discriminator parameters within
+    2e-5 + 1e-3 |x|."""
+    from vae_npvc_tpu_torch.train.pwg import PwgTrainer
+
+    cfg = dict(PWG_SMALL, discriminator_train_start_steps=2,
+               stft_loss_params=[[64, 16, 32], [128, 32, 64]])
+    rng = np.random.default_rng(2)
+    batches = [((rng.normal(size=(2, 384)) * 0.3).astype(np.float32),
+                rng.normal(size=(2, 24, 12)).astype(np.float32))
+               for _ in range(4)]
+    zs = [rng.normal(size=(2, 384, 1)).astype(np.float32) for _ in range(4)]
+    seed = PwgTrainer(cfg, device="cpu")
+    seed.init_state()
+    seed.save_checkpoint(tmp_path / "seed")
+    runs = {}
+    for d in ("cpu", dev):
+        tr = PwgTrainer(cfg, device=d)
+        tr.load_checkpoint(tmp_path / "seed")
+        runs[str(d)] = ([{k: float(v) for k, v in tr.train_step(b, z).items()}
+                         for b, z in zip(batches, zs)], tr.D.flat.cpu())
+    (dc, fc), (dg, fg) = runs["cpu"], runs[str(dev)]
+    for a, b in zip(dg, dc):
+        for k in b:
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]) + 1e-7, k
+    torch.testing.assert_close(fg, fc, atol=2e-5, rtol=1e-3)
+
+
+def test_external_vocoder_shim_runs_on_the_card(dev, tmp_path, monkeypatch):
+    """``external_decode_scp`` with stand-ins for the ``parallel_wavegan``
+    package and PyYAML (neither is on a GPU host without them): the model
+    and every mel it is given sit on the card, and each wav has ``frames *
+    hop`` samples."""
+    import json
+    import sys
+    import types
+    import wave
+
+    from vae_npvc_tpu_torch.data import kaldi_io
+    from vae_npvc_tpu_torch.infer.vocoder import external_decode_scp
+
+    seen = set()
+
+    class Model(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("scale", torch.ones(1))
+
+        def remove_weight_norm(self):
+            pass
+
+        def inference(self, c):
+            seen.add((self.scale.device.type, c.device.type))
+            return (c[:, :1] * self.scale).repeat_interleave(4, 0) * 0.0
+
+    utils = types.ModuleType("parallel_wavegan.utils")
+    utils.load_model = lambda ckpt, config: Model()
+    utils.read_hdf5 = lambda path, key: (np.zeros(8) if key == "mean"
+                                         else np.ones(8))
+    pkg = types.ModuleType("parallel_wavegan")
+    pkg.utils = utils
+    fake_yaml = types.ModuleType("yaml")
+    fake_yaml.safe_load = json.load
+    monkeypatch.setitem(sys.modules, "parallel_wavegan", pkg)
+    monkeypatch.setitem(sys.modules, "parallel_wavegan.utils", utils)
+    monkeypatch.setitem(sys.modules, "yaml", fake_yaml)
+    exp = tmp_path / "exp"
+    exp.mkdir()
+    (exp / "checkpoint-1steps.pkl").write_bytes(b"stand-in")
+    (exp / "stats.h5").write_bytes(b"stand-in")
+    (exp / "config.yml").write_text(json.dumps({"sampling_rate": 8000}))
+    frames = {"a": 20, "b": 7}
+    rng = np.random.default_rng(0)
+    with kaldi_io.ArkWriter(tmp_path / "f.ark", tmp_path / "f.scp") as w:
+        for u, n in frames.items():
+            w.write(u, rng.normal(size=(n, 8)).astype(np.float32))
+    assert external_decode_scp(tmp_path / "f.scp", tmp_path / "wav",
+                               exp) == 2
+    assert seen == {("cuda", "cuda")}
+    for u, n in frames.items():
+        with wave.open(str(tmp_path / "wav" / f"{u}.wav")) as wv:
+            assert wv.getnframes() == n * 4

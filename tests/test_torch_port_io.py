@@ -157,6 +157,20 @@ def test_chip_smoke_flagship_config_matches_recipe_yaml():
         assert k in chip_smoke.FLAGSHIP
 
 
+def test_chip_smoke_vocoder_config_is_the_recipe_yaml():
+    import yaml
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    with open(ROOT / "egs/vcc20/vae1/conf/train_jpwg.yaml") as f:
+        y = yaml.safe_load(f)
+    assert chip_smoke.PWG == y
+    # voc_train moves only the adversary's start step
+    assert {k: v for k, v in chip_smoke.VOC_TRAIN.items()
+            if y[k] != v} == {"discriminator_train_start_steps": 8}
+
+
 _BLOCKED_IMPORTS = r"""
 import importlib, importlib.abc, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "vae_npvc_tpu",
@@ -174,6 +188,10 @@ for n in names:
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
+vocoder = {"vae_npvc_tpu_torch." + n for n in (
+    "models.pwg", "ops.stft_loss", "train.pwg", "data.wav_mel",
+    "bin.train_pwg", "infer.vocoder")}
+assert vocoder <= set(names), vocoder - set(names)
 print(len(names))
 """
 

@@ -106,10 +106,11 @@ def test_engine_targets_batching_and_unported_options(parts):
         assert eng.stats_snapshot()["requests"] == 8
     finally:
         eng.close()
-    for kw in ({"bundle": "b"}, {"vocoder": "jpwg"},
-               {"data_parallel": True}):
+    for kw in ({"bundle": "b"}, {"data_parallel": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port_engine(parts, **kw)
+    with pytest.raises(ValueError, match="voc_config"):
+        _port_engine(parts, vocoder="jpwg")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         ConversionEngine(parts[0], parts[1], parts[2])
 

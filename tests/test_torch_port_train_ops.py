@@ -368,5 +368,12 @@ def test_adam_matches_optax_chain(scheduled):
 
 @pytest.mark.parametrize("kind", ["RAdam", "PlainRAdam", "AdamW"])
 def test_unported_optimizers_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer({"optim_type": kind})
+    """The optimizers this test once found unported now build (each is
+    held against optax in tests/test_torch_port_pwg_model.py); AdamW's
+    checkpoint tree has the decay's slot."""
+    tx = build_optimizer({"optim_type": kind})
+    params = torch.ones(3)
+    update, state = tx.update(torch.full((3,), 0.5), tx.init(params),
+                              params)
+    assert bool(torch.isfinite(update).all()) and int(state.count) == 1
+    assert tx.decoupled == (kind == "AdamW")

@@ -175,11 +175,14 @@ def main(argv=None):
     p.add_argument("--spk2spk_id", default=None)
     p.add_argument("--vocoder", default="gl",
                    choices=("gl", "jpwg", "none"),
-                   help="jpwg is not ported yet")
+                   help="gl: Griffin-Lim; jpwg: the native Parallel "
+                        "WaveGAN (--voc_config, --voc_checkpoint); none: "
+                        "mel only")
     p.add_argument("--voc_config", default=None,
-                   help="jpwg vocoder config (not ported yet)")
+                   help="jpwg vocoder config (train_jpwg.yaml or .json)")
     p.add_argument("--voc_checkpoint", default=None,
-                   help="jpwg vocoder checkpoint (not ported yet)")
+                   help="jpwg vocoder checkpoint (bin/train_pwg's "
+                        "model.final, JAX's or the port's)")
     p.add_argument("--gl_iters", type=int, default=64)
     p.add_argument("--feature", default=None,
                    help="YAML with fs/n_fft/n_shift/n_mels/fmin/fmax "
@@ -216,7 +219,8 @@ def main(argv=None):
         feature=feature, spk2spk_id=args.spk2spk_id, vocoder=args.vocoder,
         gl_iters=args.gl_iters, bucket_frames=args.bucket_frames,
         max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
-        data_parallel=args.data_parallel, device=args.device)
+        data_parallel=args.data_parallel, voc_config=args.voc_config,
+        voc_checkpoint=args.voc_checkpoint, device=args.device)
     if args.warmup_buckets:
         engine.warmup(args.warmup_buckets)
     httpd = serve(engine, args.host, args.port)

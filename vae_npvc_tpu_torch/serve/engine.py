@@ -4,11 +4,12 @@ Counterpart of ``vae_npvc_tpu/serve/engine.py``. Per request:
 
     resample -> log-mel fbank (device) -> CMVN (host)
     -> Converter.infer (device, masked + bucketed, coalesced by _InferBatcher)
-    -> reverse CMVN -> Griffin-Lim (device) or mel only
+    -> reverse CMVN -> Griffin-Lim or the native Parallel WaveGAN
+       (``jpwg``, device) or mel only
 
 Every device stage runs on the engine's device or raises; there is no
-retry on another device. The JAX package's native vocoder (``jpwg``),
-exported bundles and data-parallel serving are not ported yet.
+retry on another device. Exported bundles and data-parallel serving are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -121,25 +122,24 @@ class ConversionEngine:
 
     ``config`` is the experiment dict or a YAML path, ``checkpoint`` the
     JAX package's msgpack checkpoint, ``cmvn`` a Kaldi stats ark path or the
-    (2, D+1) stats array. ``vocoder`` is ``"gl"`` (Griffin-Lim) or
-    ``"none"`` (mel only). ``device`` defaults to the GPU and raises when
+    (2, D+1) stats array. ``vocoder`` is ``"gl"`` (Griffin-Lim), ``"jpwg"``
+    (the native Parallel WaveGAN of ``voc_config`` and ``voc_checkpoint``)
+    or ``"none"`` (mel only). ``device`` defaults to the GPU and raises when
     there is none.
     """
 
     def __init__(self, config, checkpoint, cmvn, *, bundle=None,
                  feature=None, spk2spk_id=None, vocoder="gl", gl_iters=64,
                  bucket_frames=None, max_batch=8, batch_window_ms=5.0,
-                 seed=0, data_parallel=False, device="cuda"):
+                 seed=0, data_parallel=False, voc_config=None,
+                 voc_checkpoint=None, device="cuda"):
         if bundle is not None:
             raise NotImplementedError("serving bundles are not ported yet "
                                       "(ROADMAP Queue A item 12)")
         if data_parallel:
             raise NotImplementedError("data-parallel serving is not ported "
                                       "yet (ROADMAP Queue A item 12)")
-        if vocoder == "jpwg":
-            raise NotImplementedError("the jpwg vocoder is not ported yet "
-                                      "(ROADMAP Queue A item 13)")
-        if vocoder not in ("gl", "none"):
+        if vocoder not in ("gl", "jpwg", "none"):
             raise ValueError(f"unknown vocoder {vocoder!r}")
         if config is None or checkpoint is None:
             raise ValueError("pass config + checkpoint")
@@ -170,6 +170,9 @@ class ConversionEngine:
         self.gl_iters = int(gl_iters)
         self.seed = int(seed)
         self.vocoder = vocoder
+        self._voc = (_JPWG(voc_config, voc_checkpoint,
+                           self.feature["n_mels"], self.device)
+                     if vocoder == "jpwg" else None)
         # speaker-id bound for resolve_target's range guard (an
         # out-of-range id would index past the embedding table)
         self._y_bound = int(config.get("y_num", 0))
@@ -260,13 +263,23 @@ class ConversionEngine:
         self._count_request(t0)
         return result, self.fs
 
-    def _vocode(self, mel_out, T_pad):
-        """Griffin-Lim on the bucket shape (valid mel in a log-mel-silence
-        canvas), cut to the true length afterwards."""
-        T_out = mel_out.shape[0]
+    @staticmethod
+    def _silence_canvas(mel_out, T_pad):
+        """The valid mel in a log-mel-silence canvas of the bucket shape
+        (log10(EPS): magnitude EPS adds nothing)."""
         canvas = np.full((T_pad, mel_out.shape[1]), np.log10(features.EPS),
                          np.float32)
-        canvas[:T_out] = mel_out
+        canvas[:mel_out.shape[0]] = mel_out
+        return canvas
+
+    def _vocode(self, mel_out, T_pad):
+        """Synthesis on the bucket shape (the silence canvas), cut to the
+        true length afterwards."""
+        T_out = mel_out.shape[0]
+        canvas = self._silence_canvas(mel_out, T_pad)
+        if self._voc is not None:
+            wav = self._voc.synthesize(canvas, self.seed)
+            return wav[:T_out * self._voc.hop].astype(np.float32)
         with torch.inference_mode():
             wav = features.griffin_lim(
                 torch.as_tensor(canvas[None], device=self.device),
@@ -312,3 +325,38 @@ class ConversionEngine:
                 "iteration": self.iteration,
                 "vocoder": self.vocoder,
             }
+
+
+class _JPWG:
+    """The native Parallel WaveGAN backend of the engine: the generator of a
+    vocoder checkpoint (the JAX trainer's or the port's) on the engine's
+    device."""
+
+    def __init__(self, config, checkpoint, n_mels, device):
+        from ..bin.train import load_config
+        from ..infer.vocoder import load_generator
+
+        if config is None or checkpoint is None:
+            raise ValueError("vocoder='jpwg' needs voc_config and "
+                             "voc_checkpoint")
+        self.config = load_config(config)
+        self.gen = load_generator(self.config, checkpoint, n_mels, device)
+        self.device = device
+        self.hop = self.gen.hop
+
+    def noise(self, T_pad, seed):
+        """The synthesis noise (T_pad * hop, 1) of a ``T_pad``-frame canvas
+        for ``seed``: ``infer/vocoder.decode_noise``'s first draw, on the
+        device."""
+        from ..infer.vocoder import decode_noise
+
+        return decode_noise(seed, 0, (T_pad * self.hop, 1), self.device)
+
+    def synthesize(self, canvas, seed):
+        """One pass of the generator over a (T_pad, n_mels) canvas:
+        (T_pad * hop,) samples."""
+        from ..infer.vocoder import run_generator
+
+        z = self.noise(canvas.shape[0], seed)
+        return run_generator(self.gen, z[None],
+                             canvas[None].astype(np.float32))[0]

@@ -1,18 +1,30 @@
 """Optimizer and schedule builders, functional over one flat vector.
 
 Counterpart of ``vae_npvc_tpu/train/optim.py`` (an optax chain of
-clip-by-global-norm and the configured optimizer). The trainer keeps every
+clip-by-global-norm and the configured optimizer). The trainers keep every
 parameter in one flat fp32 vector, so the transform here takes the flat
-gradient and returns the flat update and the new state, as
-``tx.update(grads, state)`` does in optax: the caller adds the update, and
-can keep the old state when it rejects a step. All values stay on the
-device; nothing here reads a tensor on the host.
+gradient (and, for the decoupled weight decay, the flat parameters) and
+returns the flat update and the new state, as ``tx.update(grads, state,
+params)`` does in optax: the caller adds the update, and can keep the old
+state when it rejects a step. All values stay on the device; nothing here
+reads a tensor on the host.
 
-Adam follows ``optax.adam``: the count is incremented first, both bias
-corrections use the new count, the update is ``-lr * m_hat / (sqrt(v_hat)
-+ 1e-8)``, and a schedule is read at its own count before that count is
-incremented. RAdam, PlainRAdam and the warmup AdamW of the JAX package are
-not ported yet and raise.
+Three optimizers, each as its optax counterpart computes it in float32:
+
+- ``Adam`` (``optax.adam``): the count is incremented first, both bias
+  corrections use the new count, the step is ``m_hat / (sqrt(v_hat) +
+  1e-8)``;
+- ``RAdam`` and ``PlainRAdam`` (both ``optax.radam``, threshold 5): the
+  same moments; while the length of the approximated SMA ``rho`` is below
+  the threshold the step is ``m_hat`` alone, after it ``r * m_hat /
+  (sqrt(v_hat) + 1e-8)`` with the variance rectification ``r``;
+- ``AdamW`` (``optax.adamw``, the reference's warmup AdamW): Adam's step
+  plus ``weight_decay * params``, both scaled by the rate, which with
+  ``warmup`` rises linearly from 1e-8 to ``learning_rate`` over that many
+  steps.
+
+The update is ``-lr * step``; a schedule is read at its own count before
+that count is incremented.
 """
 
 from __future__ import annotations
@@ -47,10 +59,25 @@ def build_schedule(config):
     return schedule
 
 
+def warmup_schedule(lr, warmup):
+    """The reference AdamW's warmup (``optax.join_schedules`` of a linear
+    schedule from 1e-8 to ``lr`` over ``warmup`` steps, then ``lr``); ``lr``
+    itself without warmup."""
+    if not warmup:
+        return lr
+
+    def schedule(count):
+        frac = 1.0 - torch.clamp(count, 0, warmup).float() / warmup
+        return torch.where(count < warmup, (1e-8 - lr) * frac + lr,
+                           torch.full_like(frac, lr))
+
+    return schedule
+
+
 class OptState(NamedTuple):
-    """Adam state over the flat parameter vector (the leaves of optax's
-    ``ScaleByAdamState`` and ``ScaleByScheduleState``)."""
-    count: torch.Tensor                    # () int32, Adam's step count
+    """Adam-family state over the flat parameter vector (the leaves of
+    optax's ``ScaleByAdamState`` and ``ScaleByScheduleState``)."""
+    count: torch.Tensor                    # () int32, the moments' count
     mu: torch.Tensor                       # (P,) first moment
     nu: torch.Tensor                       # (P,) second moment
     sched_count: Optional[torch.Tensor]    # () int32, None without schedule
@@ -59,6 +86,10 @@ class OptState(NamedTuple):
 class Adam:
     """clip-by-global-norm -> Adam, as ``init``/``update`` over one flat
     vector."""
+
+    # the optax chain holds add_decayed_weights between the moments and the
+    # rate (AdamW only): its checkpoint tree has one more (empty) slot
+    decoupled = False
 
     def __init__(self, schedule, b1, b2, max_grad_norm, eps=1e-8):
         self.schedule, self.b1, self.b2 = schedule, b1, b2
@@ -78,7 +109,10 @@ class Adam:
                         torch.zeros_like(params),
                         zero.clone() if self.scheduled else None)
 
-    def update(self, grad, state):
+    def _step(self, mu_hat, nu_hat, count, params):
+        return mu_hat / (torch.sqrt(nu_hat) + self.eps)
+
+    def update(self, grad, state, params=None):
         """``(update, new_state)``; the new parameters are ``params +
         update``."""
         if self.clips:
@@ -89,7 +123,7 @@ class Adam:
         c = count.float()
         mu_hat = mu / (1.0 - self.b1 ** c)
         nu_hat = nu / (1.0 - self.b2 ** c)
-        step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        step = self._step(mu_hat, nu_hat, c, params)
         if self.scheduled:
             lr = self.schedule(state.sched_count)
             sched_count = state.sched_count + 1
@@ -98,14 +132,59 @@ class Adam:
         return -lr * step, OptState(count, mu, nu, sched_count)
 
 
+class RAdam(Adam):
+    """clip-by-global-norm -> rectified Adam (``optax.radam``)."""
+
+    threshold = 5.0
+
+    def _step(self, mu_hat, nu_hat, c, params):
+        # optax's arithmetic, in float32: rho from the new count
+        ro_inf = 2.0 / (1.0 - self.b2) - 1.0
+        b2t = self.b2 ** c
+        ro = ro_inf - 2 * c * b2t / (1 - b2t)
+        r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                       / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+        rect = r * mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        return torch.where(ro >= self.threshold, rect, mu_hat)
+
+
+class AdamW(Adam):
+    """clip-by-global-norm -> Adam with decoupled weight decay
+    (``optax.adamw``): the step adds ``weight_decay * params``."""
+
+    decoupled = True
+
+    def __init__(self, schedule, b1, b2, max_grad_norm, weight_decay,
+                 eps=1e-8):
+        super().__init__(schedule, b1, b2, max_grad_norm, eps)
+        self.weight_decay = weight_decay
+
+    def _step(self, mu_hat, nu_hat, c, params):
+        step = super()._step(mu_hat, nu_hat, c, params)
+        return step + self.weight_decay * params
+
+
 def build_optimizer(config):
     """The configured gradient transform (clip, then the optimizer)."""
     optim_type = config.get("optim_type", "Adam")
     extra = dict(config.get("optim_param", {}))
-    if optim_type.upper() != "ADAM":
-        raise NotImplementedError(
-            f"optim_type {optim_type!r} is not ported to PyTorch yet "
-            "(ROADMAP Queue A, optimizers: RAdam, PlainRAdam, warmup AdamW)")
+    max_grad_norm = config.get("max_grad_norm", 5)
+    schedule = build_schedule(config)
     b1, b2 = config.get("betas", extra.get("betas", (0.5, 0.999)))
-    return Adam(build_schedule(config), b1, b2,
-                config.get("max_grad_norm", 5))
+    kind = optim_type.upper()
+    if kind in ("RADAM", "PLAINRADAM"):
+        # PlainRAdam is RAdam without the reference's step-size cache: the
+        # same update values
+        return RAdam(schedule, b1, b2, max_grad_norm)
+    if kind == "ADAMW":
+        # the reference's warmup AdamW: betas (0.9, 0.999) unless given;
+        # warmup scales the step size and the decay alike
+        wb1, wb2 = config.get("betas", extra.get("betas", (0.9, 0.999)))
+        if config.get("lr_scheduler") is None:
+            schedule = warmup_schedule(
+                config.get("learning_rate", 1e-3),
+                config.get("warmup", extra.get("warmup", 0)))
+        return AdamW(schedule, wb1, wb2, max_grad_norm,
+                     config.get("weight_decay",
+                                extra.get("weight_decay", 0.0)))
+    return Adam(schedule, b1, b2, max_grad_norm)

@@ -181,7 +181,8 @@ class Trainer:
     def _finish_step(self, flat_g, new_ema, detail):
         """Optimizer update and non-finite guard; commits the parameters,
         the optimizer state and the EMA codebooks."""
-        update, opt_state = self.tx.update(flat_g, self.opt_state)
+        update, opt_state = self.tx.update(flat_g, self.opt_state,
+                                           self.flat)
         new_flat = self.flat + update
         grad_sq = torch.sum(flat_g * flat_g)
         if self.skip_nonfinite:
@@ -284,7 +285,7 @@ class Trainer:
             "model": v["params"],
             "ema": {"ema": v["ema"]} if v["ema"] else {},
             "optimizer": optimizer_to_jax(self.opt_state, self.layout,
-                                          self.tx.clips),
+                                          self.tx.clips, self.tx.decoupled),
             "iteration": self._host_iter,
             "wn_axis_format": WN_AXIS_FORMAT,
         }
@@ -307,7 +308,7 @@ class Trainer:
         if payload.get("optimizer") and not migrated:
             self.opt_state = OptState(*optimizer_from_jax(
                 payload["optimizer"], self.layout, self.tx.clips,
-                self.tx.scheduled, self.device))
+                self.tx.scheduled, self.device, self.tx.decoupled))
         else:
             self.opt_state = self.tx.init(self.flat)
             if migrated and payload.get("optimizer"):

@@ -26,8 +26,11 @@ parameter, and Adam's two moments, in one flat vector in
 chain clip -> adam(schedule) is ``{"0": {}, "1": {"0": {"count", "mu",
 "nu"}, "1": {"count"}}}`` with ``mu``/``nu`` shaped like the parameter tree
 (no ``"0": {}`` level without the clip, an empty ``"1"`` without a
-schedule). :func:`optimizer_to_jax` and :func:`optimizer_from_jax` convert
-between the two.
+schedule). RAdam's chain has the same tree; AdamW's holds the empty state of
+its decoupled weight decay at ``"1"`` and the schedule's count at ``"2"``.
+:func:`optimizer_to_jax` and :func:`optimizer_from_jax` convert between the
+two. The vocoder trainer's ``optimizer_G``/``optimizer_D`` are such trees,
+one per network.
 """
 
 from __future__ import annotations
@@ -120,22 +123,26 @@ def _flatten_like(tree, layout):
     return torch.from_numpy(np.concatenate(chunks))
 
 
-def optimizer_to_jax(opt_state, layout, clips):
-    """The port's Adam state -> the JAX checkpoint's ``optimizer`` tree.
-    ``opt_state`` has ``count``, ``mu``, ``nu``, ``sched_count`` (``None``
-    without a schedule); ``clips`` says whether the chain starts with the
-    global-norm clip."""
+def optimizer_to_jax(opt_state, layout, clips, decoupled=False):
+    """The port's Adam-family state -> the JAX checkpoint's ``optimizer``
+    tree. ``opt_state`` has ``count``, ``mu``, ``nu``, ``sched_count``
+    (``None`` without a schedule); ``clips`` says whether the chain starts
+    with the global-norm clip, ``decoupled`` whether it is AdamW's (an
+    empty weight-decay state before the schedule's)."""
     adam = {"0": {"count": np.asarray(opt_state.count.cpu().numpy(),
                                       np.int32),
                   "mu": _unflatten(opt_state.mu, layout),
-                  "nu": _unflatten(opt_state.nu, layout)},
-            "1": ({} if opt_state.sched_count is None else
-                  {"count": np.asarray(opt_state.sched_count.cpu().numpy(),
-                                       np.int32)})}
+                  "nu": _unflatten(opt_state.nu, layout)}}
+    if decoupled:
+        adam["1"] = {}
+    adam[str(len(adam))] = (
+        {} if opt_state.sched_count is None else
+        {"count": np.asarray(opt_state.sched_count.cpu().numpy(), np.int32)})
     return {"0": {}, "1": adam} if clips else {"0": adam}
 
 
-def optimizer_from_jax(tree, layout, clips, scheduled, device):
+def optimizer_from_jax(tree, layout, clips, scheduled, device,
+                       decoupled=False):
     """Inverse of :func:`optimizer_to_jax`: ``(count, mu, nu,
     sched_count)`` tensors on ``device``."""
     adam = tree["1" if clips else "0"]
@@ -144,7 +151,8 @@ def optimizer_from_jax(tree, layout, clips, scheduled, device):
     def count(v):
         return torch.tensor(int(v), dtype=torch.int32, device=device)
 
-    sched = count(adam["1"]["count"]) if scheduled else None
+    sched = (count(adam["2" if decoupled else "1"]["count"]) if scheduled
+             else None)
     return (count(inner["count"]),
             _flatten_like(inner["mu"], layout).to(device),
             _flatten_like(inner["nu"], layout).to(device), sched)
