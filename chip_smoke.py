@@ -45,7 +45,15 @@ own): the port's ``PwgTrainer`` against the committed JAX fixture
 corpus staged on the device (``voc_train``), a ``ConversionEngine`` with
 ``vocoder="jpwg"`` answering eight requests (``voc_serve``, the flat
 model's K1/K2 launches counted) and ``jpwg_decode_scp`` over sixteen
-utterances (``voc_offline``). Each phase prints one JSON line; any
+utterances (``voc_offline``). Last, stage 7 of the vae1 recipe, the
+objective evaluation: the port's CTC recognizer and character LSTM LM
+against the committed JAX fixture (``eval_golden``), ``bin/eval_asr`` with a
+width-192 transformer recognizer (4 heads of 48), beam 10 and the neural
+LM on a synthetic character corpus, with the attention kernels' launches
+counted and every K4/K5 call of one training step held against the plain
+versions (``eval_asr``), ``bin/eval_similarity`` with the x-vector TDNN,
+PLDA and cosine (``eval_sim``), the mel-proxy MCD and the recipe's
+``RESULT`` line (``eval``). Each phase prints one JSON line; any
 failure exits non-zero. The last lines are the kernel summary, the card's
 name and power limit as ``nvidia-smi`` gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -722,13 +730,15 @@ def _gnb_case(torch, B, T, C, G, glu, masked, dtype, rng, iters=50,
 
 
 def _attn_case(torch, B, H, T, d, lengths, dtype, rng, q_scale=1.0,
-               iters=20):
+               iters=20, backward=True):
     """The attention forward and backward kernels against their plain
     versions. q, k, v and the cotangent are (B, H, T, d) views of (B, T,
     H*d) tensors, as ``MultiHeadedAttention`` hands them over; ``lengths``
     is None, a list, or "ragged" (valid keys from T/3 to T, the first row
     full). The library yardstick is one ``scaled_dot_product_attention``
-    call with the same boolean key mask, and its autograd backward."""
+    call with the same boolean key mask, and its autograd backward.
+    ``backward=False`` checks and times the forward only (a shape only
+    inference reaches)."""
     import torch.nn.functional as F
 
     from vae_npvc_tpu_torch.ops.attention import (attention_backward_plain,
@@ -747,23 +757,22 @@ def _attn_case(torch, B, H, T, d, lengths, dtype, rng, q_scale=1.0,
          if lengths else None)
     valid = [min(max(x, 1), T) for x in lengths] if lengths else [T] * B
     scale = 1.0 / math.sqrt(d)
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_(backward) for t in (q, k, v))
     o = fused_attention(qg, kg, vg, n)
-    got = torch.autograd.grad(o, (qg, kg, vg), do)
+    got = torch.autograd.grad(o, (qg, kg, vg), do) if backward else ()
     o2 = fused_attention(qg, kg, vg, n)
-    again = torch.autograd.grad(o2, (qg, kg, vg), do)
+    again = torch.autograd.grad(o2, (qg, kg, vg), do) if backward else ()
     ref_o, ref_lse = attention_plain(q, k, v, n, scale)
-    ref = attention_backward_plain(q, k, v, ref_o, ref_lse, do, n, scale)
+    ref = (attention_backward_plain(q, k, v, ref_o, ref_lse, do, n, scale)
+           if backward else ())
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
     what = f"fused_attention ({B}, {H}, {T}, {d}) lengths={lengths} {name}"
     if q_scale != 1.0:
         what += f" q*{q_scale:g}"
     errs = {}
-    for key, a, b, tol in (("o", o.detach(), ref_o, K4_TOL),
-                           ("dq", got[0], ref[0], K5_TOL),
-                           ("dk", got[1], ref[1], K5_TOL),
-                           ("dv", got[2], ref[2], K5_TOL)):
+    for key, a, b, tol in (("o", o.detach(), ref_o, K4_TOL),) + tuple(
+            zip(("dq", "dk", "dv"), got, ref, [K5_TOL] * 3)):
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"{what}: {key} shape/dtype differ from the plain version")
         a, b = a.float(), b.float()
@@ -780,7 +789,7 @@ def _attn_case(torch, B, H, T, d, lengths, dtype, rng, q_scale=1.0,
     check(torch.equal(o, o2) and all(torch.equal(a, b)
                                      for a, b in zip(got, again)),
           f"{what}: two runs differ in their bits")
-    if n is not None:
+    if n is not None and backward:
         pad = (torch.arange(T, device=dev)[None] >= n.clamp(min=1)[:, None])[
             :, None, :, None]
         check(bool((got[1].masked_select(pad) == 0).all())
@@ -790,29 +799,17 @@ def _attn_case(torch, B, H, T, d, lengths, dtype, rng, q_scale=1.0,
             "valid_keys": sum(valid), "dtype": name, "q_scale": q_scale,
             "max_abs_err": float((o.detach().float()
                                   - ref_o.float()).abs().max()),
-            "bwd_max_abs_err": max(float((a.float() - b.float()).abs().max())
-                                   for a, b in zip(got, ref)),
             "err_over_peak": errs, "bit_equal_runs": True}
-    saved_o, saved_lse = o.detach(), ref_lse
-    fwd_args, bwd_args = (q, k, v, n), (q, k, v, saved_o, saved_lse, do, n)
+    fwd_args = (q, k, v, n)
 
     def fwd(q, k, v, n):
         return fused_attention(q, k, v, n)
-
-    def bwd(q, k, v, o, lse, do, n):
-        return fused_attention_backward(q, k, v, o, lse, do, n)
 
     case["ms"], case["ms_events"] = timed(torch, fwd, [fwd_args], iters)
     case["ms_l2_cold"], _ = timed(torch, fwd, l2_cold(fwd_args), iters)
     case["plain_ms"], _ = timed(
         torch, lambda q, k, v, n: attention_plain(q, k, v, n, scale),
         [fwd_args], iters)
-    case["bwd_ms"], case["bwd_ms_events"] = timed(torch, bwd, [bwd_args],
-                                                  iters)
-    case["bwd_ms_l2_cold"], _ = timed(torch, bwd, l2_cold(bwd_args), iters)
-    case["bwd_plain_ms"], _ = timed(
-        torch, lambda q, k, v, o, lse, do, n: attention_backward_plain(
-            q, k, v, o, lse, do, n, scale), [bwd_args], iters)
     # the library's call on the same values, timed as a yardstick only
     mask = None
     if n is not None:
@@ -821,18 +818,34 @@ def _attn_case(torch, B, H, T, d, lengths, dtype, rng, q_scale=1.0,
     case["library_ms"], _ = timed(
         torch, lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask), [(q, k, v)], iters)
+    item = q.element_size()
+    case["bound_ms"], case["bound_by"] = attn_bound_ms(H, T, d, item, valid)
+    if dtype == torch.float32:
+        case["fma_bound_ms"], _ = attn_bound_ms(H, T, d, item, valid,
+                                                fma=True)
+    if not backward:
+        return case
+    case["bwd_max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                                  for a, b in zip(got, ref))
+    bwd_args = (q, k, v, o.detach(), ref_lse, do, n)
+
+    def bwd(q, k, v, o, lse, do, n):
+        return fused_attention_backward(q, k, v, o, lse, do, n)
+
+    case["bwd_ms"], case["bwd_ms_events"] = timed(torch, bwd, [bwd_args],
+                                                  iters)
+    case["bwd_ms_l2_cold"], _ = timed(torch, bwd, l2_cold(bwd_args), iters)
+    case["bwd_plain_ms"], _ = timed(
+        torch, lambda q, k, v, o, lse, do, n: attention_backward_plain(
+            q, k, v, o, lse, do, n, scale), [bwd_args], iters)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
     case["bwd_library_ms"], _ = timed(
         torch, lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
                                            retain_graph=True), [()], iters)
-    item = q.element_size()
-    case["bound_ms"], case["bound_by"] = attn_bound_ms(H, T, d, item, valid)
     case["bwd_bound_ms"], case["bwd_bound_by"] = attn_bound_ms(
         H, T, d, item, valid, backward=True)
     if dtype == torch.float32:
-        case["fma_bound_ms"], _ = attn_bound_ms(H, T, d, item, valid,
-                                                fma=True)
         case["bwd_fma_bound_ms"], _ = attn_bound_ms(H, T, d, item, valid,
                                                     backward=True, fma=True)
     return case
@@ -967,6 +980,14 @@ def phase_kernels(torch):
                            rng))
     attn.append(_attn_case(torch, 3, 4, 384, 64, [384, 200, 1],
                            torch.bfloat16, rng))
+    # the CTC recognizer's (eval phases, fp32, 4 heads of 48): a training
+    # batch (B = 16, T' = 600, ragged) and a transcribe batch at the longest
+    # 256-frame bucket (T' = 1,536) of one utterance, 15 rows of length 1
+    # (inference: the forward only)
+    attn.append(_attn_case(torch, 16, 4, 600, 48, "ragged", torch.float32,
+                           rng, iters=10))
+    attn.append(_attn_case(torch, 16, 4, 1536, 48, [1496] + [1] * 15,
+                           torch.float32, rng, iters=10, backward=False))
     emit({"phase": "kernels", "vq_fused": vq, "fused_group_norm": gn,
           "fused_group_norm_backward": gnb, "fused_attention": attn})
     return vq, gn, gnb, attn
@@ -3410,6 +3431,347 @@ def phase_voc(torch, root):
     return serve
 
 
+# ------------------------------------------------------------ evaluation
+# stage 7 of egs/vcc20/vae1/run.sh at the recipe's widths: the CTC proxy of
+# bin/eval_asr (width 192, 3 blocks, 4 heads of 48, FFN 768, B = 16,
+# max_frames 1,200; --arch transformer; transcribe buckets of 256 frames,
+# B = 16, up to 3,000 frames), conf/ob_eval/decode_asr.yaml (beam 10,
+# lm-weight 0.6, lm-type neural: embed 64, hidden 256, 2 layers, batch 32,
+# max_len 128) and the x-vector TDNN of bin/eval_similarity (width 128,
+# frame5 384, emb 64, batch 64, crop 200). The steps are cut from the
+# recipe's 3,000 / 600 / 1,000.
+EVAL_ASR_STEPS, EVAL_LM_STEPS, EVAL_SIM_STEPS = 150, 100, 20
+EVAL_CHARS = "abcdefghijklmnopqrstuvwxyz '"
+EVAL_MEL, EVAL_CORPUS_SEED = 80, 7
+EVAL_TRAIN_UTTS, EVAL_TEST_UTTS = 64, 8
+# characters per utterance at 8 frames each: training utterances of
+# 160-1,192 frames (T' up to 600), test utterances up to 2,992 (T' 1,496)
+EVAL_TRAIN_CHARS, EVAL_TEST_CHARS = (20, 150), (25, 375)
+EVAL_SPEAKERS, EVAL_SIM_UTTS, EVAL_SIM_CONVERTED = 8, 64, 16
+EVAL_PROFILE_STEPS = 10
+
+
+def _attn_fns():
+    from vae_npvc_tpu_torch.ops.attention import (fused_attention,
+                                                  fused_attention_backward)
+    return fused_attention, fused_attention_backward
+
+
+def _zero_attn():
+    for fn in _attn_fns():
+        fn.launches = 0
+
+
+def _attn_launches():
+    fwd, bwd = _attn_fns()
+    return {"fused_attention": fwd.launches,
+            "fused_attention_backward": bwd.launches}
+
+
+def _transcribe_batches(scp, bucket, batch, max_frames=3000):
+    """Batches ``CTCRecognizer.transcribe_scp`` runs over ``scp`` and its
+    longest padded length."""
+    from vae_npvc_tpu_torch.data import kaldi_io
+
+    per = {}
+    for rx in kaldi_io.read_scp(scp).values():
+        n = min(kaldi_io.matrix_header(rx)[0], max_frames)
+        T = -(-n // bucket) * bucket
+        per[T] = per.get(T, 0) + 1
+    return sum(-(-c // batch) for c in per.values()), max(per)
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, lines)."""
+    import contextlib
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def phase_eval_golden(torch, root):
+    """The port's recognizer and LM on the card against the committed JAX
+    fixture (``utils/eval_fixture.fixture_run`` / ``check_fixture``): a
+    width-32 transformer (4 heads of 8) trained from the fixture's numpy
+    parameters, its greedy and beam (neural LM) transcripts, the LM's
+    losses and log-probabilities; 3 K4 + 3 K5 launches per step and 3 K4
+    per transcribe batch."""
+    from vae_npvc_tpu_torch.utils import eval_fixture as ef
+
+    _zero_attn()
+    t0 = time.perf_counter()
+    (got, _), _ = _quiet(ef.fixture_run, root, "cuda")
+    wall = time.perf_counter() - t0
+    launches = _attn_launches()
+    errs = ef.check_fixture(got, FIXTURES)
+    nb, _ = _transcribe_batches(root / "feats.scp", ef.EVAL_DECODE["bucket"],
+                                ef.EVAL_DECODE["batch_size"])
+    want = {"fused_attention": 3 * ef.EVAL_STEPS + 2 * 3 * nb,
+            "fused_attention_backward": 3 * ef.EVAL_STEPS}
+    check(launches == want, f"eval_golden: attention launches {launches}, "
+          f"expected {want}")
+    emit({"phase": "eval_golden", "steps": ef.EVAL_STEPS,
+          "transcribe_batches": 2 * nb, "launches": launches,
+          "wall_s": wall, **errs, "transcripts_equal": True})
+
+
+def _record_attention(torch, calls):
+    """Patches that hold every K4 and K5 call against the plain versions
+    (``K4_TOL``/``K5_TOL`` of each output's peak) and record it in
+    ``calls``; returns the undo function."""
+    from vae_npvc_tpu_torch.ops import attention as ops
+
+    fwd, bwd = ops._forward, ops.fused_attention_backward
+
+    def err(a, b):
+        peak = float(b.float().abs().max()) or 1.0
+        return float((a.float() - b.float()).abs().max()) / peak
+
+    def lengths_of(n, T):
+        return None if n is None else n.clamp(1, T).tolist()
+
+    def fwd_rec(q, k, v, lengths, scale):
+        o, lse = fwd(q, k, v, lengths, scale)
+        ref_o, _ = ops.attention_plain(q, k, v, lengths, scale)
+        calls.append({"kernel": "K4", "shape": list(q.shape),
+                      "lengths": lengths_of(lengths, q.shape[2]),
+                      "err_over_peak": err(o, ref_o)})
+        return o, lse
+
+    def bwd_rec(q, k, v, o, lse, do, lengths=None, *, scale=None):
+        got = bwd(q, k, v, o, lse, do, lengths, scale=scale)
+        ref = ops.attention_backward_plain(q, k, v, o, lse, do, lengths,
+                                           scale)
+        calls.append({"kernel": "K5", "shape": list(q.shape),
+                      "lengths": lengths_of(lengths, q.shape[2]),
+                      "err_over_peak": max(err(a, b)
+                                           for a, b in zip(got, ref))})
+        return got
+
+    # the kernel wrapper counts its launches on the module-level name
+    bwd_rec.launches = bwd.launches
+    ops._forward, ops.fused_attention_backward = fwd_rec, bwd_rec
+
+    def undo():
+        bwd.launches = bwd_rec.launches
+        ops._forward, ops.fused_attention_backward = fwd, bwd
+    return undo
+
+
+def _eval_corpora(root):
+    """The ASR train and test dirs (one set of character templates: the
+    same seed), a speaker corpus and its converted utterances, the
+    similarity trials and config."""
+    from vae_npvc_tpu_torch.utils.eval_fixture import (char_corpus,
+                                                       speaker_corpus)
+
+    texts = char_corpus(root / "asr_train", EVAL_TRAIN_UTTS,
+                        EVAL_CORPUS_SEED, alphabet=EVAL_CHARS, dim=EVAL_MEL,
+                        chars=EVAL_TRAIN_CHARS)
+    char_corpus(root / "asr_test", EVAL_TEST_UTTS, EVAL_CORPUS_SEED,
+                alphabet=EVAL_CHARS, dim=EVAL_MEL, chars=EVAL_TEST_CHARS)
+    speaker_corpus(root / "sim_train", EVAL_SPEAKERS, EVAL_SIM_UTTS,
+                   EVAL_CORPUS_SEED, dim=EVAL_MEL, frames=(150, 600))
+    speaker_corpus(root / "sim_conv", EVAL_SPEAKERS, EVAL_SIM_CONVERTED,
+                   EVAL_CORPUS_SEED, dim=EVAL_MEL, frames=(150, 600),
+                   prefix="c")
+    (root / "trials").write_text("".join(
+        f"c{i:02d} spk{i % EVAL_SPEAKERS}\n"
+        for i in range(EVAL_SIM_CONVERTED)))
+    (root / "sim.json").write_text(json.dumps({"crop_length": 200}))
+    return texts
+
+
+def _timed_steps(torch, step, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_eval_asr(torch, root):
+    """``bin/eval_asr`` at the recipe's width on the card (transformer,
+    ``EVAL_ASR_STEPS`` steps, beam 10 with the neural LM), its K4/K5
+    launches counted; then one training step with every K4/K5 call held
+    against the plain versions, a profiled step, a transcribe batch at the
+    longest bucket, the beam search's cost and the LM's step. Returns the
+    CER/WER line's numbers, the launches and the transcribe batches."""
+    from vae_npvc_tpu_torch.bin import eval_asr
+    from vae_npvc_tpu_torch.data import kaldi_io
+    from vae_npvc_tpu_torch.eval.asr import CTCRecognizer, CTCTrainer
+    from vae_npvc_tpu_torch.eval.neural_lm import CharLstmLM
+
+    train, test = root / "asr_train", root / "asr_test"
+    nb, longest = _transcribe_batches(test / "feats.scp", 256, 16)
+    args = ["--train_dir", str(train), "--eval_scp", str(test / "feats.scp"),
+            "--ref_text", str(test / "text"), "--output_dir",
+            str(root / "asr_result"), "--arch", "transformer",
+            "--steps", str(EVAL_ASR_STEPS), "--beam_size", "10",
+            "--lm_weight", "0.6", "--lm_type", "neural",
+            "--lm_steps", str(EVAL_LM_STEPS),
+            "--lm_ckpt", str(root / "char_lm.msgpack"),
+            "--recognizer_ckpt", str(root / "ctc_proxy.msgpack")]
+    _zero_attn()
+    t0 = time.perf_counter()
+    (cer, wer), lines = _quiet(eval_asr.main, args)
+    cli_s = time.perf_counter() - t0
+    launches = _attn_launches()
+    want = {"fused_attention": 3 * EVAL_ASR_STEPS + 3 * nb,
+            "fused_attention_backward": 3 * EVAL_ASR_STEPS}
+    check(launches == want, f"eval_asr: attention launches {launches}, "
+          f"expected {want} ({nb} transcribe batches)")
+    check(lines[-1].startswith("CER: ") and math.isfinite(cer)
+          and math.isfinite(wer), f"eval_asr: last line {lines[-1]!r}")
+
+    # one step with every K4/K5 call held against the plain versions
+    trainer = CTCTrainer(train, width=192, arch="transformer",
+                         device="cuda", seed=1)
+    trainer.step()
+    calls = []
+    undo = _record_attention(torch, calls)
+    try:
+        loss = float(trainer.step())
+    finally:
+        undo()
+    check([c["kernel"] for c in calls] == ["K4"] * 3 + ["K5"] * 3,
+          f"eval_asr: one step made the calls {[c['kernel'] for c in calls]}")
+    shape = [trainer.batch_size, 4, (trainer.T_max + 1) // 2, 48]
+    for c in calls:
+        tol = K4_TOL if c["kernel"] == "K4" else K5_TOL
+        check(c["err_over_peak"] <= tol and c["shape"] == shape,
+              f"eval_asr: {c['kernel']} call {c['shape']} err "
+              f"{c['err_over_peak']} over tolerance {tol}")
+    check(math.isfinite(loss), "eval_asr: non-finite loss")
+    step_ms = _timed_steps(torch, trainer.step, 5)
+    step_prof = _profiled(torch, trainer.step)
+
+    # a transcribe batch at the longest bucket, the rows past the first
+    # padded to length 1 as transcribe_scp pads them
+    rec = CTCRecognizer.load(root / "ctc_proxy.msgpack")
+    x = np.zeros((16, longest, EVAL_MEL), np.float32)
+    x[0] = np.random.default_rng(3).normal(size=(longest, EVAL_MEL))
+    lens = np.ones((16,), np.int32)
+    lens[0] = longest
+    rec.logits(x, lens)[0].cpu()
+    batch_prof = _profiled(torch, lambda: rec.logits(x, lens)[0].cpu())
+
+    # the beam search with the neural LM over the test set, LM steps counted
+    lm = CharLstmLM.load(root / "char_lm.msgpack")
+    n_steps = [0]
+    step = lm._step
+
+    def counted(*a):
+        n_steps[0] += 1
+        return step(*a)
+    lm._step = counted
+    scp = kaldi_io.read_scp(test / "feats.scp")
+    n_frames = {u: kaldi_io.matrix_header(rx)[0] for u, rx in scp.items()}
+    frames = sum((min(n, 3000) + 1) // 2 for n in n_frames.values())
+    t0 = time.perf_counter()
+    hyps = rec.transcribe_scp(test / "feats.scp", beam_size=10, lm=lm,
+                              lm_weight=0.6)
+    beam_s = time.perf_counter() - t0
+    check(len(hyps) == EVAL_TEST_UTTS, "eval_asr: transcripts missing")
+    # the shortest utterance's beam search profiled, with a cold LM cache
+    short = min(n_frames, key=n_frames.get)
+    (root / "short.scp").write_text(f"{short} {scp[short]}\n")
+    cold = CharLstmLM.load(root / "char_lm.msgpack")
+    beam_prof = _profiled(torch, lambda: rec.transcribe_scp(
+        root / "short.scp", beam_size=10, lm=cold, lm_weight=0.6))
+
+    # the LM's training step at the recipe's width
+    texts = list(kaldi_io.load_dict_data(train / "text").values())
+    lm2 = CharLstmLM(lm.itos, device="cuda")
+    lm2.train(texts, steps=2, batch=32, params=lm.params)
+    lm_prof = _profiled(torch, lambda: lm2.train(
+        texts, steps=EVAL_PROFILE_STEPS, batch=32, params=lm.params))
+    emit({"phase": "eval_asr", "cli_s": cli_s, "cli_last_line": lines[-1],
+          "launches": launches, "steps": EVAL_ASR_STEPS,
+          "transcribe_batches": nb, "longest_bucket": longest,
+          "one_step_calls": calls, "step_ms": step_ms,
+          "step_profile": step_prof, "transcribe_batch_profile": batch_prof,
+          "beam": {"wall_s": beam_s, "frames": frames,
+                   "ms_per_frame": beam_s * 1e3 / frames,
+                   "lm_steps": n_steps[0],
+                   "lm_steps_per_frame": n_steps[0] / frames,
+                   "shortest_utterance_frames": n_frames[short],
+                   "shortest_utterance_profile": beam_prof},
+          "lm_steps_profiled": EVAL_PROFILE_STEPS,
+          "lm_profile": lm_prof})
+    return cer, wer, launches, nb
+
+
+def phase_eval_sim(torch, root):
+    """``bin/eval_similarity`` at the recipe's width on the card (x-vector
+    TDNN, PLDA and cosine) and the embedder's training step profiled.
+    Returns (PLDA, COSSIM)."""
+    from vae_npvc_tpu_torch.bin import eval_similarity
+    from vae_npvc_tpu_torch.eval.similarity import train_embedder
+
+    train = root / "sim_train"
+    args = ["-c", str(root / "sim.json"), "--train_dir", str(train),
+            "--converted_scp", str(root / "sim_conv" / "feats.scp"),
+            "--trials", str(root / "trials"), "--enroll_dir", str(train),
+            "--steps", str(EVAL_SIM_STEPS),
+            "--embedder_ckpt", str(root / "spk_embedder.msgpack"),
+            "--output_dir", str(root / "asv_result")]
+    t0 = time.perf_counter()
+    (plda, cos), lines = _quiet(eval_similarity.main, args)
+    cli_s = time.perf_counter() - t0
+    check(lines[-1].startswith("PLDA: ") and math.isfinite(plda)
+          and math.isfinite(cos), f"eval_sim: last line {lines[-1]!r}")
+    cfg = {"crop_length": 200}
+
+    def embedder_steps(n):
+        return _quiet(lambda: train_embedder(train, cfg, steps=n,
+                                             log_every=0))
+    embedder_steps(2)
+    prof = _profiled(torch, lambda: embedder_steps(EVAL_PROFILE_STEPS))
+    emit({"phase": "eval_sim", "cli_s": cli_s, "cli_last_line": lines[-1],
+          "steps": EVAL_SIM_STEPS, "embedder_steps_profiled":
+          EVAL_PROFILE_STEPS, "embedder_profile": prof})
+    return plda, cos
+
+
+def phase_eval(torch, root):
+    """Stage 7 of the vae1 recipe on the card: the fixture, the recognizer
+    with the neural LM, the speaker similarity and the mel-proxy MCD, and
+    the recipe's RESULT line. Returns K4/K5's launches on the path."""
+    from vae_npvc_tpu_torch.data import kaldi_io
+    from vae_npvc_tpu_torch.eval.mcd import mcd_from_scp
+
+    root.mkdir(parents=True, exist_ok=True)
+    phase_eval_golden(torch, root / "golden")
+    _eval_corpora(root)
+    cer, wer, launches, nb = phase_eval_asr(torch, root)
+    plda, cos = phase_eval_sim(torch, root)
+    # mel-proxy MCD of the "converted" test utterances against a noisy
+    # copy of them (the recipe's default mode: DCT-of-log-mel cepstra)
+    rng = np.random.default_rng(EVAL_CORPUS_SEED)
+    ref = root / "mcd_ref"
+    ref.mkdir()
+    with kaldi_io.ArkWriter(ref / "feats.ark", ref / "feats.scp") as w:
+        for utt, rx in kaldi_io.read_scp(root / "asr_test" /
+                                         "feats.scp").items():
+            m = kaldi_io.load_mat(rx)
+            w.write(utt, m + 0.3 * rng.normal(size=m.shape).astype(
+                np.float32))
+    mcd, per_utt = mcd_from_scp(root / "asr_test" / "feats.scp",
+                                ref / "feats.scp")
+    check(math.isfinite(mcd) and mcd > 0 and len(per_utt) == EVAL_TEST_UTTS,
+          f"eval: MCD {mcd} over {len(per_utt)} utterances")
+    line = (f"RESULT SEF1_TEF1  MCD: {mcd:.3f}  CER: {cer:.2f}  "
+            f"WER: {wer:.2f}  PLDA: {plda:.4f}  COSSIM: {cos:.4f}")
+    print(line, flush=True)
+    emit({"phase": "eval", "result": line})
+    return {"launches": launches, "steps": EVAL_ASR_STEPS,
+            "transcribe_batches": nb}
+
+
 def main():
     import torch
 
@@ -3437,6 +3799,7 @@ def main():
             torch, Path(tmp))
         offline = phase_offline(torch, hier_ckpt)
         voc_launches, voc_calls = phase_voc(torch, Path(tmp))
+        evaluation = phase_eval(torch, Path(tmp) / "eval")
 
     vq_main = vq[0]
     # K2 and K3 in the layout the model hands them (channels-first x)
@@ -3483,6 +3846,13 @@ def main():
 
     attn_dec, attn_enc, attn_one = (attn_case(32, 768), attn_case(32, 192),
                                     attn_case(1, 768))
+    # the recognizer's training and transcribe batches (d = 48)
+    attn_rec, attn_tr = (next(c for c in attn if (c["B"], c["T"], c["d"])
+                              == (16, T, 48)) for T in (600, 1536))
+    eval_launches = evaluation["launches"]
+    eval_keys = {"eval_steps": evaluation["steps"],
+                 "eval_transcribe_batches":
+                     evaluation["transcribe_batches"]}
     attn_bf16 = attn_case(32, 768, "bfloat16")
     fwd_keys = ("B", "T", "valid_keys", "ms", "ms_l2_cold", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "max_abs_err")
@@ -3576,7 +3946,10 @@ def main():
          "fma_bound_ms": attn_dec["fma_bound_ms"],
          "encoder_shape": {k: attn_enc[k] for k in fwd_keys},
          "decode_shape": {k: attn_one[k] for k in fwd_keys},
-         "bf16_shape": {k: attn_bf16[k] for k in fwd_keys}},
+         "bf16_shape": {k: attn_bf16[k] for k in fwd_keys},
+         "launches_eval_asr": eval_launches["fused_attention"], **eval_keys,
+         "recognizer_step_shape": {k: attn_rec[k] for k in fwd_keys},
+         "recognizer_transcribe_shape": {k: attn_tr[k] for k in fwd_keys}},
         {"name": "fused_attention_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/attention.cu",
          "replaces": "vae_npvc_tpu/ops/attention_pallas.py:225",
@@ -3589,7 +3962,10 @@ def main():
          "library_ms": attn_dec["bwd_library_ms"],
          "fma_bound_ms": attn_dec["bwd_fma_bound_ms"],
          "encoder_shape": {k: attn_enc[k] for k in bwd_keys},
-         "bf16_shape": {k: attn_bf16[k] for k in bwd_keys}},
+         "bf16_shape": {k: attn_bf16[k] for k in bwd_keys},
+         "launches_eval_asr": eval_launches["fused_attention_backward"],
+         **eval_keys,
+         "recognizer_step_shape": {k: attn_rec[k] for k in bwd_keys}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -604,6 +604,38 @@ def _assert_attn_close(got, ref, dtype, fp32_tol, what):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,T,d,lengths", ATTN_CASES)
 def test_attention_kernels_match_plain(dev, dtype, B, H, T, d, lengths):
+    _check_attention(dev, dtype, B, H, T, d, lengths)
+
+
+# the CTC recognizer (eval/asr.py, width 192, 4 heads of 48, fp32): a
+# training batch of B = 16 at T' = 600 with ragged lengths down to one
+# frame (forward and backward), and transcribe batches at the longest
+# 256-frame bucket (T' = 1536) whose unused rows are padded to length 1
+# (inference: the forward only)
+RECOGNIZER_STEP = (16, 4, 600, 48, [600, 1, 599, 300, 1, 451, 64, 65, 600,
+                                    128, 129, 17, 2, 333, 500, 1])
+RECOGNIZER_TRANSCRIBE = [[1500, 1411, 1290, 1] + [1] * 12,
+                         [1496] + [1] * 15]
+
+
+def test_attention_kernels_at_the_recognizer_step_shape(dev):
+    _check_attention(dev, torch.float32, *RECOGNIZER_STEP)
+
+
+@pytest.mark.parametrize("lengths", RECOGNIZER_TRANSCRIBE)
+def test_attention_forward_at_the_recognizer_transcribe_shape(dev, lengths):
+    q, k, v, _ = _attn_inputs(dev, torch.float32, 16, 4, 1536, 48, 1536)
+    n = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    f0 = fused_attention.launches
+    with torch.inference_mode():
+        o = fused_attention(q, k, v, n)
+    ref_o, _ = attention_plain(q, k, v, n)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == f0 + 1
+    _assert_attn_close(o, ref_o, torch.float32, 2e-5, "o")
+
+
+def _check_attention(dev, dtype, B, H, T, d, lengths):
     q, k, v, do = _attn_inputs(dev, dtype, B, H, T, d, B * T + d)
     n = (torch.tensor(lengths, dtype=torch.int32, device=dev)
          if lengths else None)

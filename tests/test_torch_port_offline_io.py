@@ -5,7 +5,8 @@ The Kaldi writer (``_write_matrix`` in every mode, ``ArkWriter``,
 ``write_helper``) gives JAX's bytes; ranged and compressed reads,
 ``read_wav_scp_entry`` and the CMVN stats match JAX's; the CLIs
 ``make_spk_id``, ``apply_cmvn`` (compute, apply, reverse), ``make_fbank``
-(log-mel within 1e-4, a 16 kHz wav resampled) and ``convert_fbank``
+(log-mel within 1e-4, a 16 kHz wav resampled, the ``--pitch``
+columns equal) and ``convert_fbank``
 (Griffin-Lim with JAX's initial phase, within 1e-3 of the peak) give JAX's
 files; asked for the GPU on a host without one, ``make_fbank`` and
 ``convert_fbank`` raise and write nothing.
@@ -244,8 +245,20 @@ def test_make_fbank_matches_jax(tmp_path):
     for k, m in kaldi_io.read_ark(tmp_path / "cli/feats_raw.ark"):
         step = np.abs(want[k]).max() / 30
         assert np.abs(m - want[k]).max() <= step
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        main(args + ["--pitch"])
+    # --pitch: the 3 pitch columns come from the same host code on the same
+    # resampled samples, so they equal JAX's exactly
+    assert jax_make(d, tmp_path / "jax_p", batch_frames=600, pitch=True,
+                    **FEAT) == 4
+    assert main([str(d), str(tmp_path / "cli_p"), "--pitch"]
+                + args[2:10] + ["--device", "cpu"]) == 4
+    want = dict(jax_kio.read_ark(f"ark:{tmp_path}/jax_p/feats_raw.ark"))
+    got = dict(kaldi_io.read_ark(tmp_path / "cli_p/feats_raw.ark"))
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].shape == want[k].shape == (want[k].shape[0],
+                                                 FEAT["n_mels"] + 3)
+        np.testing.assert_array_equal(got[k][:, -3:], want[k][:, -3:])
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4)
 
 
 def test_convert_fbank_matches_jax_with_its_phase(tmp_path, monkeypatch):

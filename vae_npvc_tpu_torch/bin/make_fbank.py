@@ -33,15 +33,15 @@ def make_fbank(data_dir, out_dir, *, fs, n_fft, n_shift, n_mels=80,
                fmin=None, fmax=None, win_length=None, batch_frames=200000,
                compress=False, pitch=False, group_utts=512, device="cuda"):
     """Write ``out_dir/feats_raw.ark`` + ``feats.scp`` + ``utt2num_frames``
-    (and copy ``utt2spk``/``spk2utt``); returns the utterances written."""
-    if pitch:
-        raise NotImplementedError(
-            "pitch features (data/pitch.py) are not ported to PyTorch yet "
-            "(ROADMAP Queue A item 14)")
+    (and copy ``utt2spk``/``spk2utt``); returns the utterances written.
+    ``pitch=True`` appends the 3-dim Kaldi-style pitch features [pov,
+    normalized log-pitch, delta-pitch] of each frame, computed on the host
+    (data/pitch.py)."""
     import torch
 
     from ..data import kaldi_io
     from ..data.features import logmelspectrogram, num_frames, resample
+    from ..data.pitch import pitch_feats
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -82,7 +82,13 @@ def make_fbank(data_dir, out_dir, *, fs, n_fft, n_shift, n_mels=80,
                         fmax=fmax, win_length=win_length).cpu().numpy()
                     for i, (utt, x) in enumerate(chunk):
                         T = num_frames(len(x), n_shift)
-                        w.write(utt, feats[i, :T])
+                        out = feats[i, :T]
+                        if pitch:
+                            out = np.concatenate([out, pitch_feats(
+                                x, fs, n_frames=T,
+                                frame_shift_ms=1000.0 * n_shift / fs)],
+                                axis=1)
+                        w.write(utt, out)
                         unf.write(f"{utt} {T}\n")
                         n_written += 1
     for f in ("utt2spk", "spk2utt"):
@@ -104,8 +110,8 @@ def main(argv=None):
     parser.add_argument("--win_length", type=int, default=None)
     parser.add_argument("--compress", action="store_true")
     parser.add_argument("--pitch", action="store_true",
-                        help="append 3-dim Kaldi-style pitch features (not "
-                             "ported: ROADMAP Queue A item 14)")
+                        help="append 3-dim Kaldi-style pitch features "
+                             "(make_fbank_pitch.sh analog)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (cuda, or cpu for a CPU run)")
     args = parser.parse_args(argv)

@@ -4,8 +4,8 @@ Counterpart of ``vae_npvc_tpu/nn/blocks.py``. Parameter names and shapes
 are the flax ones (``v`` (K, in, out), ``g``, ``b``; ``scale``/``bias``;
 ``embedding``; ``kernel`` (in, out) for ``Dense``), so a ``state_dict`` maps
 one to one onto the JAX variable tree (utils/bridge.py). Convolutions
-transpose to PyTorch's (B, C, T) inside and back. ``Dense``, ``LayerNorm``
-and ``Embed`` stand in for the flax modules of those names.
+transpose to PyTorch's (B, C, T) inside and back. ``Dense``, ``Conv``,
+``LayerNorm`` and ``Embed`` stand in for the flax modules of those names.
 
 Casts follow the JAX package: weight norm in fp32 as a channel scale, the
 conv in the compute dtype, ``(y + b)`` in fp32 then cast to the compute
@@ -297,6 +297,40 @@ class Dense(nn.Module):
     def forward(self, x):
         return x.to(self.dtype) @ self.kernel.to(self.dtype) \
             + self.bias.to(self.dtype)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over (B, T, C) with ``padding="SAME"``: ``kernel``
+    (K, in, out) as flax stores it, ``bias`` (out,), fp32. SAME pads
+    ``(ceil(T / stride) - 1) * stride + (K - 1) * dilation + 1 - T`` frames,
+    the smaller half on the left: a stride-2 conv of an even T pads 1 left
+    and 2 right, which ``Conv1d(padding=...)`` cannot express."""
+
+    def __init__(self, in_features, features, kernel_size, stride=1,
+                 dilation=1):
+        super().__init__()
+        self.stride, self.dilation = stride, dilation
+        self.kernel = nn.Parameter(torch.empty(kernel_size, in_features,
+                                               features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def init_(self, gen):
+        k, cin, _ = self.kernel.shape
+        with torch.no_grad():
+            self.kernel.copy_(torch.randn(self.kernel.shape, generator=gen)
+                              / math.sqrt(k * cin))
+            self.bias.zero_()
+
+    def forward(self, x):
+        T = x.shape[1]
+        k = self.kernel.shape[0]
+        out = -(-T // self.stride)
+        pad = max((out - 1) * self.stride + (k - 1) * self.dilation + 1 - T,
+                  0)
+        xc = F.pad(x.float().transpose(1, 2), (pad // 2, pad - pad // 2))
+        y = F.conv1d(xc, self.kernel.permute(2, 1, 0), self.bias,
+                     stride=self.stride, dilation=self.dilation)
+        return y.transpose(1, 2)
 
 
 class LayerNorm(nn.Module):

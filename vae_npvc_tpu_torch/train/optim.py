@@ -188,3 +188,19 @@ def build_optimizer(config):
                      config.get("weight_decay",
                                 extra.get("weight_decay", 0.0)))
     return Adam(schedule, b1, b2, max_grad_norm)
+
+
+def apply_updates(tx, state, params, grads):
+    """One ``tx`` step of the tensors ``params`` by ``grads`` (lists in one
+    order) through a flat vector, as ``optax.apply_updates`` adds the
+    update; ``state`` None starts the optimizer. Returns the new state."""
+    with torch.no_grad():
+        flat = torch.cat([p.reshape(-1) for p in params])
+        if state is None:
+            state = tx.init(flat)
+        update, state = tx.update(
+            torch.cat([g.reshape(-1) for g in grads]), state, flat)
+        for p, u in zip(params, torch.split(update,
+                                            [p.numel() for p in params])):
+            p.add_(u.view_as(p))
+    return state

@@ -31,6 +31,17 @@ its decoupled weight decay at ``"1"`` and the schedule's count at ``"2"``.
 :func:`optimizer_to_jax` and :func:`optimizer_from_jax` convert between the
 two. The vocoder trainer's ``optimizer_G``/``optimizer_D`` are such trees,
 one per network.
+
+The evaluation modules (the CTC recognizer, the character LSTM LM and the
+speaker embedder, ``eval/``) keep flax's names too, except the LM's LSTM:
+flax stores layer ``i`` as ``OptimizedLSTMCell_{i}`` with input kernels
+``ii/if/ig/io`` (in, hidden), no input bias, and recurrent kernels and
+biases ``hi/hf/hg/ho``; the port runs ``torch.nn.LSTM`` (``lstm.weight_ih_l{i}``
+(4 hidden, in) in the same gate order i, f, g, o, ``weight_hh_l{i}``,
+``bias_hh_l{i}``, and ``bias_ih_l{i}`` held at zero).
+:func:`params_from_flax` and :func:`params_to_flax` convert such a ``params``
+tree and the module's ``state_dict``; :func:`load_flax_params` loads a tree
+into a module on its device.
 """
 
 from __future__ import annotations
@@ -156,3 +167,75 @@ def optimizer_from_jax(tree, layout, clips, scheduled, device,
     return (count(inner["count"]),
             _flatten_like(inner["mu"], layout).to(device),
             _flatten_like(inner["nu"], layout).to(device), sched)
+
+
+_LSTM_CELL = re.compile(r"OptimizedLSTMCell_(\d+)")
+_LSTM_KEY = re.compile(r"lstm\.(weight_ih|weight_hh|bias_ih|bias_hh)_l(\d+)")
+_GATES = "ifgo"
+
+
+def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
+    """A flax ``params`` tree of numpy arrays -> ``state_dict`` of an
+    evaluation module; ``OptimizedLSTMCell_{i}`` becomes ``lstm.*_l{i}``."""
+    flat = OrderedDict()
+    for name, sub in tree.items():
+        m = _LSTM_CELL.fullmatch(name)
+        if m is None:
+            _flatten({name: sub}, "", flat)
+            continue
+        i = m.group(1)
+
+        def cat(kind, leaf):
+            return np.concatenate([np.asarray(sub[f"{kind}{g}"][leaf])
+                                   for g in _GATES], axis=-1)
+        flat[f"lstm.weight_ih_l{i}"] = cat("i", "kernel").T
+        flat[f"lstm.weight_hh_l{i}"] = cat("h", "kernel").T
+        bias = cat("h", "bias")
+        flat[f"lstm.bias_ih_l{i}"] = np.zeros_like(bias)
+        flat[f"lstm.bias_hh_l{i}"] = bias
+    return OrderedDict((k, torch.from_numpy(np.array(v, copy=True)))
+                       for k, v in flat.items())
+
+
+def _sorted_tree(node):
+    return {k: _sorted_tree(node[k]) if isinstance(node[k], dict)
+            else node[k] for k in sorted(node)}
+
+
+def params_to_flax(state_dict):
+    """Inverse of :func:`params_from_flax`: ``state_dict`` -> flax
+    ``params`` tree of numpy arrays, keys in flax's sorted order. Raises if
+    an LSTM input bias is not zero (flax's cell has none)."""
+    tree, cells = {}, {}
+    for key, t in state_dict.items():
+        a = t.detach().cpu().numpy()
+        m = _LSTM_KEY.fullmatch(key)
+        if m is not None:
+            cells.setdefault(m.group(2), {})[m.group(1)] = a
+            continue
+        parts = key.split(".")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = a
+    for i, c in cells.items():
+        if np.any(c["bias_ih"]):
+            raise ValueError(f"lstm.bias_ih_l{i} is not zero: flax's "
+                             "OptimizedLSTMCell has no input bias")
+        cell = {}
+        for kind, w in (("i", c["weight_ih"]), ("h", c["weight_hh"])):
+            for g, part in zip(_GATES, np.split(w.T, 4, axis=1)):
+                cell[f"{kind}{g}"] = {"kernel": np.ascontiguousarray(part)}
+        for g, part in zip(_GATES, np.split(c["bias_hh"], 4)):
+            cell[f"h{g}"]["bias"] = part.copy()
+        tree[f"OptimizedLSTMCell_{i}"] = cell
+    return _sorted_tree(tree)
+
+
+def load_flax_params(module, tree):
+    """Load a flax ``params`` tree (numpy) into ``module`` on the device
+    of its parameters; returns the module."""
+    dev = next(module.parameters()).device
+    module.load_state_dict({k: v.to(dev) for k, v in
+                            params_from_flax(tree).items()}, strict=True)
+    return module
