@@ -5,7 +5,8 @@
 
 Needs one CUDA GPU and ``nvcc``; imports no JAX. It builds the port's CUDA
 kernels from ``vae_npvc_tpu_torch/csrc``, holds each against its plain
-PyTorch version, holds the port's ``Converter`` against the committed JAX
+PyTorch version (and the attention kernels in fp32 at T = 3,072 against
+float64), holds the port's ``Converter`` against the committed JAX
 golden fixture, then serves conversion requests over HTTP with the flagship
 flat EMA VQ-VAE (``egs/vcc20/vae1/conf/train_vqvae.yaml`` widths, bf16,
 seeded random weights), checks the kernels ran on that path, and holds the
@@ -37,7 +38,18 @@ speaker ids, ``bin/decode`` over trials with the flagship flat model and
 its ``--all-targets`` sweep with the trained hierarchy, de-normalization
 and Griffin-Lim, with the port's decode and sweep held against the
 committed JAX decode fixture and padded batches against unpadded runs in
-fp32. Last, the native Parallel WaveGAN vocoder of
+fp32. Then stage 8 (``bundle``): ``bin/export_serving`` of the flagship at
+``--max_frames 2048`` (fp32 and int8 params), the bundle converting the
+offline trials with the live path's K1/K2 launches, ids and mel,
+``bin/bundle_check`` against the stage-5 decode, a bucket exported on the
+CPU and moved to the card, the trained hierarchy as a bundle and a
+``ConversionEngine(bundle=...)`` answering HTTP requests. Then the
+AISHELL-3 recipe at the widths of its ``train_vqvae.yaml`` (``bnf``): front
+end, CMVN, speaker ids and the seeded train/valid split of 16 utterances
+at 44.1 kHz, a few ``bin/train`` steps, ``bin/extract_bnf -k csid
+--durations`` with its launches per batch, and ``run_tts.sh`` stages 0-2
+(``bin/train_tts`` with the conv synthesizer, ``bin/decode_tts`` on the
+tokens). Then the native Parallel WaveGAN vocoder of
 ``egs/vcc20/vae1/conf/train_jpwg.yaml`` (``PWG``, fp32, no kernel of its
 own): the port's ``PwgTrainer`` against the committed JAX fixture
 (``voc_golden``), every gradient at full width against the CPU
@@ -64,6 +76,7 @@ from __future__ import annotations
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -261,7 +274,13 @@ HIER_SMALL = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gets the run's elapsed seconds."""
+    if "phase" in obj:
+        obj = dict(obj, smoke_elapsed_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -851,6 +870,39 @@ def _attn_case(torch, B, H, T, d, lengths, dtype, rng, q_scale=1.0,
     return case
 
 
+ATTN_LONG = (4, 4, 3072)      # B, H, T of the long-row fp32 case
+
+
+def _attn_long(torch, d, rng):
+    """K4 and K5 in fp32 at ``ATTN_LONG`` (every key valid) against the same
+    formulas in float64: the largest error over each output's peak, held
+    to ``K4_TOL`` (o) and ``K5_TOL`` (dq, dk, dv)."""
+    from vae_npvc_tpu_torch.ops.attention import fused_attention
+
+    B, H, T = ATTN_LONG
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.tensor(rng.normal(size=(B, T, H * d)),
+                                dtype=torch.float32, device=dev)
+                   .reshape(B, T, H, d).transpose(1, 2) for _ in range(4))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fused_attention(qg, kg, vg)
+    got = (o.detach(),) + torch.autograd.grad(o, (qg, kg, vg), do)
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = d ** -0.5
+    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    o64 = p @ v
+    ds = p * (do @ v.transpose(-1, -2) - (do * o64).sum(-1, keepdim=True))
+    exact = (o64, ds @ k * scale, ds.transpose(-1, -2) @ q * scale,
+             p.transpose(-1, -2) @ do)
+    case = {"B": B, "H": H, "T": T, "d": d}
+    for name, a, e, tol in zip(("o", "dq", "dk", "dv"), got, exact,
+                               (K4_TOL, K5_TOL, K5_TOL, K5_TOL)):
+        case[name] = float((a.double() - e).abs().max() / e.abs().max())
+        check(case[name] <= tol, f"attention fp32 at T = {T}, d = {d}: "
+              f"{name} {case[name]} of the float64 peak (limit {tol})")
+    return case
+
+
 def phase_kernels(torch):
     rng = np.random.default_rng(0)
     # ids mode at the serving path's row counts: B=8 x bucket 256, B=8 x
@@ -988,9 +1040,13 @@ def phase_kernels(torch):
                            rng, iters=10))
     attn.append(_attn_case(torch, 16, 4, 1536, 48, [1496] + [1] * 15,
                            torch.float32, rng, iters=10, backward=False))
+    # fp32 at T = 3,072 against float64: the error of the sums over 48 key
+    # (query) tiles
+    attn_long = [_attn_long(torch, d, rng) for d in (48, 96)]
     emit({"phase": "kernels", "vq_fused": vq, "fused_group_norm": gn,
-          "fused_group_norm_backward": gnb, "fused_attention": attn})
-    return vq, gn, gnb, attn
+          "fused_group_norm_backward": gnb, "fused_attention": attn,
+          "fused_attention_long_fp32_vs_f64": attn_long})
+    return vq, gn, gnb, attn, attn_long
 
 
 def phase_golden(torch):
@@ -2424,15 +2480,16 @@ HIER_ENCODE_LAUNCHES = {"vq_fused": 2, "fused_group_norm": 30}
 HIER_DECODE_LAUNCHES = {"vq_fused": 0, "fused_group_norm": 10}
 
 
-def _offline_corpus(root):
-    """A Kaldi data dir (``wav.scp``, ``utt2spk``, ``spk2utt``) of
-    ``OFFLINE_UTTS`` written as int16 wavs; utterance i is speaker i % 4."""
+def _offline_corpus(root, utts=OFFLINE_UTTS):
+    """A Kaldi data dir (``wav.scp``, ``utt2spk``, ``spk2utt``) of ``utts``
+    (``(seconds, fs)`` pairs) written as int16 wavs; utterance i is speaker
+    i % 4."""
     from scipy.io import wavfile
 
     wav = root / "wav"
     wav.mkdir(parents=True)
     utt2spk = {}
-    for i, (sec, fs) in enumerate(OFFLINE_UTTS):
+    for i, (sec, fs) in enumerate(utts):
         utt, spk = f"utt{i:02d}", f"spk{i % 4}"
         x = _speechlike(int(round(sec * fs)), fs, 100 + i)
         wavfile.write(wav / f"{utt}.wav", fs, (x * 32767).astype(np.int16))
@@ -2574,7 +2631,7 @@ def _plans(k2):
             for (s, d, g, p), (n, e, _) in sorted(k2.items())]
 
 
-def phase_offline(torch, hier_ckpt):
+def phase_offline(torch, hier_ckpt, root):
     """The VCC2020 recipes' offline stages through the port's CLIs on the
     card: ``make_fbank`` and ``apply_cmvn compute`` (stage 1),
     ``make_spk_id`` and ``apply_cmvn apply`` (stage 2), ``bin/decode`` over
@@ -2584,7 +2641,9 @@ def phase_offline(torch, hier_ckpt):
     ``convert_fbank`` (stage 6); the JAX decode fixture on the card in fp32;
     masked batching and the flat sweep against per-utterance runs at full
     width in fp32; launch counts, K2 plans and K1 rows re-scored of the
-    decode and the sweep; one profiled decode batch."""
+    decode and the sweep; one profiled decode batch. Writes under ``root``;
+    the returned ``paths`` (the stage-2 dump with its trials, the flagship's
+    config and checkpoint, the stage-5 decode) feed the ``bundle`` phase."""
     from scipy.io import wavfile
 
     from vae_npvc_tpu_torch.bin import apply_cmvn, convert_fbank, decode
@@ -2604,255 +2663,254 @@ def phase_offline(torch, hier_ckpt):
         stage_s[name] = time.perf_counter() - t0
         return out
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        golden_err = _offline_golden(torch, root)
-        data, utt2spk = _offline_corpus(root)
+    root.mkdir(parents=True, exist_ok=True)
+    golden_err = _offline_golden(torch, root)
+    data, utt2spk = _offline_corpus(root)
 
-        # stages 1-2: front end, CMVN stats, speaker ids, normalized dump
-        fb, dump = root / "fbank", root / "dump"
-        n = stage("make_fbank", make_fbank, data, fb, device="cuda",
-                  **OFFLINE_FEATURE)
-        check(n == len(OFFLINE_UTTS), f"offline: make_fbank wrote {n}")
-        make_fbank(data, root / "fbank_cpu", device="cpu", **OFFLINE_FEATURE)
-        cpu = dict(kaldi_io.read_ark(root / "fbank_cpu" / "feats_raw.ark"))
-        fbank_err = 0.0
-        for utt, m in kaldi_io.read_ark(fb / "feats_raw.ark"):
-            check(m.shape == cpu[utt].shape, f"offline: {utt} {m.shape}")
-            fbank_err = max(fbank_err, float(np.abs(m - cpu[utt]).max()))
-        check(fbank_err <= 1e-3, f"offline: make_fbank on the card differs "
-              f"from the CPU by {fbank_err}")
-        cmvn_ark = root / "cmvn.ark"
-        stage("apply_cmvn_compute", apply_cmvn.main,
-              ["compute", f"scp:{fb}/feats.scp", str(cmvn_ark)])
-        stage("make_spk_id", make_spk_id, fb)
-        stage("apply_cmvn_apply", apply_cmvn.main,
-              ["apply", str(cmvn_ark), f"scp:{fb}/feats.scp", str(dump)])
-        apply_cmvn.main(["apply", "--reverse", str(cmvn_ark),
-                         f"scp:{dump}/feats.scp", str(root / "back")])
-        back = dict(kaldi_io.read_ark(root / "back" / "feats_cmvn.ark"))
-        cmvn_err = max(float(np.abs(back[u] - m).max())
-                       for u, m in kaldi_io.read_ark(fb / "feats_raw.ark"))
-        check(cmvn_err <= 1e-5, f"offline: reverse(apply(x)) differs from x "
-              f"by {cmvn_err}")
-        spk2spk_id = kaldi_io.load_dict_data(fb / "spk2spk_id")
-        (dump / "spk2spk_id").write_text((fb / "spk2spk_id").read_text())
-        target = {u: f"spk{(int(s[3:]) + 1) % 4}" for u, s in utt2spk.items()}
-        (dump / "trials").write_text("".join(
-            f"{u} {t}\n" for u, t in target.items()))
-        frames = {u: int(v) for u, v in kaldi_io.load_dict_data(
-            dump / "utt2num_frames").items()}
-        n_frames = sum(frames.values())
+    # stages 1-2: front end, CMVN stats, speaker ids, normalized dump
+    fb, dump = root / "fbank", root / "dump"
+    n = stage("make_fbank", make_fbank, data, fb, device="cuda",
+              **OFFLINE_FEATURE)
+    check(n == len(OFFLINE_UTTS), f"offline: make_fbank wrote {n}")
+    make_fbank(data, root / "fbank_cpu", device="cpu", **OFFLINE_FEATURE)
+    cpu = dict(kaldi_io.read_ark(root / "fbank_cpu" / "feats_raw.ark"))
+    fbank_err = 0.0
+    for utt, m in kaldi_io.read_ark(fb / "feats_raw.ark"):
+        check(m.shape == cpu[utt].shape, f"offline: {utt} {m.shape}")
+        fbank_err = max(fbank_err, float(np.abs(m - cpu[utt]).max()))
+    check(fbank_err <= 1e-3, f"offline: make_fbank on the card differs "
+          f"from the CPU by {fbank_err}")
+    cmvn_ark = root / "cmvn.ark"
+    stage("apply_cmvn_compute", apply_cmvn.main,
+          ["compute", f"scp:{fb}/feats.scp", str(cmvn_ark)])
+    stage("make_spk_id", make_spk_id, fb)
+    stage("apply_cmvn_apply", apply_cmvn.main,
+          ["apply", str(cmvn_ark), f"scp:{fb}/feats.scp", str(dump)])
+    apply_cmvn.main(["apply", "--reverse", str(cmvn_ark),
+                     f"scp:{dump}/feats.scp", str(root / "back")])
+    back = dict(kaldi_io.read_ark(root / "back" / "feats_cmvn.ark"))
+    cmvn_err = max(float(np.abs(back[u] - m).max())
+                   for u, m in kaldi_io.read_ark(fb / "feats_raw.ark"))
+    check(cmvn_err <= 1e-5, f"offline: reverse(apply(x)) differs from x "
+          f"by {cmvn_err}")
+    spk2spk_id = kaldi_io.load_dict_data(fb / "spk2spk_id")
+    (dump / "spk2spk_id").write_text((fb / "spk2spk_id").read_text())
+    target = {u: f"spk{(int(s[3:]) + 1) % 4}" for u, s in utt2spk.items()}
+    (dump / "trials").write_text("".join(
+        f"{u} {t}\n" for u, t in target.items()))
+    frames = {u: int(v) for u, v in kaldi_io.load_dict_data(
+        dump / "utt2num_frames").items()}
+    n_frames = sum(frames.values())
 
-        # stage 5, flat: bin/decode over trials (bf16, compressed output)
-        flat_ckpt, flat_conf = root / "flat.msgpack", root / "flat.json"
-        _random_checkpoint(torch, flat_ckpt)
-        flat_conf.write_text(json.dumps(FLAGSHIP))
-        args = ["-c", str(flat_conf), "--checkpoint", str(flat_ckpt),
-                "--decode-dir", str(dump)]
+    # stage 5, flat: bin/decode over trials (bf16, compressed output)
+    flat_ckpt, flat_conf = root / "flat.msgpack", root / "flat.json"
+    _random_checkpoint(torch, flat_ckpt)
+    flat_conf.write_text(json.dumps(FLAGSHIP))
+    args = ["-c", str(flat_conf), "--checkpoint", str(flat_ckpt),
+            "--decode-dir", str(dump)]
+    _zero_counts()
+    n = stage("decode_flat", decode.main,
+              args + ["--output-dir", str(root / "dec")])
+    flat_launches = _read_counts()
+    batches = _batches(frames.values(), FLAGSHIP["decode_bucket_size"],
+                       FLAGSHIP["decode_batch_size"])
+    check(n == len(frames), f"offline: decode wrote {n}")
+    check({k: flat_launches[k] for k in FLAT_LAUNCHES}
+          == {k: v * batches for k, v in FLAT_LAUNCHES.items()},
+          f"offline: flat decode of {batches} batches launched "
+          f"{flat_launches}")
+
+    # the same decode on a built converter: compression against the
+    # uncompressed output, every K1/K2 call held against the plain
+    # versions
+    cv = Converter(FLAGSHIP, device="cuda")
+    cv.load_checkpoint(flat_ckpt)
+    cv.decode(dump, root / "dec_raw", compress=False)
+    raw = fx.read_outputs(root / "dec_raw")
+    compressed = fx.read_outputs(root / "dec")
+    _max_err(compressed, raw)
+    for (k, a), (_, b) in zip(compressed, raw):
+        check(bool(np.isfinite(b).all()), f"offline: {k} not finite")
+        step = fx.compression_step(b)
+        check(bool(np.all(np.abs(a - b) <= step[None])),
+              f"offline: compressed {k} beyond one step of the "
+              f"uncompressed output")
+    jobs = [(u, rx, frames[u]) for u, rx in
+            kaldi_io.load_dict_data(dump / "feats.scp").items()]
+    # throughput: every utterance OFFLINE_COPIES times under keys of its
+    # own, so each batch holds decode_batch_size rows
+    rep = _replicated(dump, root / "rep", OFFLINE_COPIES)
+    rep_jobs = [(u, rx, frames[u.rsplit("-", 1)[0]]) for u, rx in
+                kaldi_io.load_dict_data(rep / "feats.scp").items()]
+    rep_chunks = list(cv._chunks(rep_jobs))
+    check(all(len(c) == FLAGSHIP["decode_batch_size"]
+              for _, c in rep_chunks),
+          f"offline: throughput batches of "
+          f"{[len(c) for _, c in rep_chunks]}")
+    k1_flat, k2_flat = [], {}
+    undo = _recording(torch, k1_flat, k2_flat)
+    try:
+        cv.decode(dump, root / "rec", compress=False)
+        cv.decode(rep, root / "rep_out", compress=False)
+    finally:
+        undo()
+    _check_recorded(k1_flat, k2_flat, "flat decode")
+    rep_s = []
+    for _ in range(OFFLINE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv.decode(rep, root / "rep_out", compress=False)
+        torch.cuda.synchronize()
+        rep_s.append(time.perf_counter() - t0)
+    T_pad, chunk = rep_chunks[-1]
+    feats, lengths = cv._load(chunk, T_pad)
+    tgts = np.array([int(spk2spk_id[target[j[0].rsplit("-", 1)[0]]])
+                     for j in chunk], np.int32)
+    profile = _profiled(torch, lambda: cv.infer(feats, tgts, lengths))
+    del cv
+
+    # masked batching and the encode-once sweep at full width in fp32,
+    # every K1/K2 call of these runs held against the plain versions
+    cv32 = Converter(dict(FLAGSHIP, compute_dtype="float32"),
+                     device="cuda")
+    cv32.load_checkpoint(flat_ckpt)
+    k1_32, k2_32 = [], {}
+    undo = _recording(torch, k1_32, k2_32)
+    try:
+        cv32.decode(dump, root / "dec32", compress=False)
+        dec32 = dict(fx.read_outputs(root / "dec32"))
+        masked_err = 0.0
+        for utt, rx in kaldi_io.load_dict_data(
+                dump / "feats.scp").items():
+            x = kaldi_io.load_mat(rx)[None]
+            one = cv32.infer(x, [int(spk2spk_id[target[utt]])],
+                             [x.shape[1]])[0]
+            masked_err = max(masked_err,
+                             float(np.abs(one - dec32[utt]).max()))
+        same = root / "same"
+        same.mkdir()
+        for f in ("feats.scp", "spk2spk_id"):
+            (same / f).write_text((dump / f).read_text())
+        (same / "trials").write_text("".join(f"{u} spk1\n"
+                                             for u in frames))
+        cv32.decode(same, root / "same_out", compress=False)
         _zero_counts()
-        n = stage("decode_flat", decode.main,
-                  args + ["--output-dir", str(root / "dec")])
-        flat_launches = _read_counts()
-        batches = _batches(frames.values(), FLAGSHIP["decode_bucket_size"],
-                           FLAGSHIP["decode_batch_size"])
-        check(n == len(frames), f"offline: decode wrote {n}")
-        check({k: flat_launches[k] for k in FLAT_LAUNCHES}
-              == {k: v * batches for k, v in FLAT_LAUNCHES.items()},
-              f"offline: flat decode of {batches} batches launched "
-              f"{flat_launches}")
+        cv32.sweep(dump, root / "sweep32", ["spk1"], compress=False)
+        flat_sweep_launches = _read_counts()
+    finally:
+        undo()
+    _check_recorded(k1_32, k2_32, "flat fp32 decode and sweep")
+    check(masked_err <= OFFLINE_TOL, f"offline: a bucketed batch differs "
+          f"from unpadded runs by {masked_err}")
+    check({k: flat_sweep_launches[k] for k in FLAT_LAUNCHES}
+          == {k: v * len(frames) for k, v in FLAT_LAUNCHES.items()},
+          f"offline: flat sweep of {len(frames)} utterances launched "
+          f"{flat_sweep_launches}")
+    swept = dict(fx.read_outputs(root / "sweep32"))
+    sweep_err = max(float(np.abs(swept[f"{u}__spk1"] - m).max())
+                    for u, m in fx.read_outputs(root / "same_out"))
+    check(sweep_err <= OFFLINE_TOL, f"offline: the flat sweep differs "
+          f"from decode by {sweep_err}")
+    # reported, not held to a tolerance: a frame whose code flips
+    # between bf16 and fp32 changes the output by the codes' distance
+    peak32 = max(float(np.abs(m).max()) for m in dec32.values())
+    bf16_err = max(float(np.abs(m - dec32[k]).max())
+                   for k, m in raw) / peak32
+    del cv32
 
-        # the same decode on a built converter: compression against the
-        # uncompressed output, every K1/K2 call held against the plain
-        # versions
-        cv = Converter(FLAGSHIP, device="cuda")
-        cv.load_checkpoint(flat_ckpt)
-        cv.decode(dump, root / "dec_raw", compress=False)
-        raw = fx.read_outputs(root / "dec_raw")
-        compressed = fx.read_outputs(root / "dec")
-        _max_err(compressed, raw)
-        for (k, a), (_, b) in zip(compressed, raw):
-            check(bool(np.isfinite(b).all()), f"offline: {k} not finite")
-            step = fx.compression_step(b)
-            check(bool(np.all(np.abs(a - b) <= step[None])),
-                  f"offline: compressed {k} beyond one step of the "
-                  f"uncompressed output")
-        jobs = [(u, rx, frames[u]) for u, rx in
-                kaldi_io.load_dict_data(dump / "feats.scp").items()]
-        # throughput: every utterance OFFLINE_COPIES times under keys of its
-        # own, so each batch holds decode_batch_size rows
-        rep = _replicated(dump, root / "rep", OFFLINE_COPIES)
-        rep_jobs = [(u, rx, frames[u.rsplit("-", 1)[0]]) for u, rx in
-                    kaldi_io.load_dict_data(rep / "feats.scp").items()]
-        rep_chunks = list(cv._chunks(rep_jobs))
-        check(all(len(c) == FLAGSHIP["decode_batch_size"]
-                  for _, c in rep_chunks),
-              f"offline: throughput batches of "
-              f"{[len(c) for _, c in rep_chunks]}")
-        k1_flat, k2_flat = [], {}
-        undo = _recording(torch, k1_flat, k2_flat)
-        try:
-            cv.decode(dump, root / "rec", compress=False)
-            cv.decode(rep, root / "rep_out", compress=False)
-        finally:
-            undo()
-        _check_recorded(k1_flat, k2_flat, "flat decode")
-        rep_s = []
-        for _ in range(OFFLINE_REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            cv.decode(rep, root / "rep_out", compress=False)
-            torch.cuda.synchronize()
-            rep_s.append(time.perf_counter() - t0)
-        T_pad, chunk = rep_chunks[-1]
-        feats, lengths = cv._load(chunk, T_pad)
-        tgts = np.array([int(spk2spk_id[target[j[0].rsplit("-", 1)[0]]])
-                         for j in chunk], np.int32)
-        profile = _profiled(torch, lambda: cv.infer(feats, tgts, lengths))
-        del cv
+    # stage 5, hierarchy: bin/decode --all-targets to two targets
+    hier_conf = root / "hier.json"
+    hier_conf.write_text(json.dumps(HIER))
+    _zero_counts()
+    n = stage("sweep_hier", decode.main,
+              ["-c", str(hier_conf), "--checkpoint", str(hier_ckpt),
+               "--decode-dir", str(dump), "--output-dir",
+               str(root / "hsweep"), "--all-targets", "spk1,spk2"])
+    hier_launches = _read_counts()
+    cvh = Converter(HIER, device="cuda")
+    hier_batches = _batches(frames.values(), HIER["decode_bucket_size"],
+                            HIER["decode_batch_size"], cvh.min_frames)
+    want = {k: hier_batches * (HIER_ENCODE_LAUNCHES[k]
+                               + 2 * HIER_DECODE_LAUNCHES[k])
+            for k in HIER_ENCODE_LAUNCHES}
+    check(n == 2 * len(frames), f"offline: hier sweep wrote {n}")
+    check({k: hier_launches[k] for k in want} == want,
+          f"offline: hier sweep of {hier_batches} batches launched "
+          f"{hier_launches}, want {want}")
+    for k, m in fx.read_outputs(root / "hsweep"):
+        check(bool(np.isfinite(m).all()), f"offline: {k} not finite")
+        check(m.shape == (frames[k.split("__")[0]], 80),
+              f"offline: {k} {m.shape}")
+    cvh.load_checkpoint(hier_ckpt)
+    k1_hier, k2_hier = [], {}
+    undo = _recording(torch, k1_hier, k2_hier)
+    try:
+        cvh.sweep(dump, root / "hrec", ["spk1"], compress=False)
+    finally:
+        undo()
+    _check_recorded(k1_hier, k2_hier, "hier sweep")
+    # one hierarchy infer of the longest bucket: K1 re-scores its
+    # padded (zero) rows over every code
+    hT, hchunk = list(cvh._chunks(jobs))[-1]
+    hfeats, hlengths = cvh._load(hchunk, hT)
+    htgts = np.ones((len(hchunk),), np.int32)
+    cvh.infer(hfeats, htgts, hlengths)
+    hier_profile = _profiled(
+        torch, lambda: cvh.infer(hfeats, htgts, hlengths))
+    del cvh
 
-        # masked batching and the encode-once sweep at full width in fp32,
-        # every K1/K2 call of these runs held against the plain versions
-        cv32 = Converter(dict(FLAGSHIP, compute_dtype="float32"),
-                         device="cuda")
-        cv32.load_checkpoint(flat_ckpt)
-        k1_32, k2_32 = [], {}
-        undo = _recording(torch, k1_32, k2_32)
-        try:
-            cv32.decode(dump, root / "dec32", compress=False)
-            dec32 = dict(fx.read_outputs(root / "dec32"))
-            masked_err = 0.0
-            for utt, rx in kaldi_io.load_dict_data(
-                    dump / "feats.scp").items():
-                x = kaldi_io.load_mat(rx)[None]
-                one = cv32.infer(x, [int(spk2spk_id[target[utt]])],
-                                 [x.shape[1]])[0]
-                masked_err = max(masked_err,
-                                 float(np.abs(one - dec32[utt]).max()))
-            same = root / "same"
-            same.mkdir()
-            for f in ("feats.scp", "spk2spk_id"):
-                (same / f).write_text((dump / f).read_text())
-            (same / "trials").write_text("".join(f"{u} spk1\n"
-                                                 for u in frames))
-            cv32.decode(same, root / "same_out", compress=False)
-            _zero_counts()
-            cv32.sweep(dump, root / "sweep32", ["spk1"], compress=False)
-            flat_sweep_launches = _read_counts()
-        finally:
-            undo()
-        _check_recorded(k1_32, k2_32, "flat fp32 decode and sweep")
-        check(masked_err <= OFFLINE_TOL, f"offline: a bucketed batch differs "
-              f"from unpadded runs by {masked_err}")
-        check({k: flat_sweep_launches[k] for k in FLAT_LAUNCHES}
-              == {k: v * len(frames) for k, v in FLAT_LAUNCHES.items()},
-              f"offline: flat sweep of {len(frames)} utterances launched "
-              f"{flat_sweep_launches}")
-        swept = dict(fx.read_outputs(root / "sweep32"))
-        sweep_err = max(float(np.abs(swept[f"{u}__spk1"] - m).max())
-                        for u, m in fx.read_outputs(root / "same_out"))
-        check(sweep_err <= OFFLINE_TOL, f"offline: the flat sweep differs "
-              f"from decode by {sweep_err}")
-        # reported, not held to a tolerance: a frame whose code flips
-        # between bf16 and fp32 changes the output by the codes' distance
-        peak32 = max(float(np.abs(m).max()) for m in dec32.values())
-        bf16_err = max(float(np.abs(m - dec32[k]).max())
-                       for k, m in raw) / peak32
-        del cv32
+    # the hierarchy in fp32: its encode-once sweep against decode to the
+    # same target, and each bucketed batch against the utterance alone
+    # (padded to the least length its levels take)
+    cvh32 = Converter(dict(HIER, compute_dtype="float32"), device="cuda")
+    cvh32.load_checkpoint(hier_ckpt)
+    k1_h32, k2_h32 = [], {}
+    undo = _recording(torch, k1_h32, k2_h32)
+    try:
+        cvh32.decode(same, root / "hsame", compress=False)
+        cvh32.sweep(dump, root / "hsweep32", ["spk1"], compress=False)
+        hdec = dict(fx.read_outputs(root / "hsame"))
+        hier_masked_err = 0.0
+        mf = cvh32.min_frames
+        for utt, rx in kaldi_io.load_dict_data(
+                dump / "feats.scp").items():
+            x = kaldi_io.load_mat(rx)
+            T = x.shape[0]
+            xp = np.zeros((1, max(-(-T // mf) * mf, mf), x.shape[1]),
+                          np.float32)
+            xp[0, :T] = x
+            one = cvh32.infer(xp, [int(spk2spk_id["spk1"])], [T])[0, :T]
+            hier_masked_err = max(hier_masked_err,
+                                  float(np.abs(one - hdec[utt]).max()))
+    finally:
+        undo()
+    _check_recorded(k1_h32, k2_h32, "hier fp32 decode and sweep")
+    hswept = dict(fx.read_outputs(root / "hsweep32"))
+    hier_sweep_err = max(float(np.abs(hswept[f"{u}__spk1"] - m).max())
+                         for u, m in hdec.items())
+    check(hier_masked_err <= OFFLINE_TOL, f"offline: a hierarchy batch "
+          f"differs from unpadded runs by {hier_masked_err}")
+    check(hier_sweep_err <= OFFLINE_TOL, f"offline: the hierarchy sweep "
+          f"differs from decode by {hier_sweep_err}")
+    del cvh32
 
-        # stage 5, hierarchy: bin/decode --all-targets to two targets
-        hier_conf = root / "hier.json"
-        hier_conf.write_text(json.dumps(HIER))
-        _zero_counts()
-        n = stage("sweep_hier", decode.main,
-                  ["-c", str(hier_conf), "--checkpoint", str(hier_ckpt),
-                   "--decode-dir", str(dump), "--output-dir",
-                   str(root / "hsweep"), "--all-targets", "spk1,spk2"])
-        hier_launches = _read_counts()
-        cvh = Converter(HIER, device="cuda")
-        hier_batches = _batches(frames.values(), HIER["decode_bucket_size"],
-                                HIER["decode_batch_size"], cvh.min_frames)
-        want = {k: hier_batches * (HIER_ENCODE_LAUNCHES[k]
-                                   + 2 * HIER_DECODE_LAUNCHES[k])
-                for k in HIER_ENCODE_LAUNCHES}
-        check(n == 2 * len(frames), f"offline: hier sweep wrote {n}")
-        check({k: hier_launches[k] for k in want} == want,
-              f"offline: hier sweep of {hier_batches} batches launched "
-              f"{hier_launches}, want {want}")
-        for k, m in fx.read_outputs(root / "hsweep"):
-            check(bool(np.isfinite(m).all()), f"offline: {k} not finite")
-            check(m.shape == (frames[k.split("__")[0]], 80),
-                  f"offline: {k} {m.shape}")
-        cvh.load_checkpoint(hier_ckpt)
-        k1_hier, k2_hier = [], {}
-        undo = _recording(torch, k1_hier, k2_hier)
-        try:
-            cvh.sweep(dump, root / "hrec", ["spk1"], compress=False)
-        finally:
-            undo()
-        _check_recorded(k1_hier, k2_hier, "hier sweep")
-        # one hierarchy infer of the longest bucket: K1 re-scores its
-        # padded (zero) rows over every code
-        hT, hchunk = list(cvh._chunks(jobs))[-1]
-        hfeats, hlengths = cvh._load(hchunk, hT)
-        htgts = np.ones((len(hchunk),), np.int32)
-        cvh.infer(hfeats, htgts, hlengths)
-        hier_profile = _profiled(
-            torch, lambda: cvh.infer(hfeats, htgts, hlengths))
-        del cvh
-
-        # the hierarchy in fp32: its encode-once sweep against decode to the
-        # same target, and each bucketed batch against the utterance alone
-        # (padded to the least length its levels take)
-        cvh32 = Converter(dict(HIER, compute_dtype="float32"), device="cuda")
-        cvh32.load_checkpoint(hier_ckpt)
-        k1_h32, k2_h32 = [], {}
-        undo = _recording(torch, k1_h32, k2_h32)
-        try:
-            cvh32.decode(same, root / "hsame", compress=False)
-            cvh32.sweep(dump, root / "hsweep32", ["spk1"], compress=False)
-            hdec = dict(fx.read_outputs(root / "hsame"))
-            hier_masked_err = 0.0
-            mf = cvh32.min_frames
-            for utt, rx in kaldi_io.load_dict_data(
-                    dump / "feats.scp").items():
-                x = kaldi_io.load_mat(rx)
-                T = x.shape[0]
-                xp = np.zeros((1, max(-(-T // mf) * mf, mf), x.shape[1]),
-                              np.float32)
-                xp[0, :T] = x
-                one = cvh32.infer(xp, [int(spk2spk_id["spk1"])], [T])[0, :T]
-                hier_masked_err = max(hier_masked_err,
-                                      float(np.abs(one - hdec[utt]).max()))
-        finally:
-            undo()
-        _check_recorded(k1_h32, k2_h32, "hier fp32 decode and sweep")
-        hswept = dict(fx.read_outputs(root / "hsweep32"))
-        hier_sweep_err = max(float(np.abs(hswept[f"{u}__spk1"] - m).max())
-                             for u, m in hdec.items())
-        check(hier_masked_err <= OFFLINE_TOL, f"offline: a hierarchy batch "
-              f"differs from unpadded runs by {hier_masked_err}")
-        check(hier_sweep_err <= OFFLINE_TOL, f"offline: the hierarchy sweep "
-              f"differs from decode by {hier_sweep_err}")
-        del cvh32
-
-        # stage 6: de-normalize, Griffin-Lim
-        denorm = root / "denorm"
-        stage("apply_cmvn_reverse", apply_cmvn.main,
-              ["apply", "--reverse", str(cmvn_ark),
-               f"scp:{root}/dec/feats.scp", str(denorm)])
-        n = stage("convert_fbank", convert_fbank.convert_fbank,
-                  denorm / "feats.scp", denorm / "wav",
-                  n_iter=OFFLINE_GL_ITERS, device="cuda", **OFFLINE_FEATURE)
-        check(n == len(frames), f"offline: convert_fbank wrote {n}")
-        peak = int(0.95 * 32767)
-        for utt, T in frames.items():
-            sr, w = wavfile.read(denorm / "wav" / f"{utt}.wav")
-            check(sr == OFFLINE_FEATURE["fs"]
-                  and w.shape == (T * OFFLINE_FEATURE["n_shift"],),
-                  f"offline: {utt}.wav {w.shape} at {sr} Hz, {T} frames")
-            check(int(np.abs(w.astype(np.int32)).max()) == peak,
-                  f"offline: {utt}.wav peak {np.abs(w).max()}")
+    # stage 6: de-normalize, Griffin-Lim
+    denorm = root / "denorm"
+    stage("apply_cmvn_reverse", apply_cmvn.main,
+          ["apply", "--reverse", str(cmvn_ark),
+           f"scp:{root}/dec/feats.scp", str(denorm)])
+    n = stage("convert_fbank", convert_fbank.convert_fbank,
+              denorm / "feats.scp", denorm / "wav",
+              n_iter=OFFLINE_GL_ITERS, device="cuda", **OFFLINE_FEATURE)
+    check(n == len(frames), f"offline: convert_fbank wrote {n}")
+    peak = int(0.95 * 32767)
+    for utt, T in frames.items():
+        sr, w = wavfile.read(denorm / "wav" / f"{utt}.wav")
+        check(sr == OFFLINE_FEATURE["fs"]
+              and w.shape == (T * OFFLINE_FEATURE["n_shift"],),
+              f"offline: {utt}.wav {w.shape} at {sr} Hz, {T} frames")
+        check(int(np.abs(w.astype(np.int32)).max()) == peak,
+              f"offline: {utt}.wav peak {np.abs(w).max()}")
 
     emit({"phase": "offline", "utterances": len(frames),
           "seconds_min_max": [OFFLINE_UTTS[0][0], OFFLINE_UTTS[15][0]],
@@ -2901,10 +2959,586 @@ def phase_offline(torch, hier_ckpt):
           "decode_batch_profile": dict(profile, B=len(chunk), T=T_pad),
           "hier_infer_profile": dict(hier_profile, B=len(hchunk), T=hT)})
     return {"flat_decode": flat_launches, "hier_sweep": hier_launches,
+            "paths": {"root": root, "dump": dump, "flat_conf": flat_conf,
+                      "flat_ckpt": flat_ckpt, "decode": root / "dec"},
             "decode_batches": batches, "hier_sweep_batches": hier_batches,
             "k2_plans": _plans(k2_flat) + _plans(k2_32) + _plans(k2_hier)
             + _plans(k2_h32),
             "k1_hier": k1_hier}
+
+
+BUNDLE_MAX_FRAMES = 2048      # egs/vcc20/vae1/run.sh stage 8
+BUNDLE_REQUESTS = 8
+
+
+def _files_bytes(path):
+    return {f.name: f.stat().st_size for f in sorted(Path(path).iterdir())}
+
+
+def _k1_ids(fn):
+    """``(fn(), ids)``: the ids of every K1 ids-mode launch of the call, as
+    the registered operator's CUDA implementation returns them."""
+    from vae_npvc_tpu_torch.ops import vq_fused as mod
+
+    original, ids = mod.vq_fused, []
+
+    def recording(z, emb, *, stats=True):
+        out = original(z, emb, stats=stats)
+        ids.append(out.idx.clone())
+        return out
+
+    # the wrapper counts its launches on the module's ``vq_fused``
+    recording.launches = original.launches
+    mod.vq_fused = recording
+    try:
+        result = fn()
+    finally:
+        mod.vq_fused = original
+        original.launches = recording.launches
+        original.rescored = getattr(recording, "rescored", original.rescored)
+    return result, ids
+
+
+def _k2_layouts(fn):
+    """``(fn(), layouts)``: the memory order of x at each K2 launch of the
+    call (``channels-last`` or ``channels-first``)."""
+    from vae_npvc_tpu_torch.ops import groupnorm as gn_ops
+
+    original, layouts = gn_ops._forward, []
+
+    def recording(x, *args):
+        layouts.append(_layout(x))
+        return original(x, *args)
+
+    gn_ops._forward = recording
+    try:
+        result = fn()
+    finally:
+        gn_ops._forward = original
+    return result, layouts
+
+
+def _padded_batches(bundle, items):
+    """The full-size ``(x, y, lengths)`` batches ``ServingBundle.convert``
+    hands its programs for ``items``, and the calls it makes."""
+    calls = []
+    infer = bundle.infer
+
+    def record(feats, tgts, lengths):
+        calls.append((np.asarray(feats), np.asarray(tgts),
+                      np.asarray(lengths)))
+        return infer(feats, tgts, lengths)
+
+    bundle.infer = record
+    try:
+        outs = bundle.convert(items)
+    finally:
+        bundle.infer = infer
+    B, K, D = bundle.batch_size, bundle.n_targets, bundle.feat_dim
+    batches = []
+    for feats, tgts, lengths in calls:
+        b, T, _ = feats.shape
+        x = np.zeros((B, bundle.pick_bucket(T), D), np.float32)
+        x[:b, :T] = feats
+        y = np.zeros((B, K), np.int32)
+        y[:b] = tgts[:, [min(j, tgts.shape[1] - 1) for j in range(K)]]
+        n = np.ones((B,), np.int32)
+        n[:b] = lengths
+        batches.append((x, y, n))
+    return outs, batches
+
+
+def phase_bundle(torch, off, hier_ckpt):
+    """Recipe stage 8 on the card: ``bin/export_serving`` of the flagship
+    (bf16, seeded weights) at ``--max_frames 2048`` with the speaker map,
+    fp32 and int8 params (each export a process of its own, run together); ``ServingBundle.convert`` of the offline phase's
+    trials with K1/K2 launches per ``infer`` and ids and mel against the
+    live ``Converter.infer`` on the same batches (bf16, and one fp32
+    bucket); ``bin/bundle_check`` against the stage-5 arks; a bucket
+    exported on the CPU moved to the card; the trained ``HIER`` checkpoint
+    as a bundle; a ``ConversionEngine(bundle=...)`` answering HTTP
+    ``/convert``; ``infer`` of a B = 8, T = 256 batch profiled beside the
+    live path's."""
+    import contextlib
+
+    from scipy.io import wavfile
+
+    from vae_npvc_tpu_torch.bin import bundle_check
+    from vae_npvc_tpu_torch.bin.serve import serve
+    from vae_npvc_tpu_torch.data import kaldi_io
+    from vae_npvc_tpu_torch.infer.convert import Converter
+    from vae_npvc_tpu_torch.infer.export_serving import ServingBundle
+    from vae_npvc_tpu_torch.serve import ConversionEngine
+
+    root, dump = off["root"], off["dump"]
+    spk = str(dump / "spk2spk_id")
+    common = ["-m", str(off["flat_ckpt"]), "--spk2spk_id", spk]
+    export_s, sizes, step_s = {}, {}, {}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        step_s[name] = now - t_step[0]
+        t_step[0] = now
+
+    # every export through the CLI, as the recipe runs it; the five run as
+    # concurrent single-threaded processes (tracing is host work)
+    conf32 = root / "flat_fp32.json"
+    conf32.write_text(json.dumps(dict(FLAGSHIP, compute_dtype="float32")))
+    hier_conf = root / "hier_bundle.json"
+    hier_conf.write_text(json.dumps(HIER))
+    max_frames = ["--max_frames", str(BUNDLE_MAX_FRAMES)]
+    flat = ["-c", str(off["flat_conf"])] + common
+    jobs = {"fp32": flat + max_frames,
+            "int8": flat + max_frames + ["--quantize", "int8"],
+            "fp32_compute": ["-c", str(conf32)] + common
+            + ["--buckets", "256"],
+            "cpu": flat + ["--buckets", "256", "--device", "cpu"],
+            "hier": ["-c", str(hier_conf), "-m", str(hier_ckpt),
+                     "--buckets", "256"]}
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+
+    def export(name):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "vae_npvc_tpu_torch.bin.export_serving",
+             "-o", str(root / f"bundle_{name}")] + jobs[name], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        return name, time.perf_counter() - t0, proc
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        for name, seconds, proc in ex.map(export, jobs):
+            log = proc.stdout.decode(errors="replace")
+            check(proc.returncode == 0,
+                  f"bundle: export {name} failed:\n{log[-3000:]}")
+            print(log.strip().splitlines()[-1], flush=True)
+            export_s[name] = seconds
+            sizes[name] = _files_bytes(root / f"bundle_{name}")
+    meta = json.loads((root / "bundle_fp32" / "bundle.json").read_text())
+    want_buckets = list(range(FLAGSHIP["decode_bucket_size"],
+                              BUNDLE_MAX_FRAMES + 1,
+                              FLAGSHIP["decode_bucket_size"]))
+    check(meta["buckets"] == want_buckets and meta["batch_size"] == 8
+          and meta["device"] == "cuda" and meta["exporter"] == "torch.export",
+          f"bundle: metadata {meta}")
+    params = sizes["fp32"]["params.msgpack"]
+    for name, files in sizes.items():
+        pt2 = [v for k, v in files.items() if k.endswith(".pt2")]
+        check(max(pt2) < params / 4, f"bundle: {name} programs of {pt2} "
+              f"bytes beside {params} bytes of params hold weights")
+        for path in sorted((root / f"bundle_{name}").glob("*.pt2"))[:1]:
+            program = torch.export.load(str(path))
+            check(not program.state_dict and program.example_inputs is None
+                  and all(c.numel() <= 1
+                          for c in program.constants.values()),
+                  f"bundle: {path.name} of {name} holds weights")
+
+    # the offline phase's trials through the bundle, against the live path
+    feats_scp = kaldi_io.load_dict_data(dump / "feats.scp")
+    trials = kaldi_io.load_list_data(dump / "trials")
+    items = [(kaldi_io.load_mat(feats_scp[t[0]]), t[1:]) for t in trials]
+    step("exports")
+    bundle = ServingBundle(root / "bundle_fp32")
+    bundle.convert(items)                       # loads the programs
+    step("load_and_first_convert")
+    _zero_counts()
+    outs, batches = _padded_batches(bundle, items)
+    counts = _read_counts()
+    calls = len(batches)
+    check({k: counts[k] for k in FLAT_LAUNCHES}
+          == {k: v * calls for k, v in FLAT_LAUNCHES.items()},
+          f"bundle: {calls} infer calls launched {counts}")
+    for (feat, _), out in zip(items, outs):
+        check(out.shape == feat.shape and bool(np.isfinite(out).all()),
+              f"bundle: converted {out.shape} for {feat.shape}")
+    live = Converter(FLAGSHIP, device="cuda")
+    live.load_checkpoint(off["flat_ckpt"])
+    mel_err, ids_equal = 0.0, True
+    for x, y, n in batches:
+        got, got_ids = _k1_ids(lambda: bundle.infer(x, y, n))
+        want, want_ids = _k1_ids(lambda: live.infer(x, y, n))
+        ids_equal &= (len(got_ids) == len(want_ids)
+                      == FLAT_LAUNCHES["vq_fused"]) and all(
+            torch.equal(a, b) for a, b in zip(got_ids, want_ids))
+        mel_err = max(mel_err, float(np.abs(got - want).max()))
+    check(ids_equal, "bundle: K1 ids differ from the live Converter.infer")
+    live32 = Converter(dict(FLAGSHIP, compute_dtype="float32"),
+                       device="cuda")
+    live32.load_checkpoint(off["flat_ckpt"])
+    b32 = ServingBundle(root / "bundle_fp32_compute")
+    x, y, n = next(b for b in batches if b[0].shape[1] == 256)
+    got32, ids32 = _k1_ids(lambda: b32.infer(x, y, n))
+    want32, wids32 = _k1_ids(lambda: live32.infer(x, y, n))
+    mel32_err = float(np.abs(got32 - want32).max())
+    check(len(ids32) == len(wids32) == 1
+          and all(torch.equal(a, b) for a, b in zip(ids32, wids32))
+          and mel32_err <= OFFLINE_TOL * float(np.abs(want32).max()),
+          f"bundle: fp32 program against the live fp32 infer: {mel32_err}")
+    step("against_live")
+    # int8 params: the weight rounding's effect on the first bucket's
+    # trials, reported
+    first = [i for i, (f, _) in enumerate(items)
+             if f.shape[0] <= meta["buckets"][0]]
+    outs8 = ServingBundle(root / "bundle_int8").convert(
+        [items[i] for i in first])
+    peak = max(float(np.abs(outs[i]).max()) for i in first)
+    int8_err = max(float(np.abs(a - outs[i]).max())
+                   for a, i in zip(outs8, first))
+    # a bucket exported on the CPU, moved to the card as it loads; the
+    # memory order of each K2 input, in both programs
+    cpu = ServingBundle(root / "bundle_cpu")
+    _zero_counts()
+    (moved, moved_ids), moved_layouts = _k2_layouts(
+        lambda: _k1_ids(lambda: cpu.infer(x, y, n)))
+    moved_counts = _read_counts()
+    (card, card_ids), card_layouts = _k2_layouts(
+        lambda: _k1_ids(lambda: bundle.infer(x, y, n)))
+    moved_err = float(np.abs(moved - card).max())
+    check(moved_counts["vq_fused"] > 0
+          and moved_counts["fused_group_norm"] > 0,
+          f"bundle: the CPU-exported program launched {moved_counts}")
+    check(len(moved_ids) == len(card_ids) == 1 and all(
+        torch.equal(a, b) for a, b in zip(moved_ids, card_ids))
+        and moved_err <= OFFLINE_TOL * float(np.abs(card).max()),
+        f"bundle: the CPU-exported program differs from the card's by "
+        f"{moved_err}")
+
+    step("int8_and_cpu_exported")
+    # recipe stage 8's check against the stage-5 decode
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            bundle_check.main(["--bundle", str(root / "bundle_fp32"),
+                               "--decode_dir", str(dump), "--offline_scp",
+                               str(off["decode"] / "feats.scp")])
+    finally:
+        check_line = log.getvalue().strip()
+        print(check_line, flush=True)
+    check(check_line.startswith("bundle_check PASS"),
+          f"bundle: {check_line}")
+
+    step("bundle_check")
+    # the trained hierarchy as a bundle
+    hb = ServingBundle(root / "bundle_hier")
+    hlive = Converter(HIER, device="cuda")
+    hlive.load_checkpoint(hier_ckpt)
+    _zero_counts()
+    hgot = hb.infer(x, y, n)
+    hier_counts = _read_counts()
+    hier_err = float(np.abs(hgot - hlive.infer(x, y, n)).max())
+    check({k: hier_counts[k] for k in HIER_INFER_LAUNCHES}
+          == HIER_INFER_LAUNCHES and bool(np.isfinite(hgot).all()),
+          f"bundle: hierarchy infer launched {hier_counts}")
+
+    step("hierarchy")
+    # where the time goes: one B = 8, T = 256 batch, bundle and live in
+    # turns
+    profiles = {"bundle": [], "live": []}
+    for who in ("bundle", "live", "live", "bundle"):
+        fn = bundle.infer if who == "bundle" else live.infer
+        profiles[who].append(_profiled(torch, lambda: fn(x, y, n)))
+
+    # recipe serving through the bundle: HTTP /convert
+    fs, shift, D = 24000, 256, 80
+    stats = np.zeros((2, D + 1), np.float64)
+    stats[0, :-1] = -3.0 * 1000
+    stats[0, -1] = 1000
+    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
+    engine = ConversionEngine(None, None, stats, bundle=root / "bundle_fp32",
+                              vocoder="gl", device="cuda")
+    httpd = thread = None
+    try:
+        engine.warmup(2)
+        httpd = serve(engine, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        durations = np.linspace(1.0, 4.0, BUNDLE_REQUESTS)
+        wavs = [_speechlike(int(d * fs), fs, 40 + i)
+                for i, d in enumerate(durations)]
+        names = sorted(engine.speakers())
+
+        def post(i):
+            buf = io.BytesIO()
+            wavfile.write(buf, fs, (wavs[i] * 32767).astype(np.int16))
+            req = urllib.request.Request(
+                f"{base}/convert?target={names[i % len(names)]}",
+                data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return wavfile.read(io.BytesIO(r.read()))
+
+        calls0 = engine.batcher.calls
+        _zero_counts()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(4) as ex:
+            results = list(ex.map(post, range(len(wavs))))
+        http_s = time.monotonic() - t0
+        http_counts = _read_counts()
+        http_calls = engine.batcher.calls - calls0
+        for i, (sr, out) in enumerate(results):
+            check(sr == fs and out.shape == ((1 + wavs[i].size // shift)
+                                             * shift,)
+                  and np.abs(out).max() > 0,
+                  f"bundle: request {i} gave {out.shape} at {sr} Hz")
+        check({k: http_counts[k] for k in FLAT_LAUNCHES}
+              == {k: v * http_calls for k, v in FLAT_LAUNCHES.items()},
+              f"bundle: {http_calls} served infer calls launched "
+              f"{http_counts}")
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if thread is not None:
+            thread.join(timeout=30)
+        engine.close()
+
+    step("profiles_and_http")
+    per_infer = {k: counts[k] // calls for k in FLAT_LAUNCHES}
+    emit({"phase": "bundle", "buckets": meta["buckets"], "step_s": step_s,
+          "batch": meta["batch_size"], "export_s": export_s,
+          "export_concurrent": list(jobs),
+          "bytes": sizes, "trials": len(items), "infer_calls": calls,
+          "launches": counts, "launches_per_infer": per_infer,
+          "live_launches_per_infer": FLAT_LAUNCHES,
+          "ids_equal_live": ids_equal,
+          "bf16_mel_vs_live_max_abs_err": mel_err,
+          "fp32_mel_vs_live_max_abs_err": mel32_err,
+          "int8_params_vs_fp32_over_peak": int8_err / peak,
+          "cpu_exported_on_card_launches": moved_counts,
+          "cpu_exported_vs_card_exported_max_abs_err": moved_err,
+          "k2_layouts_cpu_exported": moved_layouts,
+          "k2_layouts_card_exported": card_layouts,
+          "bundle_check": check_line,
+          "hier_launches_per_infer": hier_counts,
+          "hier_vs_live_max_abs_err": hier_err,
+          "http_requests": len(results), "http_wall_s": http_s,
+          "http_requests_per_s": len(results) / http_s,
+          "http_infer_calls": http_calls,
+          "infer_b8_t256_profile": profiles})
+    return {"launches": counts, "per_infer": per_infer}
+
+
+# the model keys of egs/aishell3/vc2/conf/train_vqvae.yaml, the AISHELL-3
+# recipe's VQ-VAE (tests/test_torch_port_io.py checks this equals the file)
+AISHELL = {
+    "model_type": "vae_npvc.model.vqvae",
+    "y_dim": 128, "y_num": 1172, "z_dim": 128, "z_num": 128,
+    "use_ema": True, "beta": 0.01, "mu": 0.9, "jitter_p": 0.12,
+    "encoder": {"in_channels": [160], "out_channels": [512],
+                "kernel_size": 3, "downsample_scales": [1],
+                "z_channels": 128, "dilation": False,
+                "stack_kernel_size": 3, "stack_layers": 1, "stacks": [10],
+                "use_weight_norm": True},
+    "decoder": {"in_channels": [128], "out_channels": [512],
+                "cond_channels": 128, "skip_channels": 128,
+                "final_channels": 160, "kernel_size": 3,
+                "upsample_scales": [1], "dilation": False,
+                "stack_kernel_size": 3, "stacks": [10],
+                "use_weight_norm": True},
+    "compute_dtype": "bfloat16",
+    "decode_bucket_size": 256,
+    "decode_batch_size": 8,
+}
+# its training keys; batch_size is cut from 128 to 8 (the corpus holds 14
+# training utterances and bin/train drops partial batches) and the run to
+# BNF_TRAIN_STEPS steps
+AISHELL_TRAIN = {
+    "trainer_type": "vae_npvc.trainer.basic", "seed": 777, "batch_size": 8,
+    "crop_length": 256, "optim_type": "Adam", "learning_rate": 0.001,
+    "max_grad_norm": 10, "lr_scheduler": "StepLR",
+    "lr_param": {"step_size": 100000, "gamma": 0.5},
+}
+BNF_TRAIN_STEPS = 8
+# every key of egs/aishell3/vc2/conf/train_token_tts.yaml (the conv
+# synthesizer run_tts.sh trains by default; tests/test_torch_port_io.py
+# checks this equals the file)
+TOKEN_TTS = {
+    "trainer_type": "vae_npvc.trainer.basic",
+    "model_type": "vae_npvc.model.token_tts",
+    "max_iter": 200000, "iters_per_checkpoint": 10000, "iters_per_log": 500,
+    "seed": 777, "batch_size": 32, "optim_type": "Adam",
+    "learning_rate": 0.001, "max_grad_norm": 10, "lr_scheduler": "StepLR",
+    "lr_param": {"step_size": 50000, "gamma": 0.5},
+    "token_num": 128, "token_dim": 256, "y_num": 1172, "y_dim": 256,
+    "mel_dim": 160, "hidden": 512, "enc_stacks": 6, "dec_stacks": 6,
+    "dur_weight": 0.1, "max_tokens": 192, "max_frames": 768,
+    "postnet_layers": 3, "variance_predictor": True, "var_weight": 0.1,
+    "use_spk_embed": False, "spk_embed_dim": 64,
+}
+# run_tts.sh stage 1 for a few steps: batch_size cut from 32 to at most 4
+# (the corpus's utterances whose tokens and frames fit max_tokens and
+# max_frames; how many do depends on the trained codebook)
+TOKEN_TTS_STEPS, TOKEN_TTS_BATCH = 4, 4
+# egs/aishell3/vc2/run_vae.sh's front end; 16 utterances of 1-10 s
+AISHELL_FEATURE = {"fs": 44100, "n_fft": 2048, "n_shift": 550,
+                   "n_mels": 160}
+BNF_UTTS = [(float(d), 44100) for d in np.linspace(1.0, 10.0, 16)]
+BNF_LAUNCHES = {"vq_fused": 1, "fused_group_norm": 10}   # per batch
+BNF_REPEATS = 3
+
+
+def phase_bnf(torch, root):
+    """The AISHELL-3 recipe's stages on the card at the widths of its
+    ``train_vqvae.yaml``: ``make_fbank``, CMVN, ``make_spk_id`` and
+    ``subset_data_into_tr_cv --seed 777`` (``run_vae.sh`` stages 1-2), a
+    few seeded steps of ``bin/train`` (stage 3), ``bin/extract_bnf -k csid
+    --durations`` with K1/K2 launches per batch and its throughput (stage
+    4), then ``run_tts.sh`` stages 0-2: the token-mel dir and its symbol
+    list, ``bin/train_tts`` with ``train_token_tts.yaml`` (conv blocks: K2
+    and K3 run) and ``bin/decode_tts`` on the extracted tokens."""
+    import shutil
+
+    from vae_npvc_tpu_torch.bin import (apply_cmvn, decode_tts, extract_bnf,
+                                        subset_data_into_tr_cv, train,
+                                        train_tts)
+    from vae_npvc_tpu_torch.bin.make_fbank import make_fbank
+    from vae_npvc_tpu_torch.bin.make_spk_id import make_spk_id
+    from vae_npvc_tpu_torch.data import kaldi_io
+    from vae_npvc_tpu_torch.data.token_mel import (TokenMelDataset,
+                                                    parse_token_line)
+
+    root.mkdir(parents=True)
+    stage_s = {}
+
+    def stage(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        stage_s[name] = time.perf_counter() - t0
+        return out
+
+    # run_vae.sh stages 1-2
+    data, _ = _offline_corpus(root, BNF_UTTS)
+    fb, dump = root / "fbank", root / "dump"
+    n = stage("make_fbank", make_fbank, data, fb, device="cuda",
+              **AISHELL_FEATURE)
+    check(n == len(BNF_UTTS), f"bnf: make_fbank wrote {n}")
+    cmvn = root / "cmvn.ark"
+    apply_cmvn.main(["compute", f"scp:{fb}/feats.scp", str(cmvn)])
+    make_spk_id(fb)
+    apply_cmvn.main(["apply", str(cmvn), f"scp:{fb}/feats.scp",
+                     str(dump / "all")])
+    for f in ("utt2num_frames", "utt2spk_id", "utt2spk", "spk2spk_id"):
+        shutil.copy(fb / f, dump / "all" / f)
+    (dump / "all" / "wav.scp").touch()
+    n_train, n_dev = len(BNF_UTTS) - 2, 2
+    subset_data_into_tr_cv.main([str(dump / "all"), str(dump / "train"),
+                                 str(dump / "dev"), "-nt", str(n_train),
+                                 "-nv", str(n_dev), "--seed", "777"])
+    ids = kaldi_io.load_dict_data(dump / "all" / "utt2spk_id")
+    for x in ("train", "dev"):
+        utts = kaldi_io.load_dict_data(dump / x / "utt2spk")
+        kaldi_io.save_dict_data(dump / x / "utt2spk_id",
+                                {u: ids[u] for u in utts})
+        shutil.copy(dump / "all" / "spk2spk_id", dump / x / "spk2spk_id")
+    check(len(kaldi_io.load_dict_data(dump / "train" / "feats.scp"))
+          == n_train, "bnf: the train split")
+
+    # stage 3: a few seeded steps of bin/train
+    conf = root / "train_vqvae.json"
+    conf.write_text(json.dumps(dict(
+        AISHELL, **AISHELL_TRAIN, max_iter=BNF_TRAIN_STEPS,
+        iters_per_log=BNF_TRAIN_STEPS // 2,
+        iters_per_checkpoint=BNF_TRAIN_STEPS)))
+    exp = root / "exp"
+    stage("train", _quiet, train.main,
+          ["-c", str(conf), "--train_dir", str(dump / "train"),
+           "--valid_dir", str(dump / "dev"), "--output_dir", str(exp)])
+    ckpt = exp / "model.loss.best"
+    check(ckpt.is_file(), "bnf: bin/train wrote no model.loss.best")
+
+    # stage 4: VQ-token extraction
+    frames = {u: int(v) for u, v in kaldi_io.load_dict_data(
+        dump / "all" / "utt2num_frames").items()}
+    batches = _batches(frames.values(), AISHELL["decode_bucket_size"],
+                       AISHELL["decode_batch_size"])
+    args = [f"scp:{dump}/all/feats.scp", str(exp / "vq_tokens.txt"),
+            "-c", str(conf), "-m", str(ckpt), "-k", "csid", "--durations",
+            str(exp / "vq_durations.txt")]
+    _zero_counts()
+    n = stage("extract_bnf", _quiet, extract_bnf.main, args)[0]
+    counts = _read_counts()
+    check(n == len(frames), f"bnf: extract_bnf wrote {n}")
+    check({k: counts[k] for k in BNF_LAUNCHES}
+          == {k: v * batches for k, v in BNF_LAUNCHES.items()},
+          f"bnf: {batches} batches launched {counts}")
+    tokens = kaldi_io.load_dict_data(exp / "vq_tokens.txt")
+    durs = kaldi_io.load_dict_data(exp / "vq_durations.txt")
+    n_tokens = 0
+    for u, T in frames.items():
+        t = parse_token_line(tokens[u])
+        d = np.asarray(durs[u].split(), np.int64)
+        check(len(t) == len(d) and int(d.sum()) == T and len(t) > 0
+              and int(t.min()) >= 0 and int(t.max()) < AISHELL["z_num"]
+              and bool(np.all(t[1:] != t[:-1])),
+              f"bnf: {u}: {len(t)} tokens, durations summing to "
+              f"{int(d.sum())} of {T} frames")
+        n_tokens += len(t)
+    repeat_s = []
+    for _ in range(BNF_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _quiet(extract_bnf.main, args)
+        torch.cuda.synchronize()
+        repeat_s.append(time.perf_counter() - t0)
+    check(kaldi_io.load_dict_data(exp / "vq_tokens.txt") == tokens,
+          "bnf: a second extraction gave other tokens")
+
+    # run_tts.sh stage 0: the token-mel dir and its symbol list
+    tts = root / "data" / "tts"
+    tts.mkdir(parents=True)
+    shutil.copy(exp / "vq_tokens.txt", tts / "tokens.txt")
+    shutil.copy(exp / "vq_durations.txt", tts / "durations.txt")
+    for f in ("feats.scp", "utt2spk_id", "utt2num_frames"):
+        shutil.copy(dump / "all" / f, tts / f)
+    shutil.copy(tts / "tokens.txt", tts / "text")
+    subprocess.run([sys.executable, str(
+        ROOT / "egs/aishell3/vc2/local/generate_nlsymbols.py"), "-n",
+        str(AISHELL["z_num"]), "-o", str(tts / "nlsyms.txt")], check=True,
+        capture_output=True)
+    check(len((tts / "nlsyms.txt").read_text().split())
+          == TOKEN_TTS["token_num"], "bnf: nlsyms.txt")
+    # stages 1-2: a few steps of the conv synthesizer, then synthesis
+    usable = len(TokenMelDataset(tts, TOKEN_TTS))
+    tts_batch = min(TOKEN_TTS_BATCH, usable)
+    tconf = root / "train_token_tts.json"
+    tconf.write_text(json.dumps(dict(
+        TOKEN_TTS, max_iter=TOKEN_TTS_STEPS, batch_size=tts_batch,
+        iters_per_log=TOKEN_TTS_STEPS, iters_per_checkpoint=TOKEN_TTS_STEPS)))
+    texp = root / "exp" / "token_tts"
+    _zero_counts()
+    stage("train_tts", _quiet, train_tts.main,
+          ["-c", str(tconf), "--train_dir", str(tts), "--output_dir",
+           str(texp)])
+    tts_counts = _read_counts()
+    check(all(tts_counts[k] > 0 for k in ("fused_group_norm",
+                                          "fused_group_norm_backward")),
+          f"bnf: the conv synthesizer's steps launched {tts_counts}")
+    stage("decode_tts", _quiet, decode_tts.main,
+          ["-c", str(tconf), "--checkpoint", str(texp / "model.loss.best"),
+           "--tokens", str(tts / "tokens.txt"), "--spk",
+           str(tts / "utt2spk_id"), "--output-dir", str(texp / "decode")])
+    mels = dict((k, kaldi_io.load_mat(rx)) for k, rx in
+                kaldi_io.load_dict_data(texp / "decode" / "feats.scp").items())
+    check(len(mels) == len(frames) and all(
+        m.shape[1] == TOKEN_TTS["mel_dim"] and bool(np.isfinite(m).all())
+        for m in mels.values()), f"bnf: decode_tts wrote {len(mels)} mels")
+
+    total = sum(frames.values())
+    emit({"phase": "bnf", "config": "egs/aishell3/vc2/conf/train_vqvae.yaml",
+          "utterances": len(frames), "frames": total,
+          "seconds_min_max": [BNF_UTTS[0][0], BNF_UTTS[-1][0]],
+          "split": [n_train, n_dev], "train_steps": BNF_TRAIN_STEPS,
+          "extract_batches": batches, "launches_extract": counts,
+          "launches_per_batch": BNF_LAUNCHES, "tokens": n_tokens,
+          "extract_repeats_s": repeat_s,
+          "extract_utts_per_s": len(frames) * len(repeat_s) / sum(repeat_s),
+          "extract_frames_per_s": total * len(repeat_s) / sum(repeat_s),
+          "tts_usable_utterances": usable, "tts_batch": tts_batch,
+          "tts_steps": TOKEN_TTS_STEPS, "launches_train_tts": tts_counts,
+          "tts_decoded": len(mels), "stage_s": stage_s})
+    return {"launches": counts, "batches": batches}
 
 
 # the vocoder keys of egs/vcc20/vae1/conf/train_jpwg.yaml (the GPU host has
@@ -3449,6 +4083,9 @@ EVAL_TRAIN_UTTS, EVAL_TEST_UTTS = 64, 8
 EVAL_TRAIN_CHARS, EVAL_TEST_CHARS = (20, 150), (25, 375)
 EVAL_SPEAKERS, EVAL_SIM_UTTS, EVAL_SIM_CONVERTED = 8, 64, 16
 EVAL_PROFILE_STEPS = 10
+# the timed beam-search pass after the CLI's own runs over the first half of
+# the test set (all 8 would add ~10 s to the smoke)
+EVAL_BEAM_UTTS = 4
 
 
 def _attn_fns():
@@ -3670,12 +4307,15 @@ def phase_eval_asr(torch, root):
     lm._step = counted
     scp = kaldi_io.read_scp(test / "feats.scp")
     n_frames = {u: kaldi_io.matrix_header(rx)[0] for u, rx in scp.items()}
-    frames = sum((min(n, 3000) + 1) // 2 for n in n_frames.values())
+    beam_utts = list(scp)[:EVAL_BEAM_UTTS]
+    (root / "beam.scp").write_text("".join(f"{u} {scp[u]}\n"
+                                           for u in beam_utts))
+    frames = sum((min(n_frames[u], 3000) + 1) // 2 for u in beam_utts)
     t0 = time.perf_counter()
-    hyps = rec.transcribe_scp(test / "feats.scp", beam_size=10, lm=lm,
+    hyps = rec.transcribe_scp(root / "beam.scp", beam_size=10, lm=lm,
                               lm_weight=0.6)
     beam_s = time.perf_counter() - t0
-    check(len(hyps) == EVAL_TEST_UTTS, "eval_asr: transcripts missing")
+    check(len(hyps) == EVAL_BEAM_UTTS, "eval_asr: transcripts missing")
     # the shortest utterance's beam search profiled, with a cold LM cache
     short = min(n_frames, key=n_frames.get)
     (root / "short.scp").write_text(f"{short} {scp[short]}\n")
@@ -3694,7 +4334,8 @@ def phase_eval_asr(torch, root):
           "transcribe_batches": nb, "longest_bucket": longest,
           "one_step_calls": calls, "step_ms": step_ms,
           "step_profile": step_prof, "transcribe_batch_profile": batch_prof,
-          "beam": {"wall_s": beam_s, "frames": frames,
+          "beam": {"utterances": EVAL_BEAM_UTTS, "wall_s": beam_s,
+                   "frames": frames,
                    "ms_per_frame": beam_s * 1e3 / frames,
                    "lm_steps": n_steps[0],
                    "lm_steps_per_frame": n_steps[0] / frames,
@@ -3785,7 +4426,7 @@ def main():
 
     resolve_device("cuda")
     smi = phase_build(torch)
-    vq, gn, gnb, attn = phase_kernels(torch)
+    vq, gn, gnb, attn, attn_long = phase_kernels(torch)
     phase_golden(torch)
     launches = phase_serve(torch)
     phase_grad_fp32(torch)
@@ -3797,7 +4438,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         hier_train, hier_infer, hier_k1, hier_ckpt = phase_hier(
             torch, Path(tmp))
-        offline = phase_offline(torch, hier_ckpt)
+        offline = phase_offline(torch, hier_ckpt, Path(tmp) / "offline")
+        bundle = phase_bundle(torch, offline["paths"], hier_ckpt)
+        bnf = phase_bnf(torch, Path(tmp) / "bnf")
         voc_launches, voc_calls = phase_voc(torch, Path(tmp))
         evaluation = phase_eval(torch, Path(tmp) / "eval")
 
@@ -3894,7 +4537,11 @@ def main():
          "offline_hier_sweep_batches": offline["hier_sweep_batches"],
          "offline_hier_calls": offline["k1_hier"],
          "launches_voc_serve": voc_launches["vq_fused"],
-         "voc_serve_infer_calls": voc_calls},
+         "voc_serve_infer_calls": voc_calls,
+         "launches_bundle": bundle["launches"]["vq_fused"],
+         "bundle_launches_per_infer": bundle["per_infer"]["vq_fused"],
+         "launches_bnf": bnf["launches"]["vq_fused"],
+         "bnf_batches": bnf["batches"]},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",
@@ -3919,7 +4566,12 @@ def main():
                                  glu=c["glu"], masked=c["masked"])
                             for c in gn if c["T"] in (768, 1024)],
          "launches_voc_serve": voc_launches["fused_group_norm"],
-         "voc_serve_infer_calls": voc_calls},
+         "voc_serve_infer_calls": voc_calls,
+         "launches_bundle": bundle["launches"]["fused_group_norm"],
+         "bundle_launches_per_infer":
+             bundle["per_infer"]["fused_group_norm"],
+         "launches_bnf": bnf["launches"]["fused_group_norm"],
+         "bnf_batches": bnf["batches"]},
         {"name": "fused_group_norm_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",
@@ -3949,7 +4601,9 @@ def main():
          "bf16_shape": {k: attn_bf16[k] for k in fwd_keys},
          "launches_eval_asr": eval_launches["fused_attention"], **eval_keys,
          "recognizer_step_shape": {k: attn_rec[k] for k in fwd_keys},
-         "recognizer_transcribe_shape": {k: attn_tr[k] for k in fwd_keys}},
+         "recognizer_transcribe_shape": {k: attn_tr[k] for k in fwd_keys},
+         "long_fp32_o_vs_f64": [{k: c[k] for k in ("T", "d", "o")}
+                                for c in attn_long]},
         {"name": "fused_attention_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/attention.cu",
          "replaces": "vae_npvc_tpu/ops/attention_pallas.py:225",
@@ -3965,7 +4619,9 @@ def main():
          "bf16_shape": {k: attn_bf16[k] for k in bwd_keys},
          "launches_eval_asr": eval_launches["fused_attention_backward"],
          **eval_keys,
-         "recognizer_step_shape": {k: attn_rec[k] for k in bwd_keys}},
+         "recognizer_step_shape": {k: attn_rec[k] for k in bwd_keys},
+         "long_fp32_vs_f64": [{k: c[k] for k in ("T", "d", "dq", "dk", "dv")}
+                              for c in attn_long]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

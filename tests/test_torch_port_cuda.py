@@ -860,3 +860,120 @@ def test_external_vocoder_shim_runs_on_the_card(dev, tmp_path, monkeypatch):
     for u, n in frames.items():
         with wave.open(str(tmp_path / "wav" / f"{u}.wav")) as wv:
             assert wv.getnframes() == n * 4
+
+
+# ------------------------------------------ long rows against float64 (K4/K5)
+K4_TOL, K5_TOL = 2e-5, 3e-5    # of the float64 output's peak, as in the smoke
+
+
+def _attention64(q, k, v, do, scale):
+    """o, dq, dk, dv in float64 (every key valid)."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    o = p @ v
+    ds = p * (do @ v.transpose(-1, -2) - (do * o).sum(-1, keepdim=True))
+    return o, ds @ k * scale, ds.transpose(-1, -2) @ q * scale, \
+        p.transpose(-1, -2) @ do
+
+
+@pytest.mark.parametrize("d", [48, 96])
+def test_attention_fp32_at_long_rows_against_float64(dev, d):
+    """T = 3,072: each 64-key (query) tile's product is summed in a fresh
+    fragment and added to the running sum rounded to nearest, so the error
+    stays a tile's worth instead of growing with T."""
+    q, k, v, do = _attn_inputs(dev, torch.float32, 4, 4, 3072, d, 3072 + d)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fused_attention(qg, kg, vg)
+    got = (o.detach(),) + torch.autograd.grad(o, (qg, kg, vg), do)
+    exact = _attention64(q, k, v, do, d ** -0.5)
+    torch.cuda.synchronize()
+    for name, a, e, tol in zip(("o", "dq", "dk", "dv"), got, exact,
+                               (K4_TOL, K5_TOL, K5_TOL, K5_TOL)):
+        peak = float(e.abs().max())
+        err = float((a.double() - e).abs().max()) / peak
+        assert err <= tol, (name, err)
+
+
+# --------------------------------------- registered operators in a program
+def _toy_flat(dev):
+    from vae_npvc_tpu_torch.models import build_model
+
+    cfg = {"model_type": "vae_npvc.model.vqvae", "y_dim": 8, "y_num": 3,
+           "z_dim": 8, "z_num": 16, "use_ema": True,
+           "encoder": {"in_channels": [10], "out_channels": [12],
+                       "kernel_size": 3, "downsample_scales": [1],
+                       "z_channels": 8, "dilation": False,
+                       "stack_kernel_size": 3, "stack_layers": 1,
+                       "stacks": [1], "use_weight_norm": True},
+           "decoder": {"in_channels": [8], "out_channels": [12],
+                       "cond_channels": 8, "skip_channels": 8,
+                       "final_channels": 10, "kernel_size": 3,
+                       "upsample_scales": [1], "dilation": False,
+                       "stack_kernel_size": 3, "stacks": [1],
+                       "use_weight_norm": True}}
+    model = build_model(cfg, dev).eval().init_random(0)
+    with torch.no_grad():
+        model.quantizer.emb.copy_(torch.randn(
+            16, 8, generator=torch.Generator().manual_seed(3)))
+    return model
+
+
+def _program_args(model, dev):
+    from vae_npvc_tpu_torch.infer.export_serving import _Program
+
+    gen = torch.Generator().manual_seed(1)
+    args = (dict(sorted(model.state_dict().items())),
+            torch.randn(2, 32, 10, generator=gen).to(dev),
+            torch.tensor([[1], [2]], dtype=torch.int32, device=dev),
+            torch.tensor([32, 20], dtype=torch.int32, device=dev))
+    return _Program(model), args
+
+
+def _run_counted(module, args):
+    v0, g0 = vq_fused.launches, fused_group_norm.launches
+    with torch.inference_mode():
+        out = module(*args)
+    torch.cuda.synchronize()
+    return out, (vq_fused.launches - v0, fused_group_norm.launches - g0)
+
+
+def test_exported_program_launches_the_registered_kernels(dev):
+    model = _toy_flat(dev)
+    program, args = _program_args(model, dev)
+    with torch.no_grad():
+        exported = torch.export.export(program, args, strict=False)
+    ops = {str(n.target) for n in exported.graph.nodes
+           if n.op == "call_function"}
+    assert {"vae_npvc_torch.nearest_code.default",
+            "vae_npvc_torch.group_norm.default"} <= ops
+    assert not any("argmin" in op for op in ops)
+    out, counts = _run_counted(exported.module(), args)
+    live, live_counts = _run_counted(model.infer, args[1:])
+    assert counts == live_counts == (1, 2)
+    assert torch.equal(out, live)
+
+
+def test_cpu_exported_program_moved_to_the_card(dev, tmp_path):
+    """A program traced on the CPU launches both kernels once moved to the
+    card. It records the CPU's memory layouts (a ``.contiguous()`` that was
+    a no-op there is not in the graph), so on the card a kernel may read
+    other strides and sum in another order than the card-traced program:
+    the output is held within fp32 rounding of it (1e-5 of the peak), not
+    bit for bit."""
+    from torch.export.passes import move_to_device_pass
+
+    cpu = torch.device("cpu")
+    program, args = _program_args(_toy_flat(cpu), cpu)
+    with torch.no_grad():
+        exported = torch.export.export(program, args, strict=False)
+    torch.export.save(exported, str(tmp_path / "b.pt2"))
+    moved = move_to_device_pass(torch.export.load(str(tmp_path / "b.pt2")),
+                                dev)
+    on_card = tuple({k: v.to(dev) for k, v in args[0].items()}
+                    if isinstance(a, dict) else a.to(dev) for a in args)
+    out, counts = _run_counted(moved.module(), on_card)
+    card_program, card_args = _program_args(_toy_flat(dev), dev)
+    want, _ = _run_counted(card_program, card_args)
+    assert counts == (1, 2) and out.device.type == "cuda"
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

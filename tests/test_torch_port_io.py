@@ -157,6 +157,29 @@ def test_chip_smoke_flagship_config_matches_recipe_yaml():
         assert k in chip_smoke.FLAGSHIP
 
 
+def test_chip_smoke_aishell3_configs_match_recipe_yamls():
+    """The ``bnf`` phase's VQ-VAE (model keys, and training keys but the
+    batch it cuts) and conv synthesizer (every key) are the AISHELL-3
+    recipe's."""
+    import yaml
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    conf = ROOT / "egs/aishell3/vc2/conf"
+    with open(conf / "train_vqvae.yaml") as f:
+        y = yaml.safe_load(f)
+    for k, v in chip_smoke.AISHELL.items():
+        assert y[k] == v, k
+    for k in ("y_dim", "y_num", "z_dim", "z_num", "use_ema", "beta", "mu",
+              "jitter_p", "encoder", "decoder"):
+        assert k in chip_smoke.AISHELL
+    assert {k for k, v in chip_smoke.AISHELL_TRAIN.items()
+            if y[k] != v} == {"batch_size"}
+    with open(conf / "train_token_tts.yaml") as f:
+        assert chip_smoke.TOKEN_TTS == yaml.safe_load(f)
+
+
 def test_chip_smoke_vocoder_config_is_the_recipe_yaml():
     import yaml
 

@@ -106,9 +106,12 @@ def test_engine_targets_batching_and_unported_options(parts):
         assert eng.stats_snapshot()["requests"] == 8
     finally:
         eng.close()
-    for kw in ({"bundle": "b"}, {"data_parallel": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_engine(parts, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port_engine(parts, data_parallel=True)
+    # bundles are served (tests/test_torch_port_export_serving.py); a
+    # directory without bundle.json is refused
+    with pytest.raises(FileNotFoundError, match="bundle.json"):
+        _port_engine(parts, bundle="b")
     with pytest.raises(ValueError, match="voc_config"):
         _port_engine(parts, vocoder="jpwg")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):

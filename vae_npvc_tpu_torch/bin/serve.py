@@ -169,7 +169,8 @@ def main(argv=None):
     p.add_argument("--checkpoint", default=None,
                    help="msgpack checkpoint written by the JAX trainer")
     p.add_argument("--bundle", default=None,
-                   help="exported serving bundle (not ported yet)")
+                   help="exported serving-bundle dir (bin/export_serving; "
+                        "replaces --config + --checkpoint)")
     p.add_argument("--cmvn", required=True,
                    help="training-time CMVN stats ark")
     p.add_argument("--spk2spk_id", default=None)
@@ -213,7 +214,7 @@ def main(argv=None):
             feature = yaml.safe_load(f)
     if args.bundle is None and (args.config is None
                                 or args.checkpoint is None):
-        p.error("pass --config + --checkpoint")
+        p.error("pass --config + --checkpoint, or --bundle")
     engine = ConversionEngine(
         args.config, args.checkpoint, args.cmvn, bundle=args.bundle,
         feature=feature, spk2spk_id=args.spk2spk_id, vocoder=args.vocoder,

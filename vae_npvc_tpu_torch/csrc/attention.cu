@@ -32,7 +32,12 @@
 //     (small terms first), which keeps ~21 of fp32's 24 bits: o, dq, dk and
 //     dv within 3e-6 to 1.1e-5 of their peak from the plain version on an
 //     H100 (chip_smoke.py's cases); one TF32 product misses the 2e-5 / 3e-5
-//     tolerance tenfold (tests/test_torch_port_attention_tf32x3.py).
+//     tolerance tenfold (tests/test_torch_port_attention_tf32x3.py). The
+//     sums over key (query) tiles take each tile in a fresh fragment, added
+//     rounded to nearest (mm_pn): against float64 at T = 3,072 (d = 48, 96)
+//     o, dq, dk and dv stay within 1.4e-6 to 3.6e-6 of their peak, where one
+//     tensor-core sum over every tile reached 3.4e-5
+//     (tools/torch_attn_f64.py).
 //     Bound: three TF32 products at 495 TFLOP/s, 165 TFLOP/s (2.5x the 67
 //     TFLOP/s fp32 FMA rate).
 //   - exp: expf in fp32; __expf (ex2.approx) in bf16, see exp_arg.
@@ -268,11 +273,39 @@ __device__ __forceinline__ void mm_nt(float (&c)[MT][8][4],
   }
 }
 
+template <int L, int N, int M>
+__device__ __forceinline__ void zero(float (&c)[L][N][M]) {
+#pragma unroll
+  for (int i = 0; i < L; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int k = 0; k < M; ++k) c[i][j][k] = 0.f;
+}
+
+// Columns (8-wide tiles) of the fresh fragment of mm_pn's fp32 route: the
+// largest divisor of DP/8 that keeps it within 48 floats a thread (the
+// running sums already hold up to 128).
+template <int DP, int MT>
+__host__ __device__ constexpr int fresh_cols() {
+  int nc = DP / 8;
+  while (MT * nc * 4 > 48 || (DP / 8) % nc) --nc;
+  return nc;
+}
+
 // c[m][n] (16 x 8 tiles, m < MT, n < DP/8) += P[16*MT x 64] * B[64 x DP]:
 // P is fp32 in the m16n8 accumulator layout of mm_nt, B a 64-row tile,
-// row-major in shared memory. The bf16 route packs P to bf16 here (round to
-// nearest even): that is the contract's rounding of p and ds to the input
-// type before their products.
+// row-major in shared memory. c is a running sum over the 64-row tiles of a
+// whole row (o and dq over key tiles, dk and dv over query tiles). The bf16
+// route packs P to bf16 here (round to nearest even): that is the contract's
+// rounding of p and ds to the input type before their products; it adds
+// straight into c. The fp32 route sums the tile's product in a fresh
+// fragment, fresh_cols() column tiles at a time, and adds it to c with
+// __fadd_rn: the tensor cores' fp32 accumulation does not round to nearest,
+// so a sum carried through them over every tile lost bits in one direction
+// per tile and its error grew with T (3.4e-5 of the peak at T = 3,072);
+// rounded to nearest once per tile, in the same tile order every run, it
+// stays at a tile's worth.
 template <int DP, bool BF16, int MT>
 __device__ __forceinline__ void mm_pn(float (&c)[MT][DP / 8][4],
                                       const float (&p)[MT][8][4],
@@ -304,28 +337,41 @@ __device__ __forceinline__ void mm_pn(float (&c)[MT][DP / 8][4],
       }
     }
   } else {
+    constexpr int kCols = fresh_cols<DP, MT>();
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      // k slot t is key 8j + 2t, slot t + 4 key 8j + 2t + 1
-      uint32_t ah[MT][4], al[MT][4];
+    for (int n0 = 0; n0 < DP / 8; n0 += kCols) {
+      float f[MT][kCols][4];
+      zero(f);
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        split_tf32(p[m][j][0], ah[m][0], al[m][0]);
-        split_tf32(p[m][j][2], ah[m][1], al[m][1]);
-        split_tf32(p[m][j][1], ah[m][2], al[m][2]);
-        split_tf32(p[m][j][3], ah[m][3], al[m][3]);
+      for (int j = 0; j < 8; ++j) {
+        // k slot t is key 8j + 2t, slot t + 4 key 8j + 2t + 1
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          split_tf32(p[m][j][0], ah[m][0], al[m][0]);
+          split_tf32(p[m][j][2], ah[m][1], al[m][1]);
+          split_tf32(p[m][j][1], ah[m][2], al[m][2]);
+          split_tf32(p[m][j][3], ah[m][3], al[m][3]);
+        }
+        const float* b = B + (8 * j + 2 * t) * kLd + g;
+#pragma unroll
+        for (int n = 0; n < kCols; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b[(n0 + n) * 8], bh0, bl0);
+          split_tf32(b[kLd + (n0 + n) * 8], bh1, bl1);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            mma_3xtf32<false>(f[m][n], ah[m], al[m], bh0, bh1, bl0, bl1);
+        }
       }
-      const float* b = B + (8 * j + 2 * t) * kLd + g;
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(b[n * 8], bh0, bl0);
-        split_tf32(b[kLd + n * 8], bh1, bl1);
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int m = 0; m < MT; ++m)
-          mma_3xtf32<false>(c[m][n], ah[m], al[m], bh0, bh1, bl0, bl1);
-      }
+        for (int n = 0; n < kCols; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            c[m][n0 + n][e] = __fadd_rn(c[m][n0 + n][e], f[m][n][e]);
     }
   }
 }
@@ -390,16 +436,6 @@ __device__ __forceinline__ void mask_cols(float (&c)[8][4], int first,
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (c0 + 8 * j + (e & 1) >= lim) c[j][e] = val;
-}
-
-template <int L, int N, int M>
-__device__ __forceinline__ void zero(float (&c)[L][N][M]) {
-#pragma unroll
-  for (int i = 0; i < L; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-#pragma unroll
-      for (int k = 0; k < M; ++k) c[i][j][k] = 0.f;
 }
 
 // ------------------------------------------------------------------ forward

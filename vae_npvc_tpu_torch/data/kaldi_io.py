@@ -4,7 +4,8 @@ Counterpart of ``vae_npvc_tpu/data/kaldi_io.py`` (the port keeps its own
 copy): :func:`load_dict_data` / :func:`read_scp` / :func:`load_list_data` /
 :func:`save_dict_data` for data-dir text files, :func:`read_wav_scp_entry`
 for ``wav.scp`` lines (a path or a trailing-pipe command), :func:`read_ark`
-for whole arks, :func:`load_mat` and :func:`matrix_header` for
+for whole arks (:func:`read_rspecifier` for ``ark:``/``scp:``
+rspecifiers), :func:`load_mat` and :func:`matrix_header` for
 ``path:offset[s:e]`` specifiers with seek-based row ranges (the training
 crops), over binary float/double matrices and vectors (``FM``/``DM``/
 ``FV``/``DV``) and the three compressed formats (``CM``/``CM2``/``CM3``).
@@ -238,6 +239,24 @@ def read_ark(path):
                     break
                 key += c
             yield key.decode(), read_matrix(f)
+
+
+def read_rspecifier(rspecifier):
+    """Yield ``(key, matrix)`` from ``ark:path``, ``scp:path`` or a bare
+    ark path (the JAX package's ``read_ark`` over an rspecifier)."""
+    kind, _, path = str(rspecifier).partition(":")
+    if not path:
+        kind, path = "ark", kind
+    kind = kind.split(",")[0]
+    if kind == "scp":
+        for key, rx in load_dict_data(path).items():
+            yield key, load_mat(rx)
+        return
+    if kind != "ark":
+        raise ValueError(f"unsupported rspecifier {rspecifier!r}")
+    if path == "-":
+        raise ValueError("stdin arks not supported")
+    yield from read_ark(path)
 
 
 def _write_matrix(f, mat, compression_method=None):

@@ -6,12 +6,14 @@ Counterpart of ``vae_npvc_tpu/infer/convert.py`` (``_bucket``,
 padded to bucket lengths (the fixed ``decode_bucket_size`` grid, or
 corpus-adaptive edges with ``decode_bucket_auto: true``) and batched; length
 masks inside the model make a padded batch equal to unpadded
-per-utterance runs. A bucket's last chunk is not padded up to
-``decode_batch_size`` with dummy rows as in the JAX package, which pads to
-reuse a compiled shape: the rows of a batch are independent, so the
-outputs are the same up to the rounding of batch-size-dependent sums.
-Every call runs on the converter's device or raises: there is no retry on
-another device.
+per-utterance runs. ``decode`` pads a bucket's last chunk up to
+``decode_batch_size`` with zero rows of length 1, as the JAX package does:
+then every batch has the shape of a serving bundle's programs
+(``infer/export_serving.py``, fixed at the same batch size). The rows of a
+batch are independent, but on the card a convolution's rounding depends on
+the batch size, and in bf16 that rounding can move a frame's code; the
+``sweep``s batch a chunk at its own size. Every call runs on the
+converter's device or raises: there is no retry on another device.
 
 File contract of ``decode``: ``decode_dir`` holds ``trials`` lines ``utt
 target[ target...]`` (several targets give the hierarchies' per-level
@@ -226,11 +228,13 @@ class Converter:
                 yield T_pad, group[lo:lo + self.batch_size]
 
     @staticmethod
-    def _load(chunk, T_pad):
-        """Zero-padded (B, T_pad, D) feats and (B,) lengths of a chunk."""
+    def _load(chunk, T_pad, rows=None):
+        """Zero-padded (B, T_pad, D) feats and (B,) lengths of a chunk; B is
+        ``rows`` (the chunk and length-1 zero rows) or the chunk's size."""
         D = kaldi_io.matrix_header(chunk[0][1])[1]
-        feats = np.zeros((len(chunk), T_pad, D), np.float32)
-        lengths = np.ones((len(chunk),), np.int32)
+        B = rows or len(chunk)
+        feats = np.zeros((B, T_pad, D), np.float32)
+        lengths = np.ones((B,), np.int32)
         for b, job in enumerate(chunk):
             feats[b, :job[2]] = kaldi_io.load_mat(job[1])
             lengths[b] = max(job[2], 1)
@@ -284,14 +288,15 @@ class Converter:
         n_done = 0
         with self._writer(output_dir, compress) as wf:
             for T_pad, chunk in self._chunks(jobs):
-                feats, lengths = self._load(chunk, T_pad)
+                feats, lengths = self._load(chunk, T_pad, self.batch_size)
                 # per-level target columns (the hierarchies); a row with
                 # fewer targets repeats its last, the flat model reads
                 # column 0
                 K = max(len(j[3]) for j in chunk)
-                tgts = np.array([[tgt[min(k, len(tgt) - 1)]
-                                  for k in range(K)]
-                                 for _, _, _, tgt in chunk], np.int32)
+                tgts = np.zeros((self.batch_size, K), np.int32)
+                tgts[:len(chunk)] = [[tgt[min(k, len(tgt) - 1)]
+                                      for k in range(K)]
+                                     for _, _, _, tgt in chunk]
                 out = self.infer(feats, tgts, lengths)
                 for b, (utt, _, T, tgt) in enumerate(chunk):
                     wf[utt] = out[b, :min(T, out.shape[1])]

@@ -10,11 +10,17 @@ beyond them.
 
 - :func:`group_norm_plain` and :func:`group_norm_backward_plain` are the
   plain PyTorch versions (the CPU path and the kernels' oracles).
-- :func:`fused_group_norm` is the differentiable wrapper: one
-  ``torch.autograd.Function`` whose forward and backward take the plain
-  versions for a CPU tensor and launch the kernels of ``csrc/groupnorm.cu``
-  for a CUDA tensor, or raise. It saves x, scale, bias and lengths, not the
-  output: the backward recomputes the statistics.
+- :func:`fused_group_norm` is the differentiable wrapper around the
+  operator ``vae_npvc_torch::group_norm`` (``torch.library``): its CPU
+  implementation is the plain version, its CUDA implementation launches the
+  forward kernel of ``csrc/groupnorm.cu`` or raises, and a fake
+  implementation gives ``torch.export`` the output's shape and memory order
+  (x's, as the kernel writes it), so an exported graph holds the operator
+  and launches the kernel on the card. Its autograd formula
+  (``register_autograd``) is the backward kernel on a CUDA tensor and
+  :func:`group_norm_backward_plain` on a CPU one; it saves x, scale, bias
+  and lengths, not the output: the backward recomputes the statistics.
+  Inference and training take the one operator.
   ``fused_group_norm.launches`` counts forward launches,
   ``fused_group_norm_backward.launches`` backward launches.
 
@@ -35,6 +41,7 @@ takes).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -218,9 +225,8 @@ def plan(x, glu=False, backward=False):
 
 
 def _forward(x, scale, bias, num_groups, eps, lengths, glu):
-    """The forward without autograd: plain on the CPU, the kernel on CUDA."""
-    if not x.is_cuda:
-        return group_norm_plain(x, scale, bias, num_groups, eps, lengths, glu)
+    """The forward kernel's launch for a CUDA ``x`` (the operator's CUDA
+    implementation)."""
     B, T, C = x.shape
     G = int(num_groups)
     lib, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
@@ -277,39 +283,57 @@ def fused_group_norm_backward(x, scale, bias, g, num_groups, eps=1e-5, *,
 fused_group_norm_backward.launches = 0
 
 
-class _GroupNorm(torch.autograd.Function):
-    """Forward and backward of GroupNorm(+GLU) on either device."""
+@torch.library.custom_op("vae_npvc_torch::group_norm", mutates_args=(),
+                         device_types="cpu")
+def _group_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   lengths: Optional[torch.Tensor], num_groups: int,
+                   eps: float, glu: bool) -> torch.Tensor:
+    return group_norm_plain(x, scale, bias, num_groups, eps, lengths, glu)
 
-    @staticmethod
-    def forward(ctx, x, scale, bias, lengths, num_groups, eps, glu):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.lengths = lengths
-        ctx.args = (num_groups, eps, glu)
-        return _forward(x, scale, bias, num_groups, eps, lengths, glu)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, scale, bias = ctx.saved_tensors
-        num_groups, eps, glu = ctx.args
-        if g.is_cuda and not _unit_stride(g):
-            # autograd may hand over any strides (a stride-0 expansion from
-            # .sum()); the kernel reads only T or C as the unit stride
-            g = g.contiguous()
-        dx, dscale, dbias = fused_group_norm_backward(
-            x, scale, bias, g, num_groups, eps, lengths=ctx.lengths, glu=glu)
-        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None,
-                None, None)
+@_group_norm_op.register_kernel("cuda")
+def _group_norm_cuda(x, scale, bias, lengths, num_groups, eps, glu):
+    return _forward(x, scale, bias, num_groups, eps, lengths, glu)
+
+
+@_group_norm_op.register_fake
+def _group_norm_fake(x, scale, bias, lengths, num_groups, eps, glu):
+    return _like_x(x, x.shape[2] // 2 if glu else x.shape[2])
+
+
+def _setup_context(ctx, inputs, output):
+    x, scale, bias, lengths, num_groups, eps, glu = inputs
+    ctx.save_for_backward(x, scale, bias)
+    ctx.lengths = lengths
+    ctx.args = (num_groups, eps, glu)
+
+
+def _backward(ctx, g):
+    x, scale, bias = ctx.saved_tensors
+    num_groups, eps, glu = ctx.args
+    if g.is_cuda and not _unit_stride(g):
+        # autograd may hand over any strides (a stride-0 expansion from
+        # .sum()); the kernel reads only T or C as the unit stride
+        g = g.contiguous()
+    dx, dscale, dbias = fused_group_norm_backward(
+        x, scale, bias, g, num_groups, eps, lengths=ctx.lengths, glu=glu)
+    return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None,
+            None, None)
+
+
+_group_norm_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def fused_group_norm(x, scale, bias, num_groups, eps=1e-5, *, lengths=None,
                      glu=False):
     """GroupNorm(+GLU) of (B, T, C) ``x`` (fp32 or bf16) with fp32 ``scale``
     and ``bias`` (C,) and optional int ``lengths`` (B,), differentiable in
-    ``x``, ``scale`` and ``bias``.
+    ``x``, ``scale`` and ``bias``, through ``vae_npvc_torch::group_norm``.
 
     CPU tensors take the plain versions; CUDA tensors the kernels.
     """
-    return _GroupNorm.apply(x, scale, bias, lengths, num_groups, eps, glu)
+    return torch.ops.vae_npvc_torch.group_norm(
+        x, scale, bias, lengths, int(num_groups), float(eps), bool(glu))
 
 
 fused_group_norm.launches = 0

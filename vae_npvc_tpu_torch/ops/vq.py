@@ -4,11 +4,13 @@ Counterpart of ``vae_npvc_tpu/ops/vq.py``, function for function. Layout
 is channels-last (B, T, D). The EMA codebook is explicit state
 (:class:`EmaVqState`) that :func:`ema_vq_forward` takes and returns; it
 writes no buffer itself, so a trainer can keep the old state when it skips
-a step. ``ema_vq_encode`` and :func:`ema_vq_forward` go through the fused
-VQ wrapper (ids-only mode, and ids + gathered codes + cluster statistics
-in training), and the plain codebooks' :func:`vq_encode` and
-:func:`vq_forward` through its ids mode (``nearest_code``), so a CUDA
-tensor runs the kernel of ``csrc/vq.cu``.
+a step. Every search without statistics (``ema_vq_encode``, the EMA
+forward outside training, the plain codebooks' :func:`vq_encode` and
+:func:`vq_forward`) goes through the registered ids-mode operator
+(``nearest_code``); a training step of :func:`ema_vq_forward` takes ids,
+gathered codes and cluster statistics from the fused VQ wrapper
+(``vq_fused``). A CUDA tensor runs the kernel of ``csrc/vq.cu`` either
+way.
 
 Random draws (lazy init, dead-code restarts) come from a
 ``torch.Generator`` on the tensors' device; they are not JAX's draws.
@@ -146,10 +148,10 @@ def _tiled_candidates(gen, z_flat, num_codes):
 
 
 def ema_vq_encode(state, z):
-    """(B, T, D) fp32 -> (B, T) int32 ids through the fused VQ (ids only)."""
+    """(B, T, D) fp32 -> (B, T) int32 ids through the fused VQ's ids mode
+    (``nearest_code``)."""
     B, T, D = z.shape
-    return vq_fused(z.reshape(B * T, D), state.emb, stats=False).idx \
-        .reshape(B, T)
+    return nearest_code(z.reshape(B * T, D), state.emb).reshape(B, T)
 
 
 def ema_vq_decode(state, idx):
@@ -215,7 +217,7 @@ def ema_vq_forward(state, z, gen=None, *, mu=0.9, threshold=1.0,
         }
         state = EmaVqState(state.initted, emb, emb_sum, emb_elem)
     else:
-        idx = vq_fused(z_sg, state.emb, stats=False).idx
+        idx = nearest_code(z_sg, state.emb)
         z_q = state.emb[idx.long()]
         detail = {}
 

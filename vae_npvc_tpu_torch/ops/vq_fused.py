@@ -11,8 +11,14 @@ the lowest index, ``z_q = emb[idx]``, and per-code ``batch_sum (K, D)`` /
 - :func:`vq_fused` is the wrapper: a CPU tensor takes the plain version; a
   CUDA tensor launches the kernel of ``csrc/vq.cu`` or raises.
   ``vq_fused.launches`` counts wrapper calls that launched it.
-- :func:`nearest_code` is the ids mode behind the same rule: the plain
-  (gradient) codebooks' search in ``ops/vq.py`` goes through it.
+- :func:`nearest_code` is the ids mode behind the same rule, registered as
+  the operator ``vae_npvc_torch::nearest_code`` (``torch.library``): its
+  CPU implementation is the plain version, its CUDA implementation the
+  kernel's ids mode (one launch, counted in ``vq_fused.launches``), and a
+  fake implementation gives ``torch.export`` its shape, so an exported
+  graph holds the operator and launches the kernel on the card. Every
+  inference search of ``ops/vq.py`` (plain and EMA codebooks) goes
+  through it.
 
 ``stats=False`` is the ids-only mode of inference (no z_q, no statistics);
 its fields come back as ``None``. On the H100 the kernel takes the
@@ -46,13 +52,30 @@ def nearest_code_plain(z_flat, emb):
     return torch.argmin(dist, dim=1).to(torch.int32)
 
 
-def nearest_code(z_flat, emb):
-    """Nearest-code ids (the JAX package's ``ops/vq.py`` ``nearest_code``):
-    :func:`nearest_code_plain` for a CPU tensor, the kernel's ids mode (one
-    launch) for a CUDA tensor."""
-    if not z_flat.is_cuda:
-        return nearest_code_plain(z_flat, emb)
+@torch.library.custom_op("vae_npvc_torch::nearest_code", mutates_args=(),
+                         device_types="cpu")
+def _nearest_code_op(z_flat: torch.Tensor, emb: torch.Tensor) \
+        -> torch.Tensor:
+    return nearest_code_plain(z_flat, emb)
+
+
+@_nearest_code_op.register_kernel("cuda")
+def _nearest_code_cuda(z_flat, emb):
     return vq_fused(z_flat, emb, stats=False).idx
+
+
+@_nearest_code_op.register_fake
+def _nearest_code_fake(z_flat, emb):
+    return z_flat.new_empty((z_flat.shape[0],), dtype=torch.int32)
+
+
+def nearest_code(z_flat, emb):
+    """Nearest-code ids (the JAX package's ``ops/vq.py`` ``nearest_code``)
+    of (N, D) fp32 rows against a (K, D) fp32 codebook, through the
+    registered operator: :func:`nearest_code_plain` for a CPU tensor, the
+    kernel's ids mode (one launch) for a CUDA tensor."""
+    return torch.ops.vae_npvc_torch.nearest_code(z_flat.detach(),
+                                                 emb.detach())
 
 
 def vq_fused_plain(z_flat, emb, *, stats=True):

@@ -3,13 +3,13 @@
 Counterpart of ``vae_npvc_tpu/serve/engine.py``. Per request:
 
     resample -> log-mel fbank (device) -> CMVN (host)
-    -> Converter.infer (device, masked + bucketed, coalesced by _InferBatcher)
+    -> Converter.infer, or an exported bundle's ServingBundle.infer
+       (device, masked + bucketed, coalesced by _InferBatcher)
     -> reverse CMVN -> Griffin-Lim or the native Parallel WaveGAN
        (``jpwg``, device) or mel only
 
 Every device stage runs on the engine's device or raises; there is no
-retry on another device. Exported bundles and data-parallel serving are not
-ported yet.
+retry on another device. Data-parallel serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -121,8 +121,11 @@ class ConversionEngine:
     """Warm end-to-end voice-conversion engine for online serving.
 
     ``config`` is the experiment dict or a YAML path, ``checkpoint`` the
-    JAX package's msgpack checkpoint, ``cmvn`` a Kaldi stats ark path or the
-    (2, D+1) stats array. ``vocoder`` is ``"gl"`` (Griffin-Lim), ``"jpwg"``
+    JAX package's msgpack checkpoint; or ``bundle`` is an exported serving
+    bundle directory (``bin/export_serving``), whose programs, speaker map
+    and buckets serve without a config or checkpoint. ``cmvn`` is a Kaldi
+    stats ark path or the (2, D+1) stats array. ``vocoder`` is ``"gl"``
+    (Griffin-Lim), ``"jpwg"``
     (the native Parallel WaveGAN of ``voc_config`` and ``voc_checkpoint``)
     or ``"none"`` (mel only). ``device`` defaults to the GPU and raises when
     there is none.
@@ -133,26 +136,42 @@ class ConversionEngine:
                  bucket_frames=None, max_batch=8, batch_window_ms=5.0,
                  seed=0, data_parallel=False, voc_config=None,
                  voc_checkpoint=None, device="cuda"):
-        if bundle is not None:
-            raise NotImplementedError("serving bundles are not ported yet "
-                                      "(ROADMAP Queue A item 12)")
         if data_parallel:
             raise NotImplementedError("data-parallel serving is not ported "
                                       "yet (ROADMAP Queue A item 12)")
         if vocoder not in ("gl", "jpwg", "none"):
             raise ValueError(f"unknown vocoder {vocoder!r}")
-        if config is None or checkpoint is None:
-            raise ValueError("pass config + checkpoint")
-        if not isinstance(config, dict):
-            import yaml
+        self.bundle = None
+        if bundle is not None:
+            # exported-program backend: no model code, config or checkpoint
+            from ..infer.export_serving import ServingBundle
 
-            with open(config) as f:
-                config = yaml.safe_load(f)
-        self.config = config
-        self.converter = Converter(config, device=device)
-        self.device = self.converter.device
-        self.iteration = self.converter.load_checkpoint(checkpoint)
-        self._min_frames = self.converter.min_frames
+            self.bundle = ServingBundle(bundle, device=device)
+            self.converter = None
+            self.config = {}
+            self.device = self.bundle.device
+            self.iteration = int(self.bundle.meta.get("iteration", 0))
+            self._min_frames = int(self.bundle.meta.get("min_frames", 1))
+            runner = self.bundle.infer
+            max_batch = min(int(max_batch), self.bundle.batch_size)
+            y_num = int(self.bundle.meta.get("y_num") or 0)
+        else:
+            if config is None or checkpoint is None:
+                raise ValueError(
+                    "pass config + checkpoint, or bundle= (an exported "
+                    "serving-bundle directory)")
+            if not isinstance(config, dict):
+                import yaml
+
+                with open(config) as f:
+                    config = yaml.safe_load(f)
+            self.config = config
+            self.converter = Converter(config, device=device)
+            self.device = self.converter.device
+            self.iteration = self.converter.load_checkpoint(checkpoint)
+            self._min_frames = self.converter.min_frames
+            runner = self.converter.infer
+            y_num = int(config.get("y_num", 0))
         self.feature = dict(DEFAULT_FEATURE, **(feature or {}))
         self.fs = int(self.feature["fs"])
         self.n_shift = int(self.feature["n_shift"])
@@ -165,8 +184,12 @@ class ConversionEngine:
                 spk2spk_id = {k: int(v) for k, v in kaldi_io.load_dict_data(
                     spk2spk_id).items()}
             self.spk_map = dict(spk2spk_id)
-        self.bucket_frames = int(bucket_frames
-                                 or config.get("decode_bucket_size", 256))
+        elif self.bundle is not None and self.bundle.spk2spk_id:
+            self.spk_map = dict(self.bundle.spk2spk_id)
+        self.bucket_frames = int(
+            bucket_frames
+            or (min(self.bundle.buckets) if self.bundle is not None
+                else config.get("decode_bucket_size", 256)))
         self.gl_iters = int(gl_iters)
         self.seed = int(seed)
         self.vocoder = vocoder
@@ -175,15 +198,16 @@ class ConversionEngine:
                      if vocoder == "jpwg" else None)
         # speaker-id bound for resolve_target's range guard (an
         # out-of-range id would index past the embedding table)
-        self._y_bound = int(config.get("y_num", 0))
+        self._y_bound = y_num
         if not self._y_bound and self.spk_map:
             self._y_bound = max(int(v) for v in self.spk_map.values()) + 1
         if not self._y_bound:
-            logger.warning("speaker-id range unknown (no y_num in config, no "
+            logger.warning("speaker-id range unknown (no y_num in %s, no "
                            "spk2spk_id map): out-of-range numeric target ids "
-                           "cannot be rejected")
-        self.batcher = _InferBatcher(self.converter.infer,
-                                     max_batch=max_batch,
+                           "cannot be rejected",
+                           "bundle meta" if self.bundle else "config")
+        self._y_num = y_num
+        self.batcher = _InferBatcher(runner, max_batch=max_batch,
                                      window_ms=batch_window_ms)
         self._stats_lock = threading.Lock()
         self.n_requests = 0
@@ -196,7 +220,7 @@ class ConversionEngine:
     def speakers(self):
         if self.spk_map is not None:
             return dict(self.spk_map)
-        return {str(i): i for i in range(int(self.config.get("y_num", 0)))}
+        return {str(i): i for i in range(self._y_num)}
 
     def resolve_target(self, target):
         if self.spk_map is not None and str(target) in self.spk_map:
@@ -223,6 +247,10 @@ class ConversionEngine:
                 x, fs=self.fs, **self._front_kw()).cpu().numpy()
 
     def _pick_pad(self, T_true):
+        if self.bundle is not None:
+            # the exported buckets are the shape set: rounding to
+            # bucket_frames could pass the largest of them
+            return self.bundle.pick_bucket(max(T_true, self._min_frames))
         return _bucket(max(T_true, self._min_frames), self.bucket_frames)
 
     def _infer_mel(self, feats, T_true, tgt):
@@ -288,15 +316,19 @@ class ConversionEngine:
         return wav[:T_out * self.n_shift].astype(np.float32)
 
     def warmup(self, n_buckets=1):
-        """Run the first ``n_buckets`` bucket shapes end to end, then the
+        """Run the first ``n_buckets`` bucket shapes end to end, then (live
+        model only: a bundle pads every batch to its exported size) the
         coalesced batch shapes of the first bucket."""
         tgt = next(iter(self.speakers().values()), 0)
-        pads = [i * self.bucket_frames for i in range(1, n_buckets + 1)]
+        if self.bundle is not None:
+            pads = self.bundle.buckets[:n_buckets]
+        else:
+            pads = [i * self.bucket_frames for i in range(1, n_buckets + 1)]
         for T_pad in pads:
             n = (T_pad - 1) * self.n_shift
             self.convert(np.zeros((max(n, self.n_shift),), np.float32),
                          self.fs, tgt)
-        if pads:
+        if pads and self.bundle is None:
             T_pad, D = pads[0], int(self.feature["n_mels"])
             B = 1
             while B < self.batcher.max_batch:
