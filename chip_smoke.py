@@ -65,7 +65,21 @@ LM on a synthetic character corpus, with the attention kernels' launches
 counted and every K4/K5 call of one training step held against the plain
 versions (``eval_asr``), ``bin/eval_similarity`` with the x-vector TDNN,
 PLDA and cosine (``eval_sim``), the mel-proxy MCD and the recipe's
-``RESULT`` line (``eval``). Each phase prints one JSON line; any
+``RESULT`` line (``eval``). Then the last model families the recipes
+name: the Tacotron2 synthesizer against its committed JAX fixture
+(``tac2_golden``) and at the full width of
+``egs/aishell3/vc2/conf/train_token_tts_tacotron2.yaml`` (``TAC2``, fp32,
+27.5 M parameters): ``bin/train_tts`` steps at B = 32, L = 192, T = 768
+and ``bin/decode_tts`` free-running 768 frames (``tac2``; no kernel of the
+port on this path); the WGAN-GP trainer against its fixture
+(``gan_golden``) and at the width of
+``egs/vcc20/vae1/conf/train_vqvae_gan.yaml`` (``GAN``): ``bin/train``
+through the three phases with ``pre_iter`` cut to 2, K1/K2/K3 counted per
+critic step and per generator step, the checkpoint through ``bin/decode``
+and one HTTP ``/convert`` (``gan``); the Gaussian VAE against its fixture
+(``vae_golden``) and at the width of ``egs/vcc20/vae1/conf/train_vae.yaml``
+(``VAE``): ``bin/train`` steps with K2/K3 counted, ``bin/decode`` and an
+``--all-targets`` sweep (``vae``). Each phase prints one JSON line; any
 failure exits non-zero. The last lines are the kernel summary, the card's
 name and power limit as ``nvidia-smi`` gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -1220,14 +1234,17 @@ def _kernel_class(name):
     return "other"
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, by_operator=True):
     """Device time by kernel class, host wall time and the device's idle
-    share over one call of ``fn`` (one stream: kernels do not overlap)."""
+    share over one call of ``fn`` (one stream: kernels do not overlap).
+    ``by_operator=False`` traces the device only (no host events to sort
+    through: a call of tens of thousands of launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if by_operator else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1243,11 +1260,13 @@ def _profiled(torch, fn):
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
     busy = sum(by_class.values())
     # device time by the PyTorch operator that launched the kernels
-    by_op = {a.key: a.self_device_time_total / 1e3
-             for a in prof.key_averages() if a.self_device_time_total > 0
-             and a.device_type != torch.autograd.DeviceType.CUDA}
-    copies = sum(a.count for a in prof.key_averages()
-                 if a.key == "aten::copy_")
+    by_op, copies = {}, None
+    if by_operator:
+        averages = prof.key_averages()
+        by_op = {a.key: a.self_device_time_total / 1e3 for a in averages
+                 if a.self_device_time_total > 0
+                 and a.device_type != torch.autograd.DeviceType.CUDA}
+        copies = sum(a.count for a in averages if a.key == "aten::copy_")
 
     def top(d, k):
         return dict(sorted(d.items(), key=lambda kv: -kv[1])[:k])
@@ -4413,6 +4432,619 @@ def phase_eval(torch, root):
             "transcribe_batches": nb}
 
 
+# ------------------------------------------------- the last model families
+# keys of egs/aishell3/vc2/conf/train_token_tts_tacotron2.yaml
+# (tests/test_torch_port_tac2.py checks these three equal their files)
+TAC2 = dict(
+    {k: TTS[k] for k in ("trainer_type", "model_type", "max_iter",
+                         "iters_per_checkpoint", "iters_per_log", "seed",
+                         "batch_size", "optim_type", "learning_rate",
+                         "max_grad_norm", "lr_scheduler", "lr_param",
+                         "token_num", "y_num", "mel_dim", "max_tokens",
+                         "max_frames", "use_spk_embed", "spk_embed_dim")},
+    **{"block_type": "tacotron2", "embed-dim": 512, "elayers": 1,
+       "eunits": 512, "econv-layers": 3, "econv-chans": 512,
+       "econv-filts": 5, "dlayers": 2, "dunits": 1024, "prenet-layers": 2,
+       "prenet-units": 256, "postnet-layers": 5, "postnet-chans": 512,
+       "postnet-filts": 5, "atype": "location", "adim": 128,
+       "aconv-chans": 32, "aconv-filts": 15, "cumulate-att-w": True,
+       "use-concate": True, "bce-pos-weight": 3.0, "reduction-factor": 2,
+       "dropout-rate": 0.5, "zoneout-rate": 0.1})
+TAC2_STEPS, TAC2_TIMED_STEPS, TAC2_DECODE_UTTS = 3, 3, 4
+
+_GENERATOR_KEYS = ("y_dim", "y_num", "z_dim", "encoder", "decoder",
+                   "compute_dtype")
+_RECIPE_KEYS = {"max_iter": 1000000, "iters_per_checkpoint": 20000,
+                "iters_per_log": 1000, "seed": 777, "num_jobs": 8,
+                "prefetch_factor": 2, "batch_size": 128, "crop_length": 256,
+                "use_native_loader": True}
+# keys of egs/vcc20/vae1/conf/train_vqvae_gan.yaml: the flagship generator
+GAN = dict(
+    {k: FLAGSHIP[k] for k in _GENERATOR_KEYS + (
+        "z_num", "use_ema", "beta", "mu", "jitter_p", "decode_bucket_size",
+        "decode_batch_size")}, **_RECIPE_KEYS,
+    trainer_type="vae_npvc.trainer.wgan_gp",
+    dataset_type="vae_npvc.dataset.utt2mel_spk",
+    model_type="vae_npvc.model.vqvae", pre_iter=1000, gamma=1.0,
+    gp_weight=1.0,
+    generator_param={"per_iteration": 1, "optim_type": "RAdam",
+                     "learning_rate": 1e-4, "max_grad_norm": 10,
+                     "lr_scheduler": {"step_size": 100000, "gamma": 0.5}},
+    discriminator_param={"per_iteration": 1, "optim_type": "RAdam",
+                         "learning_rate": 5e-5, "max_grad_norm": 1,
+                         "lr_scheduler": {"step_size": 100000,
+                                          "gamma": 0.5}},
+    discriminator={"channels": [128, 256, 512], "kernel_size": 5,
+                   "strides": [2, 2, 2]})
+# cut: the critic joins after 2 iterations, not 1,000
+GAN_PRE_ITER, GAN_ITERS = 2, 6
+GAN_CRITIC_LAUNCHES = {"vq_fused": 1, "fused_group_norm": 20,
+                       "fused_group_norm_backward": 0}
+GAN_GEN_LAUNCHES = {"vq_fused": 1, "fused_group_norm": 20,
+                    "fused_group_norm_backward": 20}
+# keys of egs/vcc20/vae1/conf/train_vae.yaml
+VAE = dict(
+    {k: FLAGSHIP[k] for k in _GENERATOR_KEYS}, **_RECIPE_KEYS,
+    trainer_type="vae_npvc.trainer.basic", model_type="vae_npvc.model.vae",
+    optim_type="Adam", learning_rate=0.001, max_grad_norm=10,
+    lr_scheduler="StepLR", lr_param={"step_size": 100000, "gamma": 0.5},
+    kld_weight=0.01)
+VAE["encoder"] = dict(FLAGSHIP["encoder"], z_channels=256)
+VAE_STEPS = 4
+VAE_LAUNCHES = {"vq_fused": 0, "fused_group_norm": 20,
+                "fused_group_norm_backward": 20}
+# decode settings of the vae1 recipe for the VAE (its YAML has none)
+VAE_DECODE = {"decode_bucket_size": 256, "decode_batch_size": 8}
+
+
+def _state_against(got_path, want_path, what, free=()):
+    """Two checkpoints: same trees, every leaf within GOLDEN_STATE_TOL
+    (the leaves named in ``free`` only reported). Returns the largest
+    absolute difference."""
+    from vae_npvc_tpu_torch.utils import msgpack_io
+
+    got = _leaves(msgpack_io.msgpack_restore(Path(got_path).read_bytes()))
+    want = _leaves(msgpack_io.msgpack_restore(Path(want_path).read_bytes()))
+    check(set(got) == set(want), f"{what}: checkpoint trees differ")
+    atol, rtol = GOLDEN_STATE_TOL
+    worst = 0.0
+    for k in want:
+        a, b = got[k].astype(np.float64), want[k].astype(np.float64)
+        check(a.shape == b.shape, f"{what}: {k} shape {a.shape}")
+        err = np.abs(a - b)
+        worst = max(worst, float(err.max()) if err.size else 0.0)
+        check(bool(np.all(err <= atol + rtol * np.abs(b))),
+              f"{what}: {k} differs from JAX by {float(err.max())}")
+    return worst
+
+
+def _golden_steps(tr, batches, g, keys, what):
+    """The fixture's steps through ``tr.train_step``: JAX's per-step
+    detail within GOLDEN_LOSS_RTOL (NaN: not in that step's phase)."""
+    worst = {}
+    for i, batch in enumerate(batches):
+        detail = tr.train_step(batch)
+        for k in keys:
+            want = float(g["detail/" + k][i])
+            if math.isnan(want):
+                check(k not in detail, f"{what}: step {i + 1} has {k}")
+                continue
+            rel = abs(float(detail[k]) - want) / max(abs(want), 1e-12)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            check(rel <= GOLDEN_LOSS_RTOL,
+                  f"{what}: step {i + 1} {k} {float(detail[k])}, JAX {want}")
+    return worst
+
+
+def phase_tac2_golden(torch):
+    """The Tacotron2 synthesizer on the card against the committed JAX
+    fixture (``train_token_tts_tacotron2_smoke.yaml`` widths, fp32, rates
+    at 0): a free-running ``infer`` (``mel_lens`` exact: the fixture's stop
+    decisions lie at least 0.1 from 0 in logit), three ``Trainer`` steps
+    against JAX's losses and its final parameters and Adam moments."""
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    cfg = json.loads((FIXTURES / "tac2_golden_config.json").read_text())
+    g = np.load(FIXTURES / "tac2_golden.npz")
+    names = ("tokens", "durations", "mels", "spks", "tok_lens", "mel_lens")
+    steps = len(g["detail/Total"])
+    tr = build_trainer(cfg, device="cuda")
+    tr.load_checkpoint(FIXTURES / "tac2_golden.msgpack")
+    args = [torch.as_tensor(g[f"{k}_0"], device=tr.device)
+            for k in ("tokens", "spks", "tok_lens")]
+    with torch.no_grad():
+        mel, lens = tr.model.infer(*args)
+        _, _, logits = tr.model.tac2(*args, max_frames=cfg["max_frames"],
+                                     train=False, free_run=True)
+    mel, lens = mel.cpu().numpy(), lens.cpu().numpy()
+    check(lens.tolist() == g["infer/mel_lens"].tolist(),
+          f"tac2_golden: mel_lens {lens.tolist()}, JAX "
+          f"{g['infer/mel_lens'].tolist()}")
+    mel_err = float(np.abs(mel - g["infer/mel"]).max())
+    check(mel_err <= 1e-4, f"tac2_golden: mel differs from JAX by {mel_err}")
+    logit_err = float(np.abs(logits.cpu().numpy()
+                             - g["infer/stop_logits"]).max())
+    worst = _golden_steps(tr, [tuple(g[f"{k}_{i}"] for k in names)
+                               for i in range(steps)], g,
+                          ("Total", "X like", "X pre like", "STOP loss",
+                           "grad_norm", "skipped_nonfinite"), "tac2_golden")
+    with tempfile.TemporaryDirectory() as tmp:
+        tr.save_checkpoint(Path(tmp) / "final")
+        state_err = _state_against(Path(tmp) / "final",
+                                   FIXTURES / "tac2_golden_final.msgpack",
+                                   "tac2_golden")
+    emit({"phase": "tac2_golden", "steps": steps, "mel_lens": lens.tolist(),
+          "mel_max_abs_err": mel_err, "mel_tolerance": 1e-4,
+          "stop_logit_max_abs_err": logit_err, "stop_margin_of_fixture": 0.1,
+          "worst_rel_err": worst, "loss_rtol": GOLDEN_LOSS_RTOL,
+          "state_max_abs_err": state_err,
+          "state_atol_rtol": list(GOLDEN_STATE_TOL)})
+
+
+def phase_tac2(torch, root):
+    """``train_token_tts_tacotron2.yaml`` at full width (fp32, 27.5 M
+    parameters, seeded random weights) on a synthetic token-mel corpus:
+    ``bin/train_tts`` for ``TAC2_STEPS`` steps at B = 32, L = 192,
+    T = 768, the same trainer timed step by step and one step profiled,
+    then ``bin/decode_tts`` of ``TAC2_DECODE_UTTS`` utterances free-running
+    all 768 frames and one ``infer`` profiled. No kernel of the port is on
+    this path: the counts of K1-K5 stay 0."""
+    from vae_npvc_tpu_torch.bin import decode_tts, train_tts
+    from vae_npvc_tpu_torch.data import kaldi_io
+    from vae_npvc_tpu_torch.data.token_mel import TokenMelDataset
+    from vae_npvc_tpu_torch.ops.attention import (fused_attention,
+                                                  fused_attention_backward)
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    cfg = dict(TAC2, max_iter=TAC2_STEPS, iters_per_log=1,
+               iters_per_checkpoint=TAC2_STEPS)
+    B, L, T = cfg["batch_size"], cfg["max_tokens"], cfg["max_frames"]
+    root.mkdir(parents=True, exist_ok=True)
+    _token_mel_corpus(root / "train", 2 * B, seed=9)
+    conf = root / "conf.json"
+    conf.write_text(json.dumps(cfg))
+    _zero_counts()
+    fused_attention.launches = fused_attention_backward.launches = 0
+    t0 = time.perf_counter()
+    train_tts.main(["-c", str(conf), "--train_dir", str(root / "train"),
+                    "--output_dir", str(root / "exp")])
+    cli_s = time.perf_counter() - t0
+    ckpt = root / "exp" / "model.loss.best"
+    log = (root / "exp" / "train.log").read_text()
+    check(f"Iter {TAC2_STEPS}:" in log, "tac2: bin/train_tts logged no step")
+
+    tr = build_trainer(cfg, device="cuda")
+    check(tr.load_checkpoint(ckpt) == TAC2_STEPS, "tac2: iteration")
+    batches = TokenMelDataset(root / "train", cfg).batches(
+        B, shuffle=True, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, totals = [], []
+    for _ in range(TAC2_TIMED_STEPS):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        d = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        totals.append(float(d["Total"]))
+        check(math.isfinite(totals[-1])
+              and float(d["skipped_nonfinite"]) == 0.0,
+              f"tac2: step {totals}")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    batch = next(batches)
+    profile = _profiled(torch, lambda: tr.train_step(batch),
+                        by_operator=False)
+    parameters = int(tr.flat.numel())
+    del tr
+
+    lines = kaldi_io.load_dict_data(root / "train" / "tokens.txt")
+    utts = list(lines)[:TAC2_DECODE_UTTS]
+    (root / "text").write_text("".join(f"{u} {lines[u]}\n" for u in utts))
+    args = ["-c", str(conf), "--checkpoint", str(ckpt), "--tokens",
+            str(root / "text"), "--spk", "3"]
+    decode_tts.main(args + ["--output-dir", str(root / "warm")])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_tts.main(args + ["--output-dir", str(root / "dec")])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    scp = kaldi_io.load_dict_data(root / "dec" / "feats.scp")
+    check(list(scp) == utts, f"tac2: decoded {list(scp)}")
+    frames = []
+    for u in utts:
+        m = kaldi_io.load_mat(scp[u])
+        check(m.ndim == 2 and m.shape[1] == cfg["mel_dim"]
+              and 1 <= m.shape[0] <= T and bool(np.isfinite(m).all()),
+              f"tac2: decoded {u} has shape {m.shape}")
+        frames.append(int(m.shape[0]))
+    # the model's own output: zeros after each row's stop
+    model = decode_tts.load_model(cfg, ckpt, "cuda")
+    tokens = np.zeros((2, L), np.int32)
+    tok_lens = np.array([L, L // 2], np.int32)
+    tokens[0] = np.arange(L) % cfg["token_num"]
+    tokens[1, :L // 2] = 7
+    ids = (torch.as_tensor(tokens, device="cuda"),
+           torch.tensor([3, 5], dtype=torch.int32, device="cuda"),
+           torch.as_tensor(tok_lens, device="cuda"))
+
+    def one_infer():
+        with torch.inference_mode():
+            return model.infer(ids[0][:1], ids[1][:1], ids[2][:1])
+
+    # seeded random weights never stop: shift the stop head's bias so that
+    # each row's logit passes 0 within its first T/2 frames (the row whose
+    # largest early logit is the smaller one by 1e-3, at that frame at the
+    # latest), which puts the stop decision and the masking after it on
+    # the card at full width (the decoder runs all T steps whatever the
+    # stop head says, so the timed infers below cost the same)
+    with torch.inference_mode():
+        raw = model.tac2(*ids, max_frames=T, train=False,
+                         free_run=True)[2].double().cpu().numpy()
+    shift = 1e-3 - float(raw[:, :T // 2].max(axis=1).min())
+    with torch.no_grad():
+        model.tac2.dec_cell.prob_out.bias.add_(shift)
+    with torch.inference_mode():
+        mel2, lens2 = model.infer(*ids)
+    lens2 = lens2.cpu().numpy()
+    stop_want = [int(np.argmax(row > 0)) + 1 for row in raw + shift]
+    check(lens2.tolist() == stop_want,
+          f"tac2: mel_lens {lens2.tolist()}, stop logits say {stop_want}")
+    for b in range(2):
+        n = int(lens2[b])
+        check(1 <= n <= T // 2 and not mel2[b, n:].any()
+              and bool(mel2[b, :n].any())
+              and bool(torch.isfinite(mel2).all()),
+              f"tac2: infer row {b} of {n} frames")
+    infer_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_infer()
+        torch.cuda.synchronize()
+        infer_ms.append((time.perf_counter() - t0) * 1e3)
+    infer_profile = _profiled(torch, one_infer, by_operator=False)
+    ours = dict(_read_counts(), fused_attention=fused_attention.launches,
+                fused_attention_backward=fused_attention_backward.launches)
+    check(not any(ours.values()), f"tac2: a port kernel launched: {ours}")
+    steady = float(np.mean(times[1:]))
+    emit({"phase": "tac2", "config": "train_token_tts_tacotron2.yaml",
+          "dtype": "float32", "parameters": parameters,
+          "train": {"cli_steps": TAC2_STEPS, "cli_s": cli_s, "B": B,
+                    "L": L, "T": T, "decoder_steps": T // 2,
+                    "step_ms": [round(t, 3) for t in times],
+                    "ms_per_step": steady,
+                    "frames_per_s": B * T / steady * 1e3,
+                    "peak_memory_bytes": peak_bytes, "total": totals,
+                    "one_step_profile": profile},
+          "decode": {"utterances": len(utts), "max_frames": T,
+                     "frames_written": frames,
+                     "s_per_utterance": decode_s / len(utts),
+                     "decoded_frames_per_s": len(utts) * T / decode_s,
+                     "written_frames_per_s": sum(frames) / decode_s,
+                     "b2_mel_lens": lens2.tolist(),
+                     "b2_stop_bias_shift": shift,
+                     "b2_mel_lens_from_stop_logits": stop_want,
+                     "infer_b1_ms": infer_ms,
+                     "infer_b1_frames_per_s": T / min(infer_ms) * 1e3,
+                     "one_infer_profile": infer_profile},
+          "port_kernel_launches": ours})
+
+
+def _decode_dir(root, src_scp, n, targets):
+    """A decode dir of ``n`` utterances of a corpus with ``trials`` to the
+    named ``targets`` in turn and their ``spk2spk_id``."""
+    from vae_npvc_tpu_torch.data import kaldi_io
+
+    root.mkdir(parents=True, exist_ok=True)
+    scp = kaldi_io.load_dict_data(src_scp)
+    utts = list(scp)[:n]
+    with kaldi_io.ArkWriter(root / "feats.ark", root / "feats.scp") as w:
+        for u in utts:
+            w.write(u, kaldi_io.load_mat(scp[u]))
+    (root / "trials").write_text("".join(
+        f"{u} spk{targets[i % len(targets)]}\n" for i, u in enumerate(utts)))
+    kaldi_io.save_dict_data(root / "spk2spk_id",
+                            {f"spk{t}": t for t in targets})
+    return root
+
+
+def _cli_decode(conf, ckpt, ddir, out, *extra):
+    from vae_npvc_tpu_torch.bin import decode
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    n = decode.main(["-c", str(conf), "--checkpoint", str(ckpt),
+                     "--decode-dir", str(ddir), "--output-dir", str(out),
+                     *extra])
+    return n, time.perf_counter() - t0, _read_counts()
+
+
+def _check_decoded(out, n, what):
+    from vae_npvc_tpu_torch.data import kaldi_io
+
+    scp = kaldi_io.load_dict_data(Path(out) / "feats.scp")
+    check(len(scp) == n, f"{what}: {len(scp)} outputs, expected {n}")
+    for k, rx in scp.items():
+        m = kaldi_io.load_mat(rx)
+        check(m.ndim == 2 and m.shape[1] == 80
+              and bool(np.isfinite(m).all()), f"{what}: {k} {m.shape}")
+
+
+def _split_counts(torch, fn):
+    """``fn()`` with the kernel counts set to 0 before and read after,
+    its wall ms and its result."""
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, _read_counts()
+
+
+def phase_gan_golden(torch):
+    """The WGAN-GP trainer on the card against the committed JAX fixture
+    (a tiny flat EMA VQ-VAE and critic, fp32): four iterations across the
+    three phases with the fixture's codebook candidates and interpolation
+    weights (``tests/test_torch_port_gan_vae.py``), then the final
+    generator and critic parameters, both optimizers and the codebook."""
+    _gan_vae_golden(torch, "gan", ("DISC loss", "gradient_penalty",
+                                   "ADV loss", "Total", "X like", "VQ loss",
+                                   "usage", "skipped_nonfinite"))
+
+
+def phase_vae_golden(torch):
+    """The Gaussian VAE's ``Trainer`` on the card against the committed
+    JAX fixture with its reparameterization noise."""
+    _gan_vae_golden(torch, "vae", ("Total", "KLD loss", "X like",
+                                   "grad_norm", "skipped_nonfinite"))
+
+
+def _gan_vae_golden(torch, name, keys):
+    import vae_npvc_tpu_torch.models.vae as pvae
+    import vae_npvc_tpu_torch.ops.vq as pvq
+    import vae_npvc_tpu_torch.train.gan as pgan
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    cfg = json.loads((FIXTURES / f"{name}_golden_config.json").read_text())
+    g = np.load(FIXTURES / f"{name}_golden.npz")
+    n = sum(1 for k in g.files if k.startswith("feats_"))
+    saved = (pvq._tiled_candidates, pgan.gp_alpha, pvae.gaussian_sample)
+    # the fixture's draws (torch cannot replay jax.random)
+    if "candidates" in g.files:
+        pvq._tiled_candidates = lambda gen, z, K: torch.as_tensor(
+            g["candidates"][:K], device=z.device)
+        pgan.gp_alpha = lambda gen, shape, device: torch.as_tensor(
+            g["alphas"], device=device)
+    if "eps" in g.files:
+        pvae.gaussian_sample = lambda gen, mu, lv: mu + torch.exp(
+            0.5 * lv) * torch.as_tensor(g["eps"], device=mu.device)
+    try:
+        tr = build_trainer(cfg, device="cuda")
+        tr.load_checkpoint(FIXTURES / f"{name}_golden.msgpack")
+        worst = _golden_steps(tr, [(g[f"feats_{i}"], g[f"spks_{i}"])
+                                   for i in range(n)], g, keys,
+                              f"{name}_golden")
+        with tempfile.TemporaryDirectory() as tmp:
+            tr.save_checkpoint(Path(tmp) / "final")
+            state_err = _state_against(
+                Path(tmp) / "final", FIXTURES / f"{name}_golden_final.msgpack",
+                f"{name}_golden")
+    finally:
+        pvq._tiled_candidates, pgan.gp_alpha, pvae.gaussian_sample = saved
+    emit({"phase": f"{name}_golden", "iterations": n, "worst_rel_err": worst,
+          "loss_rtol": GOLDEN_LOSS_RTOL, "state_max_abs_err": state_err,
+          "state_atol_rtol": list(GOLDEN_STATE_TOL)})
+
+
+def _train_cli(conf, corpus, out):
+    from vae_npvc_tpu_torch.bin import train
+
+    t0 = time.perf_counter()
+    train.main(["-c", str(conf), "--train_dir", str(corpus), "--output_dir",
+                str(out)])
+    return time.perf_counter() - t0
+
+
+def phase_gan(torch, root):
+    """``train_vqvae_gan.yaml`` at full width (flagship generator in bf16,
+    critic [128, 256, 512] in fp32): ``bin/train`` for ``GAN_ITERS``
+    iterations with ``pre_iter`` cut to ``GAN_PRE_ITER``, so they pass
+    through the three phases; then, from its checkpoint, one critic step
+    and one generator step with their launch counts, wall ms and profiles,
+    and a whole iteration through ``train_step``; the checkpoint through
+    ``bin/decode`` over trials and one HTTP ``/convert`` request. Returns
+    the launches counted in this run: of the iteration driven through
+    ``train_step`` (``iteration``), of one critic step (``critic``) and of
+    one generator step (``generator``)."""
+    from scipy.io import wavfile
+
+    from vae_npvc_tpu_torch.bin.serve import serve
+    from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
+                                                 batch_iterator)
+    from vae_npvc_tpu_torch.serve import ConversionEngine
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    cfg = dict(GAN, pre_iter=GAN_PRE_ITER, max_iter=GAN_ITERS,
+               iters_per_log=GAN_ITERS // 2, iters_per_checkpoint=GAN_ITERS,
+               num_jobs=2)
+    B = cfg["batch_size"]
+    (root / "corpus").mkdir(parents=True, exist_ok=True)
+    _synthetic_corpus(root / "corpus", B + 8, seed=12)
+    conf = root / "conf.json"
+    conf.write_text(json.dumps(cfg))
+    cli_s = _train_cli(conf, root / "corpus", root / "exp")
+    ckpt = root / "exp" / "model.loss.best"
+    rows = [json.loads(ln) for ln in
+            (root / "exp" / "metrics.jsonl").read_text().splitlines()]
+    check([r["iter"] for r in rows] == [GAN_ITERS // 2, GAN_ITERS],
+          f"gan: logged iterations {rows}")
+    check({"DISC loss", "gradient_penalty", "ADV loss"} <= set(rows[-1])
+          and all(math.isfinite(v) for r in rows for k, v in r.items()
+                  if k not in ("iter", "split")), f"gan: log {rows}")
+
+    tr = build_trainer(cfg, device="cuda")
+    check(tr.load_checkpoint(ckpt) == GAN_ITERS, "gan: host iteration")
+    check(tr.g_step == GAN_ITERS, f"gan: {tr.g_step} generator updates")
+    data = UttMelSpkDataset(root / "corpus", cfg)
+    batches = batch_iterator(data, B, shuffle=True, drop_last=True, seed=3,
+                             num_workers=0)
+    feats, spks = tr._to_device(next(batches))
+    tr._disc_step(feats, spks)                       # warm-up
+    tr._gen_step(feats, spks)
+    tr._host_iter += 1
+    codebook = tr.model.quantizer.emb.clone()
+    critic, c_ms, c_counts = _split_counts(
+        torch, lambda: tr._disc_step(feats, spks))
+    check(torch.equal(tr.model.quantizer.emb, codebook),
+          "gan: the critic step moved the codebook")
+    gen, g_ms, g_counts = _split_counts(
+        torch, lambda: tr._gen_step(feats, spks))
+    tr._host_iter += 1
+    check(c_counts == GAN_CRITIC_LAUNCHES,
+          f"gan: critic step launched {c_counts}")
+    check(g_counts == GAN_GEN_LAUNCHES,
+          f"gan: generator step launched {g_counts}")
+    for k, v in {**critic, **gen}.items():
+        check(math.isfinite(float(v)), f"gan: {k} = {float(v)}")
+    c_profile = _profiled(torch, lambda: tr._disc_step(feats, spks))
+    g_profile = _profiled(torch, lambda: tr._gen_step(feats, spks))
+    tr._host_iter += 1
+    batch = next(batches)
+    whole, it_ms, launches = _split_counts(torch,
+                                           lambda: tr.train_step(batch))
+    check(launches == {k: GAN_CRITIC_LAUNCHES[k] + GAN_GEN_LAUNCHES[k]
+                       for k in launches},
+          f"gan: one iteration launched {launches}")
+    check({"DISC loss", "ADV loss", "Total"} <= set(whole),
+          f"gan: iteration detail {sorted(whole)}")
+    del tr
+
+    # the GAN checkpoint's generator through bin/decode and /convert
+    ddir = _decode_dir(root / "dd", root / "corpus" / "feats.scp", 12,
+                       [3, 40])
+    n, dec_s, dec_counts = _cli_decode(conf, ckpt, ddir, root / "dec")
+    check(n == 12, f"gan: bin/decode wrote {n}")
+    _check_decoded(root / "dec", 12, "gan decode")
+    check(dec_counts["vq_fused"] >= 1 and dec_counts["fused_group_norm"]
+          == 20 * dec_counts["vq_fused"], f"gan: decode launched "
+          f"{dec_counts}")
+    fs, D = 24000, 80
+    stats = np.zeros((2, D + 1), np.float64)
+    stats[0, :-1] = -3.0 * 1000
+    stats[0, -1] = 1000
+    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
+    engine = ConversionEngine(cfg, ckpt, stats, vocoder="gl", device="cuda")
+    httpd = thread = None
+    try:
+        engine.warmup(1)
+        httpd = serve(engine, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        wav = _speechlike(2 * fs, fs, 31)
+        buf = io.BytesIO()
+        wavfile.write(buf, fs, (wav * 32767).astype(np.int16))
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/convert?target=40",
+            data=buf.getvalue(), method="POST")
+        _zero_counts()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            sr, out = wavfile.read(io.BytesIO(r.read()))
+        req_ms = (time.perf_counter() - t0) * 1e3
+        req_counts = _read_counts()
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if thread is not None:
+            thread.join(timeout=30)
+        engine.close()
+    check(sr == fs and out.size > 0 and np.abs(out).max() > 0,
+          f"gan: /convert gave {out.shape} at {sr} Hz")
+    check(req_counts == {"vq_fused": 1, "fused_group_norm": 20,
+                         "fused_group_norm_backward": 0},
+          f"gan: /convert launched {req_counts}")
+    emit({"phase": "gan", "config": "train_vqvae_gan.yaml",
+          "cut": {"pre_iter": [1000, GAN_PRE_ITER]},
+          "cli_iterations": GAN_ITERS, "cli_s": cli_s, "B": B,
+          "T": cfg["crop_length"], "log": rows,
+          "critic_step": {"ms": c_ms, "launches": c_counts,
+                          "detail": {k: float(v) for k, v in critic.items()},
+                          "profile": c_profile},
+          "generator_step": {"ms": g_ms, "launches": g_counts,
+                             "detail": {k: float(v) for k, v in gen.items()},
+                             "profile": g_profile},
+          "iteration_ms": it_ms,
+          "iteration_launches": launches,
+          "decode": {"utterances": n, "s": dec_s, "launches": dec_counts},
+          "convert": {"ms": req_ms, "launches": req_counts,
+                      "samples": int(out.size)}})
+    return {"iteration": launches, "critic": c_counts, "generator": g_counts}
+
+
+def phase_vae(torch, root):
+    """``train_vae.yaml`` at full width (bf16): ``bin/train`` for
+    ``VAE_STEPS`` steps, then from its checkpoint two steps with their
+    launch counts (K2 20, K3 20 each) and one profiled; ``bin/decode`` over
+    trials and an ``--all-targets`` sweep of two targets. Returns the
+    launches of the counted steps."""
+    from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
+                                                 batch_iterator)
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    cfg = dict(VAE, **VAE_DECODE, max_iter=VAE_STEPS,
+               iters_per_log=VAE_STEPS, iters_per_checkpoint=VAE_STEPS,
+               num_jobs=2)
+    B = cfg["batch_size"]
+    (root / "corpus").mkdir(parents=True, exist_ok=True)
+    _synthetic_corpus(root / "corpus", B + 8, seed=13)
+    conf = root / "conf.json"
+    conf.write_text(json.dumps(cfg))
+    cli_s = _train_cli(conf, root / "corpus", root / "exp")
+    ckpt = root / "exp" / "model.loss.best"
+    tr = build_trainer(cfg, device="cuda")
+    check(tr.load_checkpoint(ckpt) == VAE_STEPS, "vae: iteration")
+    data = UttMelSpkDataset(root / "corpus", cfg)
+    batches = batch_iterator(data, B, shuffle=True, drop_last=True, seed=3,
+                             num_workers=0)
+    tr.train_step(next(batches))                     # warm-up
+    steps, times, per_step = [], [], []
+    launches = {k: 0 for k in VAE_LAUNCHES}
+    for _ in range(2):
+        batch = next(batches)
+        d, ms, counts = _split_counts(torch, lambda: tr.train_step(batch))
+        check(counts == VAE_LAUNCHES, f"vae: one step launched {counts}")
+        check(all(math.isfinite(float(v)) for v in d.values())
+              and float(d["skipped_nonfinite"]) == 0.0, f"vae: step {d}")
+        steps.append({k: float(v) for k, v in d.items()})
+        times.append(ms)
+        per_step.append(counts)
+        launches = {k: launches[k] + counts[k] for k in launches}
+    batch = next(batches)
+    profile = _profiled(torch, lambda: tr.train_step(batch))
+    del tr
+    ddir = _decode_dir(root / "dd", root / "corpus" / "feats.scp", 12,
+                       [3, 40])
+    n, dec_s, dec_counts = _cli_decode(conf, ckpt, ddir, root / "dec")
+    check(n == 12, f"vae: bin/decode wrote {n}")
+    _check_decoded(root / "dec", 12, "vae decode")
+    check(dec_counts["vq_fused"] == 0 and dec_counts["fused_group_norm"] > 0
+          and dec_counts["fused_group_norm"] % 20 == 0,
+          f"vae: decode launched {dec_counts}")
+    n2, sweep_s, sweep_counts = _cli_decode(conf, ckpt, ddir, root / "sweep",
+                                            "--all-targets", "spk3,spk40")
+    check(n2 == 24, f"vae: the sweep wrote {n2}")
+    _check_decoded(root / "sweep", 24, "vae sweep")
+    emit({"phase": "vae", "config": "train_vae.yaml", "cli_steps": VAE_STEPS,
+          "cli_s": cli_s, "B": B, "T": cfg["crop_length"],
+          "step_ms": times, "steps": steps, "launches": launches,
+          "launches_per_step": per_step, "one_step_profile": profile,
+          "decode": {"utterances": n, "s": dec_s, "launches": dec_counts},
+          "sweep": {"outputs": n2, "s": sweep_s,
+                    "launches": sweep_counts}})
+    return launches
+
+
 def main():
     import torch
 
@@ -4443,6 +5075,12 @@ def main():
         bnf = phase_bnf(torch, Path(tmp) / "bnf")
         voc_launches, voc_calls = phase_voc(torch, Path(tmp))
         evaluation = phase_eval(torch, Path(tmp) / "eval")
+        phase_tac2_golden(torch)
+        phase_tac2(torch, Path(tmp) / "tac2")
+        phase_gan_golden(torch)
+        gan_launches = phase_gan(torch, Path(tmp) / "gan")
+        phase_vae_golden(torch)
+        vae_launches = phase_vae(torch, Path(tmp) / "vae")
 
     vq_main = vq[0]
     # K2 and K3 in the layout the model hands them (channels-first x)
@@ -4541,7 +5179,11 @@ def main():
          "launches_bundle": bundle["launches"]["vq_fused"],
          "bundle_launches_per_infer": bundle["per_infer"]["vq_fused"],
          "launches_bnf": bnf["launches"]["vq_fused"],
-         "bnf_batches": bnf["batches"]},
+         "bnf_batches": bnf["batches"],
+         "launches_gan_iteration": gan_launches["iteration"]["vq_fused"],
+         "launches_per_gan_critic_and_generator_step": [
+             gan_launches["critic"]["vq_fused"],
+             gan_launches["generator"]["vq_fused"]]},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",
@@ -4571,7 +5213,13 @@ def main():
          "bundle_launches_per_infer":
              bundle["per_infer"]["fused_group_norm"],
          "launches_bnf": bnf["launches"]["fused_group_norm"],
-         "bnf_batches": bnf["batches"]},
+         "bnf_batches": bnf["batches"],
+         "launches_gan_iteration":
+             gan_launches["iteration"]["fused_group_norm"],
+         "launches_per_gan_critic_and_generator_step": [
+             gan_launches["critic"]["fused_group_norm"],
+             gan_launches["generator"]["fused_group_norm"]],
+         "launches_vae_two_steps": vae_launches["fused_group_norm"]},
         {"name": "fused_group_norm_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",
@@ -4585,7 +5233,14 @@ def main():
          "encoder_shape_fp32": {k: gnb_enc32[k] for k in gn_keys},
          "long_row": {k: gnb_long[k] for k in gn_keys},
          "launches_hier_train": hier_train["fused_group_norm_backward"],
-         "hier_shapes": short_rows(gnb)},
+         "hier_shapes": short_rows(gnb),
+         "launches_gan_iteration":
+             gan_launches["iteration"]["fused_group_norm_backward"],
+         "launches_per_gan_critic_and_generator_step": [
+             gan_launches["critic"]["fused_group_norm_backward"],
+             gan_launches["generator"]["fused_group_norm_backward"]],
+         "launches_vae_two_steps":
+             vae_launches["fused_group_norm_backward"]},
         {"name": "fused_attention", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/attention.cu",
          "replaces": "vae_npvc_tpu/ops/attention_pallas.py:121",

@@ -977,3 +977,103 @@ def test_cpu_exported_program_moved_to_the_card(dev, tmp_path):
     assert counts == (1, 2) and out.device.type == "cuda"
     torch.testing.assert_close(out, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# ------------------------------------------------------ the WGAN-GP trainer
+def _gan_config():
+    enc = {"in_channels": [12], "out_channels": [32], "kernel_size": 3,
+           "downsample_scales": [1], "z_channels": 16, "dilation": True,
+           "stack_kernel_size": 3, "stack_layers": 1, "stacks": [2],
+           "use_weight_norm": True}
+    dec = {"in_channels": [16], "out_channels": [32], "cond_channels": 8,
+           "skip_channels": 8, "final_channels": 12, "kernel_size": 3,
+           "upsample_scales": [1], "dilation": True, "stack_kernel_size": 3,
+           "stacks": [2], "use_weight_norm": True}
+    return {"model_type": "vqvae", "trainer_type": "wgan_gp", "seed": 3,
+            "compute_dtype": "float32", "pre_iter": -1, "gamma": 0.5,
+            "discriminator": {"channels": [16, 32], "kernel_size": 5,
+                              "strides": [2, 2]},
+            "y_dim": 8, "y_num": 4, "z_dim": 16, "z_num": 8,
+            "use_ema": True, "encoder": enc, "decoder": dec}
+
+
+@pytest.fixture
+def gan_draws(monkeypatch):
+    """The same codebook candidates and interpolation weights on the
+    card and on the CPU (the generators' streams differ by device)."""
+    import vae_npvc_tpu_torch.ops.vq as pvq
+    import vae_npvc_tpu_torch.train.gan as pgan
+
+    rows = np.random.default_rng(9).normal(size=(8, 16)).astype(np.float32)
+    alphas = np.random.default_rng(8).uniform(size=(4, 1, 1)) \
+        .astype(np.float32)
+    monkeypatch.setattr(pvq, "_tiled_candidates", lambda gen, z, K:
+                        torch.as_tensor(rows[:K], device=z.device))
+    monkeypatch.setattr(pgan, "gp_alpha", lambda gen, shape, device:
+                        torch.as_tensor(alphas, device=device))
+
+
+def _gan_batch():
+    rng = np.random.default_rng(1)
+    return (rng.normal(size=(4, 32, 12)).astype(np.float32),
+            np.array([0, 3, 1, 2], np.int32))
+
+
+def test_gan_generator_step_runs_k3_on_the_critic_cotangent(dev, gan_draws):
+    """One iteration (critic step, then generator step) on the card and on
+    the CPU from the same weights: the generator's gradient reaches the
+    GroupNorm backward kernel through the fp32 critic, and the updates
+    agree with the plain versions'."""
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    trainers = {}
+    for name in ("cpu", "cuda"):
+        tr = build_trainer(_gan_config(), device=name)
+        tr.init_state()
+        trainers[name] = tr
+    # the same weights (the weight norms' g = |v| of the seeded init are
+    # computed on each device)
+    flat0 = trainers["cpu"].flat.clone()
+    d_flat0 = trainers["cpu"].d_flat.clone()
+    with torch.no_grad():
+        trainers["cuda"].flat.copy_(flat0)
+        trainers["cuda"].d_flat.copy_(d_flat0)
+    d_cpu = trainers["cpu"].train_step(_gan_batch())
+    before = fused_group_norm_backward.launches, fused_group_norm.launches
+    d_gpu = trainers["cuda"].train_step(_gan_batch())
+    torch.cuda.synchronize()
+    # 2 + 2 GroupNorms: the critic step's generator forward and the
+    # generator step's forward, and the generator step's backward
+    assert fused_group_norm.launches - before[1] == 8
+    assert fused_group_norm_backward.launches - before[0] == 4
+    for k in ("DISC loss", "gradient_penalty", "ADV loss", "Total",
+              "grad_norm"):
+        np.testing.assert_allclose(float(d_gpu[k]), float(d_cpu[k]),
+                                   rtol=1e-4, err_msg=k)
+    # each network's update against its step's peak
+    for a, b, start in ((trainers["cuda"].flat.cpu(), trainers["cpu"].flat,
+                         flat0),
+                        (trainers["cuda"].d_flat.cpu(),
+                         trainers["cpu"].d_flat, d_flat0)):
+        peak = float((b - start).abs().max())
+        assert peak > 0
+        assert float((a - b).abs().max()) <= 1e-3 * peak
+
+
+def test_critic_step_leaves_the_codebook_on_the_card(dev, gan_draws):
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    tr = build_trainer(dict(_gan_config(), pre_iter=0), device="cuda")
+    tr.init_state()
+    state = [t.clone() for t in tr.model.quantizer.state()]
+    counts = (vq_fused.launches, fused_group_norm.launches,
+              fused_group_norm_backward.launches)
+    tr._disc_step(*tr._to_device(_gan_batch()))
+    torch.cuda.synchronize()
+    assert (vq_fused.launches - counts[0], fused_group_norm.launches
+            - counts[1], fused_group_norm_backward.launches - counts[2]) \
+        == (1, 4, 0)
+    assert tr.model.pending_ema is None
+    for a, b in zip(tr.model.quantizer.state(), state):
+        assert torch.equal(a, b)
+    assert not bool(tr.model.quantizer.initted)

@@ -60,17 +60,27 @@ def test_logp_through_the_cache_agrees(layers):
 def test_bridge_round_trip_and_zero_input_bias():
     _, p, params = _pair()
     sd = params_from_flax(params)
-    assert sd["lstm.weight_ih_l0"].shape == (4 * 16, 8)
-    assert not sd["lstm.bias_ih_l1"].any()
+    assert sd["OptimizedLSTMCell_0.weight_ih_l0"].shape == (4 * 16, 8)
+    assert sd["OptimizedLSTMCell_1.weight_ih_l0"].shape == (4 * 16, 16)
+    assert not any("bias_ih" in k for k in sd)
     back, want = {}, {}
     _flatten(params_to_flax(sd), "", back)
     _flatten(params, "", want)
     assert list(back) == sorted(back) and set(back) == set(want)
     for k in want:
         np.testing.assert_array_equal(back[k], want[k])
-    sd["lstm.bias_ih_l0"] += 1.0
-    with pytest.raises(ValueError, match="no input bias"):
-        params_to_flax(sd)
+    # flax's cell has no input bias: the port's is a zero buffer, neither
+    # saved nor trained, and a state_dict that carries one is refused
+    p.params = params
+    for i in range(2):
+        layer = getattr(p.net, f"OptimizedLSTMCell_{i}")
+        assert not layer.bias_ih_l0.any()
+        name = f"OptimizedLSTMCell_{i}.bias_ih_l0"
+        assert name not in p.net.state_dict()
+        assert name not in dict(p.net.named_parameters())
+    sd["OptimizedLSTMCell_0.bias_ih_l0"] = torch.ones(4 * 16)
+    with pytest.raises(RuntimeError, match="Unexpected key"):
+        p.net.load_state_dict(sd)
 
 
 def test_six_adam_steps_lockstep(capsys):
@@ -100,7 +110,7 @@ def test_six_adam_steps_lockstep(capsys):
     for k in ref:
         peak = float(np.abs(ref[k]).max())
         assert np.abs(got[k] - ref[k]).max() <= 1e-3 * peak, k
-    assert not p.net.lstm.bias_ih_l0.any()          # never trained
+    assert not p.net.OptimizedLSTMCell_0.bias_ih_l0.any()  # never trained
 
 
 def test_train_char_lm_trains_on_its_own():

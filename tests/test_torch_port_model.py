@@ -197,8 +197,11 @@ def test_registry_and_unported_families():
 
     assert get_model_cls("vae_npvc.model.vqvae2") is vqvae2.Model
     assert get_model_cls("vqvae2b") is vqvae2b.Model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_cls("vae_npvc.model.vae")
+    from vae_npvc_tpu_torch.models import vae
+
+    # the Gaussian VAE is ported: no family of the JAX package is refused
+    assert get_model_cls("vae_npvc.model.vae") is vae.Model
+    assert get_model_cls("vae") is vae.Model
     with pytest.raises(KeyError):
         get_model_cls("nope")
     # a strided flat model (x2 down in the encoder, x2 up in the decoder)

@@ -214,12 +214,13 @@ def test_dummy_rows_do_not_change_a_batch(flat):
 
 
 def test_sweep_of_an_unported_family_raises(tmp_path):
-    """Only the flat model and the hierarchies sweep; another family's
-    model raises and names the ROADMAP item that ports it."""
+    """Every family sweeps (the Gaussian VAE through its ``infer``, in
+    ``tests/test_torch_port_gan_vae.py``); a model without ``infer`` is
+    refused before anything is written."""
     cv = port_converter("golden")
     cv.model = torch.nn.Identity()
     d = fx.offline_decode_dir(tmp_path / "dd", feat_dim(cv.config))
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    with pytest.raises(TypeError, match="has no infer"):
         cv.sweep(d, tmp_path / "out", fx.OFFLINE_TARGETS)
     assert not (tmp_path / "out" / "feats.ark").exists()
 

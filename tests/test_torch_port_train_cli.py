@@ -83,9 +83,11 @@ def test_train_steps_indices_equals_train_step_on_the_same_windows(data_dirs):
 def test_trainer_registry_and_default_device():
     from vae_npvc_tpu_torch.train.trainer import Trainer
 
+    from vae_npvc_tpu_torch.train.gan import GanTrainer
+
     assert get_trainer_cls("vae_npvc.trainer.basic") is Trainer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_trainer_cls("vae_npvc.trainer.wgan_gp")
+    assert get_trainer_cls("vae_npvc.trainer.wgan_gp") is GanTrainer
+    assert get_trainer_cls("wgan_gp") is GanTrainer
     with pytest.raises(KeyError):
         get_trainer_cls("nope")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):

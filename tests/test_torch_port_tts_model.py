@@ -217,8 +217,11 @@ def test_registry_tacotron2_and_speaker_modes():
     assert get_model_cls("vae_npvc.model.token_tts") is Model
     assert get_model_cls("token_tts") is Model
     assert codebook_renorm_fn(_config()) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-        build_model(_config("tacotron2"), device="cpu")
+    from vae_npvc_tpu_torch.models.token_tts import Tacotron2Net
+
+    tac = build_model(_config("tacotron2"), device="cpu")
+    assert isinstance(tac.tac2, Tacotron2Net)
+    assert all(k.startswith("tac2.") for k in tac.state_dict())
     with pytest.raises(ValueError, match="block_type"):
         build_model(_config("lstm"), device="cpu")
     pm = build_model(_config(), device="cpu").init_random(0)

@@ -117,6 +117,13 @@ def train(args):
         raise ValueError(
             f"device_resident_sampling must be 'epoch' or 'iid', got "
             f"{dev_sampling!r}")
+    # the GAN trainer's per-iteration phase schedule runs single steps
+    # from the host loader (the JAX CLI's fallback)
+    sequential = not getattr(trainer, "supports_steps_per_call", False)
+    if use_dev and sequential:
+        logger.warning("device_resident is not supported by this trainer; "
+                       "using the host loader")
+        use_dev = False
     if use_dev and dev_sampling == "iid":
         raise NotImplementedError(
             "device_resident_sampling: iid is not ported yet (ROADMAP "
@@ -200,6 +207,10 @@ def train(args):
     # log/checkpoint/max_iter boundary, so the logging cadence and the
     # checkpoint contents do not depend on K
     steps_per_call = max(1, int(config.get("steps_per_call", 1)))
+    if steps_per_call > 1 and sequential:
+        logger.warning("steps_per_call > 1 is not supported by this "
+                       "trainer; using 1")
+        steps_per_call = 1
 
     if iteration > max_iter:
         # a finished run re-invoked (e.g. --checkpoint auto after

@@ -7,11 +7,11 @@ transcripts, behind the ``logp``/``logp_eos`` interface of the Witten-Bell
 n-gram (eval/lm.py), so either can back ``ctc_prefix_beam_search``
 (``lm-type: neural`` of the recipe's decode yaml).
 
-The LSTM is ``torch.nn.LSTM`` (cuDNN on the GPU). Flax's
-``OptimizedLSTMCell`` has no input bias, so ``bias_ih_l{i}`` is held at
-zero and not trained; the recurrent bias is ``bias_hh_l{i}``. Parameters
-cross to the JAX payload through ``utils/bridge.params_to_flax`` (the
-``OptimizedLSTMCell_{i}`` layout). Training follows JAX's loop: Adam,
+Layer ``i`` is ``OptimizedLSTMCell_{i}``, a ``nn/rnn.LSTM`` (cuDNN on
+the GPU) named after the flax cell it holds: flax's ``OptimizedLSTMCell``
+has no input bias, so that layer holds its input bias at zero and does not
+train it. Parameters cross to the JAX payload through
+``utils/bridge.params_to_flax``. Training follows JAX's loop: Adam,
 ``np.random.default_rng(seed)`` batches of whole padded transcripts with a
 BOS column, the NLL averaged over the real characters and the EOS. The
 seeded initial parameters are not flax's; ``train`` takes injected ones.
@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.blocks import Dense, Embed, init_parameters
+from ..nn.rnn import LSTM
 from ..utils import msgpack_io
 from ..utils.bridge import load_flax_params, params_to_flax
 from ..utils.device import resolve_device
@@ -51,38 +52,24 @@ def _build_vocab(texts):
 
 class CharLstmNet(nn.Module):
     """(B, L) tokens [, carries] -> ((B, L, V) logits, carries); the
-    carries are torch's ``(h, c)``, each (layers, B, hidden)."""
+    carries are one ``(h, c)`` per layer, each (B, hidden)."""
 
     def __init__(self, V, embed, hidden, layers):
         super().__init__()
         self.embed = Embed(V, embed)
-        self.lstm = nn.LSTM(embed, hidden, layers, batch_first=True)
+        for i in range(layers):
+            setattr(self, f"OptimizedLSTMCell_{i}",
+                    LSTM(embed if i == 0 else hidden, hidden))
         self.out = Dense(hidden, V)
         self.layers = layers
 
-    def init_(self, gen):
-        """Uniform(+-1/sqrt(hidden)) LSTM weights (torch's default draw,
-        from ``gen``), zero biases."""
-        bound = 1.0 / float(np.sqrt(self.lstm.hidden_size))
-        with torch.no_grad():
-            for name, p in self.lstm.named_parameters():
-                if name.startswith("weight"):
-                    p.copy_(torch.rand(p.shape, generator=gen) * 2 * bound
-                            - bound)
-                else:
-                    p.zero_()
-
-    def input_biases(self):
-        return [getattr(self.lstm, f"bias_ih_l{i}")
-                for i in range(self.layers)]
-
-    def trainable(self):
-        frozen = {id(p) for p in self.input_biases()}
-        return [p for p in self.parameters() if id(p) not in frozen]
-
     def forward(self, tokens, carries=None):
-        h, carries = self.lstm(self.embed(tokens), carries)
-        return self.out(h), carries
+        h, new = self.embed(tokens), []
+        for i in range(self.layers):
+            h, carry = getattr(self, f"OptimizedLSTMCell_{i}")(
+                h, None if carries is None else carries[i])
+            new.append(carry)
+        return self.out(h), new
 
 
 class CharLstmLM:
@@ -95,11 +82,8 @@ class CharLstmLM:
         self.stoi = {c: i for i, c in enumerate(self.itos)}
         self.embed, self.hidden, self.layers = embed, hidden, layers
         self.device = resolve_device(device)
-        self.net = CharLstmNet(len(self.itos), embed, hidden, layers)
-        with torch.no_grad():
-            for p in self.net.input_biases():
-                p.zero_().requires_grad_(False)
-        self.net.to(self.device)
+        self.net = CharLstmNet(len(self.itos), embed, hidden,
+                               layers).to(self.device)
         self._cache: dict = {}
 
     @property
@@ -135,7 +119,7 @@ class CharLstmLM:
         else:
             self.params = params
         self.net.train()
-        weights = self.net.trainable()
+        weights = list(self.net.parameters())
         tx = Adam(lr, 0.9, 0.999, None)
         opt_state = None
         dev = self.device

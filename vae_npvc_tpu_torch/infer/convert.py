@@ -310,7 +310,7 @@ class Converter:
         """Any-to-all conversion: every utterance of ``feats.scp`` to every
         target of ``targets``, keyed ``<utt>__<target>``. The flat model
         encodes each utterance once (B = 1) and decodes its codes for the
-        K targets in one batch; the hierarchies go through
+        K targets in one batch; the other families go through
         :meth:`_sweep_generic`. Returns the conversions written."""
         if not isinstance(self.model, flat_vqvae.Model):
             return self._sweep_generic(decode_dir, output_dir, targets,
@@ -341,14 +341,15 @@ class Converter:
         return n_done
 
     def _sweep_generic(self, decode_dir, output_dir, targets, compress=True):
-        """Any-to-all sweep over bucketed batches of a hierarchy
-        (vqvae2/2a/2b, whose ``infer`` is encode then decode): each batch is
-        encoded once and decoded per target (vqvae2 passes its style)."""
-        if not isinstance(self.model, HierVQMixin):
-            raise NotImplementedError(
-                f"sweep of {type(self.model).__module__} is not ported yet: "
-                "the port sweeps the flat VQ-VAE and the hierarchies; the "
-                "other families come with ROADMAP Queue A item 11")
+        """Any-to-all sweep over bucketed batches of another family. A
+        hierarchy (vqvae2/2a/2b, whose ``infer`` is encode then decode)
+        encodes each batch once and decodes it per target (vqvae2 passes
+        its style); any other model (the Gaussian VAE) runs its ``infer``
+        per target, as the JAX package does."""
+        hier = isinstance(self.model, HierVQMixin)
+        if not hier and not callable(getattr(self.model, "infer", None)):
+            raise TypeError(f"{type(self.model).__name__} has no infer: "
+                            "nothing to sweep with")
         output_dir, jobs, tgt_ids = self._sweep_inputs(
             decode_dir, output_dir, targets)
         with_style = isinstance(self.model, vqvae2.Model)
@@ -359,12 +360,15 @@ class Converter:
                 B = len(chunk)
                 outs = []
                 with torch.inference_mode():
+                    x = self._dev(feats, np.float32)
                     n = self._dev(lengths)
-                    enc = self.model.encode(self._dev(feats, np.float32), n)
+                    enc = self.model.encode(x, n) if hier else None
                     for tid in tgt_ids:
                         y = torch.full((B,), tid, dtype=torch.int32,
                                        device=self.device)
-                        if with_style:
+                        if not hier:
+                            out = self.model.infer(x, y, n)
+                        elif with_style:
                             out = self.model.decode(
                                 enc[0], y, style=enc[1], target_len=T_pad,
                                 lengths=n)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from ..utils.device import compute_dtype, resolve_device
 from . import token_tts as _token_tts
+from . import vae as _vae
 from . import vqvae as _vqvae
 from . import vqvae2 as _vqvae2
 from . import vqvae2a as _vqvae2a
@@ -13,6 +14,8 @@ from . import vqvae2b as _vqvae2b
 _REGISTRY = {
     "vae_npvc.model.vqvae": _vqvae.Model,
     "vqvae": _vqvae.Model,
+    "vae_npvc.model.vae": _vae.Model,
+    "vae": _vae.Model,
     "vae_npvc.model.token_tts": _token_tts.Model,
     "token_tts": _token_tts.Model,
     "vae_npvc.model.vqvae2": _vqvae2.Model,
@@ -23,12 +26,6 @@ _REGISTRY = {
     "vqvae2b": _vqvae2b.Model,
 }
 
-# families of the JAX package not ported yet -> the ROADMAP item that ports
-# them
-_NOT_PORTED = {
-    "vae": "Queue A, other families and trainers",
-}
-
 
 def get_model_cls(model_type: str):
     """Resolve a model_type string (dotted reference path or short name)."""
@@ -37,10 +34,6 @@ def get_model_cls(model_type: str):
     cls = _REGISTRY.get(key) or _REGISTRY.get(short)
     if cls is not None:
         return cls
-    if short in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported to PyTorch yet "
-            f"(ROADMAP {_NOT_PORTED[short]})")
     raise KeyError(f"unknown model_type {model_type!r}; known: "
                    f"{sorted(_REGISTRY)}")
 

@@ -13,8 +13,13 @@ config keys, parameter names, channels-last layout and casts:
 attention core is :func:`..ops.attention.fused_attention` (12 launches per
 ``infer`` with 6 + 6 blocks, and as many backward launches per training
 step); ``block_type: conv`` runs ``ConvResStack``s (the GroupNorm kernels).
-``block_type: tacotron2`` (the autoregressive family) is not ported yet and
-raises.
+``block_type: tacotron2`` is the autoregressive family (``Tacotron2Net``):
+a conv + BiLSTM encoder, a prenet + location-sensitive attention + LSTM
+decoder stepped over ``T / r`` groups, a stop-token head and a conv
+postnet, on no kernel of the port's own (its attention is additive, one
+query per step; the LSTMs are torch's). The JAX package scans the decoder
+in one compiled loop; the port steps it from Python, one group per step,
+teacher-forced in training and free-running in ``infer``.
 
 Speaker conditioning: int ids go through a learned table (``spk_embed``);
 with ``use_spk_embed: true`` the model instead holds ``spk_emb_proj``, a
@@ -31,16 +36,258 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.blocks import (Conditions, ConvResStack, Dense, Embed, LayerNorm,
-                         WNConv1d, init_parameters, length_mask,
+from ..nn.blocks import (Conditions, Conv, ConvResStack, Dense, Embed,
+                         LayerNorm, WNConv1d, init_parameters, length_mask,
                          sinusoidal_positions)
 from ..nn.gst import MultiHeadedAttention
+from ..nn.rnn import LSTM
 
 LOG_2PI = math.log(2.0 * math.pi)
 
-_TACOTRON2 = ("block_type 'tacotron2' (Tacotron2Net, the autoregressive "
-              "token->mel family) is not ported to PyTorch yet (ROADMAP "
-              "Queue A item 6, token TTS: Tacotron2 family)")
+
+def bernoulli(gen, p, shape, device):
+    """A bool mask, True with probability ``p``, drawn from ``gen``: every
+    dropout and zoneout mask of ``Tacotron2Net``."""
+    return torch.rand(shape, generator=gen, device=device) < p
+
+
+def _dropout(gen, h, rate):
+    keep = bernoulli(gen, 1.0 - rate, h.shape, h.device)
+    return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
+
+
+class Tacotron2Net(nn.Module):
+    """Tacotron2-style autoregressive token->mel network (the JAX
+    ``Tacotron2Net``, same keys, dashed or not, and flax's layer names).
+
+      forward(tokens, y, tok_lens, mels=None, mel_lens=None,
+              max_frames=None, train=True, free_run=False, gen=None)
+          -> (mel (B, T, D), mel_pre, stop_logits (B, T))
+
+    Random draws come from ``gen`` only: the encoder convs' dropout and the
+    decoder LSTMs' zoneout when ``train`` and ``gen`` is given, the
+    prenet's dropout whenever ``gen`` is given (in ``infer`` too, as in
+    JAX). Without ``gen`` nothing is drawn.
+    """
+
+    def __init__(self, cfg, mel_dim, y_num, dtype=torch.float32):
+        super().__init__()
+
+        def a(name, default):
+            return cfg.get(name, cfg.get(name.replace("-", "_"), default))
+
+        self.mel_dim, self.dtype = mel_dim, dtype
+        embed_dim = a("embed-dim", 512)
+        self.econv_layers = a("econv-layers", 3)
+        econv_chans = a("econv-chans", 512)
+        econv_filts = a("econv-filts", 5)
+        eunits = a("eunits", 512)
+        self.postnet_layers = a("postnet-layers", 5)
+        postnet_chans = a("postnet-chans", 512)
+        postnet_filts = a("postnet-filts", 5)
+        self.r = a("reduction-factor", 2)
+        self.dropout = a("dropout-rate", 0.5)
+
+        self.tok_embed = Embed(a("token_num", 128), embed_dim)
+        cin = embed_dim
+        for j in range(self.econv_layers):
+            setattr(self, f"econv_{j}", Conv(cin, econv_chans, econv_filts,
+                                             dtype=dtype))
+            setattr(self, f"enorm_{j}", LayerNorm(econv_chans))
+            cin = econv_chans
+        half = eunits // 2
+        # the BiLSTM's directions under flax's names: the two cells of its
+        # nn.RNNs sit at this level, forward first
+        self.OptimizedLSTMCell_0 = LSTM(cin, half)
+        self.OptimizedLSTMCell_1 = LSTM(cin, half)
+        if cfg.get("use_spk_embed", False):
+            self.spk_proj = Dense(cfg.get("spk_embed_dim", 64), 2 * half)
+        else:
+            self.spk_embed = Embed(y_num, 2 * half)
+        self.att_enc_proj = Dense(2 * half, a("adim", 128), bias=False)
+        self.dec_cell = Tacotron2Cell(
+            enc_dim=2 * half, dunits=a("dunits", 1024),
+            dlayers=a("dlayers", 2), prenet_layers=a("prenet-layers", 2),
+            prenet_units=a("prenet-units", 256), adim=a("adim", 128),
+            aconv_chans=a("aconv-chans", 32),
+            aconv_filts=a("aconv-filts", 15),
+            mel_dim=mel_dim, r=self.r, cumulate=a("cumulate-att-w", True),
+            use_concate=a("use-concate", True),
+            zoneout=a("zoneout-rate", 0.1), dropout=self.dropout,
+            dtype=dtype)
+        for j in range(self.postnet_layers):
+            last = j == self.postnet_layers - 1
+            setattr(self, f"postnet_{j}", Conv(
+                mel_dim if j == 0 else postnet_chans,
+                mel_dim if last else postnet_chans, postnet_filts,
+                dtype=dtype))
+
+    def _speaker(self, y, B, dtype):
+        if y.is_floating_point():
+            if not hasattr(self, "spk_proj"):
+                raise ValueError(
+                    "float speaker embeddings need a model built with "
+                    "use_spk_embed: true (and spk_embed_dim)")
+            return self.spk_proj(y.reshape(B, -1).to(dtype))
+        if not hasattr(self, "spk_embed"):
+            raise ValueError("this model was built with use_spk_embed: true "
+                             "and takes float speaker embeddings, not ids")
+        return self.spk_embed(y.reshape(B, -1)[:, 0]).to(dtype)
+
+    def encode(self, tokens, y, tok_lens, train=True, gen=None):
+        """-> (hs (B, L, eunits) fp32, keys_proj (B, L, adim), kmask (B, L)
+        bool)."""
+        B, L = tokens.shape
+        tok_mask = length_mask(tok_lens, L)
+        h = self.tok_embed(tokens).to(self.dtype) * tok_mask
+        for j in range(self.econv_layers):
+            h = getattr(self, f"econv_{j}")(h * tok_mask.to(h.dtype))
+            h = getattr(self, f"enorm_{j}")(h).to(self.dtype)
+            h = F.relu(h)
+            if gen is not None and train and self.dropout > 0:
+                h = _dropout(gen, h, self.dropout)
+        # BiLSTM: a forward pass and an index-flipped backward pass, so a
+        # padded batch equals the unpadded rows
+        fwd = self.OptimizedLSTMCell_0(h.float())[0]
+        t = torch.arange(L, device=h.device)[None, :]
+        flip = torch.clamp(tok_lens.long()[:, None] - 1 - t, 0, L - 1)
+        flip = flip[..., None].expand(-1, -1, h.shape[-1])
+        bwd = self.OptimizedLSTMCell_1(torch.gather(h, 1, flip).float())[0]
+        bwd = torch.gather(bwd, 1, flip[..., :bwd.shape[-1]])
+        hs = torch.cat([fwd, bwd], dim=-1) * tok_mask
+        hs = (hs + self._speaker(y, B, hs.dtype)[:, None, :]) * tok_mask
+        return hs, self.att_enc_proj(hs), tok_mask[..., 0] > 0
+
+    def forward(self, tokens, y, tok_lens, mels=None, mel_lens=None,
+                max_frames=None, train=True, free_run=False, gen=None):
+        B = tokens.shape[0]
+        hs, keys_proj, kmask = self.encode(tokens, y, tok_lens, train, gen)
+        r, D = self.r, self.mel_dim
+        T = int(max_frames) if free_run else mels.shape[1]
+        pad = (-T) % r
+        Tr = (T + pad) // r
+        if free_run:
+            teacher = None
+        else:
+            last = F.pad(mels.float(), (0, 0, 0, pad))[:, r - 1::r]
+            teacher = torch.cat([last.new_zeros((B, 1, D)), last[:, :-1]],
+                                dim=1)                        # (B, Tr, D)
+
+        # initial state: uniform attention over the valid keys, zero LSTM
+        # state, zero previous frame
+        km = kmask.float()
+        w0 = km / torch.clamp(km.sum(dim=1, keepdim=True), min=1)
+        cell = self.dec_cell
+        zeros = hs.new_zeros((B, cell.dunits), dtype=torch.float32)
+        carry = {"att_w": w0, "att_w_cum": w0,
+                 "c": [zeros] * cell.dlayers, "h": [zeros] * cell.dlayers,
+                 "prev": hs.new_zeros((B, D), dtype=torch.float32)}
+        groups, stops = [], []
+        for t in range(Tr):
+            prev = carry["prev"] if free_run else teacher[:, t]
+            carry, group, stop = cell(carry, prev, hs, keys_proj, kmask,
+                                      train, gen)
+            groups.append(group)
+            stops.append(stop)
+        mel_pre = torch.stack(groups, dim=1).reshape(B, Tr * r, D)[:, :T] \
+            .float()
+        stop_logits = torch.stack(stops, dim=1).reshape(B, Tr * r)[:, :T] \
+            .float()
+
+        # the postnet reads masked input: the decoder runs over padded
+        # steps, and the postnet's receptive field would carry them into
+        # the last valid frames
+        if mel_lens is not None:
+            mel_mask = length_mask(mel_lens, T)
+            mel_pre = mel_pre * mel_mask
+            stop_logits = stop_logits * mel_mask[..., 0]
+        p = mel_pre.to(self.dtype)
+        for j in range(self.postnet_layers):
+            p = getattr(self, f"postnet_{j}")(p)
+            if j < self.postnet_layers - 1:
+                p = torch.tanh(p)
+                if mel_lens is not None:
+                    p = p * mel_mask.to(p.dtype)
+        mel = mel_pre + p.float()
+        if mel_lens is not None:
+            mel = mel * mel_mask
+        return mel, mel_pre, stop_logits
+
+
+class Tacotron2Cell(nn.Module):
+    """One decoder step (the JAX ``_Tacotron2Cell``): prenet -> location-
+    sensitive attention -> LSTM stack (zoneout in training) -> frame group
+    and stop logits. The attention query is the first LSTM layer's hidden
+    state of the previous step; the LSTM input is ``[context, prenet]``;
+    the heads read ``[top hidden, context]`` with ``use-concate``."""
+
+    def __init__(self, enc_dim, dunits, dlayers, prenet_layers, prenet_units,
+                 adim, aconv_chans, aconv_filts, mel_dim, r, cumulate,
+                 use_concate, zoneout, dropout, dtype=torch.float32):
+        super().__init__()
+        self.dunits, self.dlayers = dunits, dlayers
+        self.prenet_layers, self.mel_dim, self.r = prenet_layers, mel_dim, r
+        self.cumulate, self.use_concate = cumulate, use_concate
+        self.zoneout, self.dropout, self.dtype = zoneout, dropout, dtype
+        cin = mel_dim
+        for j in range(prenet_layers):
+            setattr(self, f"prenet_{j}", Dense(cin, prenet_units))
+            cin = prenet_units
+        self.loc_conv = Conv(1, aconv_chans, 2 * aconv_filts + 1, bias=False,
+                             dtype=dtype)
+        self.att_loc_proj = Dense(aconv_chans, adim, bias=False)
+        self.att_query_proj = Dense(dunits, adim, bias=False)
+        self.att_v = Dense(adim, 1, bias=False)
+        x_dim = enc_dim + cin
+        for l in range(dlayers):
+            setattr(self, f"lstm_{l}", LSTM(x_dim, dunits))
+            x_dim = dunits
+        z_dim = dunits + enc_dim if use_concate else dunits
+        self.feat_out = Dense(z_dim, mel_dim * r, bias=False)
+        self.prob_out = Dense(z_dim, r)
+
+    def forward(self, carry, prev, hs, keys_proj, kmask, train, gen):
+        """-> (new carry, group (B, r*D), stop logits (B, r))."""
+        p = prev.to(self.dtype)
+        for j in range(self.prenet_layers):
+            p = F.relu(getattr(self, f"prenet_{j}")(p))
+            if gen is not None and self.dropout > 0:
+                p = _dropout(gen, p, self.dropout)
+
+        att_prev = carry["att_w_cum"] if self.cumulate else carry["att_w"]
+        f = self.att_loc_proj(self.loc_conv(att_prev[..., None]))
+        q = self.att_query_proj(carry["h"][0])[:, None, :]
+        e = self.att_v(torch.tanh(q + keys_proj + f))[..., 0]
+        e = torch.where(kmask, e.float(), torch.full_like(e, -1e9,
+                                                          dtype=torch.float32))
+        att_w = torch.softmax(e, dim=-1) * kmask
+        context = torch.einsum("bl,blc->bc", att_w.to(hs.dtype), hs)
+
+        x = torch.cat([context.float(), p.float()], dim=-1)
+        cs, hs_new = [], []
+        for l in range(self.dlayers):
+            c_old, h_old = carry["c"][l], carry["h"][l]
+            c_new, h_new = getattr(self, f"lstm_{l}").step((c_old, h_old),
+                                                           x)
+            if train and gen is not None and self.zoneout > 0:
+                kc = bernoulli(gen, self.zoneout, c_new.shape, c_new.device)
+                kh = bernoulli(gen, self.zoneout, h_new.shape, h_new.device)
+                c_new = torch.where(kc, c_old, c_new)
+                h_new = torch.where(kh, h_old, h_new)
+            cs.append(c_new)
+            hs_new.append(h_new)
+            x = h_new
+
+        zcs = (torch.cat([hs_new[-1], context.float()], dim=-1)
+               if self.use_concate else hs_new[-1]).to(self.dtype)
+        group = self.feat_out(zcs)
+        stop = self.prob_out(zcs)
+        new = {"att_w": att_w,
+               "att_w_cum": carry["att_w_cum"] + att_w if self.cumulate
+               else att_w,
+               "c": cs, "h": hs_new,
+               "prev": group.float()[:, -self.mel_dim:]}
+        return new, group, stop
 
 
 class TransformerBlock(nn.Module):
@@ -132,7 +379,15 @@ class Model(nn.Module):
             self.dec_stacks = a.get("dec_stacks", 4)
             eunits = dunits = None
         elif self.block_type == "tacotron2":
-            raise NotImplementedError(_TACOTRON2)
+            # the network and its keys are Tacotron2Net's; the NAR layers
+            # below are not built (flax creates no parameters for them)
+            self.mel_dim = a.get("mel_dim", 80)
+            self.max_frames = a.get("max_frames", 512)
+            self.bce_pos_weight = a.get("bce-pos-weight",
+                                        a.get("bce_pos_weight", 3.0))
+            self.tac2 = Tacotron2Net(dict(a, token_num=self.token_num),
+                                     self.mel_dim, a.get("y_num", 10), dtype)
+            return
         else:
             raise ValueError(f"unknown block_type {self.block_type!r}")
         self.mel_dim = a.get("mel_dim", 80)
@@ -285,6 +540,10 @@ class Model(nn.Module):
         postnet and pre-postnet mels + ``dur_weight`` * MSE(log durations)
         + ``var_weight`` * (MSE(pitch) + MSE(energy)). ``gen`` is the
         trainer's step generator; this family draws nothing from it."""
+        if self.block_type == "tacotron2":
+            # durations are unused: the attention learns the alignment
+            return self._tacotron_loss(tokens, mels, y_idx, tok_lens,
+                                       mel_lens, train, gen)
         B, T, D = mels.shape
         mel_hat, mel_pre, log_dur_pred, pitch_pred, energy_pred, _, _ = \
             self._network(tokens, durations, y_idx, tok_lens, T,
@@ -318,11 +577,49 @@ class Model(nn.Module):
         detail["Total"] = loss
         return mel_hat, loss, detail
 
+    def _tacotron_loss(self, tokens, mels, y_idx, tok_lens, mel_lens,
+                       train, gen):
+        """Teacher-forced forward: Gaussian NLL on the postnet and
+        pre-postnet mels + the stop BCE with ``bce-pos-weight`` on the
+        last valid frame."""
+        B, T, D = mels.shape
+        mel_hat, mel_pre, stop_logits = self.tac2(
+            tokens, y_idx, tok_lens, mels=mels, mel_lens=mel_lens,
+            train=train, gen=gen)
+        mel_mask = length_mask(mel_lens, T)
+        n_frames = torch.clamp(mel_lens.sum(), min=1)
+        x_loss = torch.sum(0.5 * (LOG_2PI + (mels - mel_hat) ** 2)
+                           * mel_mask) / (n_frames * 1.0)
+        x_pre = torch.sum(0.5 * (LOG_2PI + (mels - mel_pre) ** 2)
+                          * mel_mask) / (n_frames * 1.0)
+        fmask = mel_mask[..., 0]
+        t = torch.arange(T, device=mels.device)[None, :]
+        stop_target = (t == (mel_lens.long()[:, None] - 1)).float()
+        bce = -(self.bce_pos_weight * stop_target * F.logsigmoid(stop_logits)
+                + (1.0 - stop_target) * F.logsigmoid(-stop_logits))
+        stop_loss = torch.sum(bce * fmask) / torch.clamp(fmask.sum(), min=1)
+        loss = x_loss + x_pre + stop_loss
+        detail = {"X like": x_loss, "X pre like": x_pre,
+                  "STOP loss": stop_loss, "Total": loss}
+        return mel_hat, loss, detail
+
     def infer(self, tokens, y_idx, tok_lens, max_frames=None):
         """-> (mel (B, T, D), mel_lens) with predicted durations and
-        variance. ``y_idx``: int speaker ids (B,) or float speaker
+        variance, or for ``tacotron2`` by free-running decoding over all
+        ``max_frames`` steps: ``mel_lens`` is the first frame whose stop
+        probability exceeds 0.5, plus one (``T`` if none does), and the mel
+        is zero after it. ``y_idx``: int speaker ids (B,) or float speaker
         embeddings (B, E)."""
         T = max_frames or self.max_frames
+        if self.block_type == "tacotron2":
+            mel, _, stop_logits = self.tac2(tokens, y_idx, tok_lens,
+                                            max_frames=T, train=False,
+                                            free_run=True)
+            stopped = torch.sigmoid(stop_logits) > 0.5
+            first = torch.argmax(stopped.to(torch.uint8), dim=1)
+            mel_lens = torch.where(stopped.any(dim=1), first + 1,
+                                   torch.full_like(first, T)).to(torch.int32)
+            return mel * length_mask(mel_lens, T), mel_lens
         out = self._network(tokens, torch.zeros_like(tokens), y_idx,
                             tok_lens, T, use_true_dur=False)
         return out[0], out[5]

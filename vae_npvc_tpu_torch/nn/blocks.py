@@ -280,23 +280,25 @@ class Conditions(nn.Module):
 
 class Dense(nn.Module):
     """``x @ kernel + bias`` in the compute dtype; ``kernel`` is (in, out)
-    as flax stores it."""
+    as flax stores it. ``bias=False`` is flax's ``use_bias=False``."""
 
-    def __init__(self, in_features, features, dtype=torch.float32):
+    def __init__(self, in_features, features, dtype=torch.float32,
+                 bias=True):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def init_(self, gen):
         with torch.no_grad():
             self.kernel.copy_(torch.randn(self.kernel.shape, generator=gen)
                               / math.sqrt(self.kernel.shape[0]))
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
-        return x.to(self.dtype) @ self.kernel.to(self.dtype) \
-            + self.bias.to(self.dtype)
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Conv(nn.Module):
@@ -304,22 +306,24 @@ class Conv(nn.Module):
     (K, in, out) as flax stores it, ``bias`` (out,), fp32. SAME pads
     ``(ceil(T / stride) - 1) * stride + (K - 1) * dilation + 1 - T`` frames,
     the smaller half on the left: a stride-2 conv of an even T pads 1 left
-    and 2 right, which ``Conv1d(padding=...)`` cannot express."""
+    and 2 right, which ``Conv1d(padding=...)`` cannot express. ``bias=False``
+    is flax's ``use_bias=False``; ``dtype`` the compute dtype."""
 
     def __init__(self, in_features, features, kernel_size, stride=1,
-                 dilation=1):
+                 dilation=1, bias=True, dtype=torch.float32):
         super().__init__()
-        self.stride, self.dilation = stride, dilation
+        self.stride, self.dilation, self.dtype = stride, dilation, dtype
         self.kernel = nn.Parameter(torch.empty(kernel_size, in_features,
                                                features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def init_(self, gen):
         k, cin, _ = self.kernel.shape
         with torch.no_grad():
             self.kernel.copy_(torch.randn(self.kernel.shape, generator=gen)
                               / math.sqrt(k * cin))
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
         T = x.shape[1]
@@ -327,8 +331,10 @@ class Conv(nn.Module):
         out = -(-T // self.stride)
         pad = max((out - 1) * self.stride + (k - 1) * self.dilation + 1 - T,
                   0)
-        xc = F.pad(x.float().transpose(1, 2), (pad // 2, pad - pad // 2))
-        y = F.conv1d(xc, self.kernel.permute(2, 1, 0), self.bias,
+        dt = self.dtype
+        xc = F.pad(x.to(dt).transpose(1, 2), (pad // 2, pad - pad // 2))
+        y = F.conv1d(xc, self.kernel.to(dt).permute(2, 1, 0),
+                     None if self.bias is None else self.bias.to(dt),
                      stride=self.stride, dilation=self.dilation)
         return y.transpose(1, 2)
 

@@ -3,11 +3,14 @@ the JAX package (``vae_npvc_tpu/train/__init__.py``)."""
 
 from __future__ import annotations
 
-from .trainer import Trainer  # noqa: F401
+from .gan import GanTrainer
+from .trainer import Trainer
 
 _REGISTRY = {
     "vae_npvc.trainer.basic": Trainer,
     "basic": Trainer,
+    "vae_npvc.trainer.wgan_gp": GanTrainer,
+    "wgan_gp": GanTrainer,
 }
 
 
@@ -17,10 +20,6 @@ def get_trainer_cls(trainer_type: str):
     cls = _REGISTRY.get(key) or _REGISTRY.get(short)
     if cls is not None:
         return cls
-    if short == "wgan_gp":
-        raise NotImplementedError(
-            f"trainer_type {trainer_type!r} is not ported to PyTorch yet "
-            "(ROADMAP Queue A, other families and trainers)")
     raise KeyError(f"unknown trainer_type {trainer_type!r}; known: "
                    f"{sorted(_REGISTRY)}")
 

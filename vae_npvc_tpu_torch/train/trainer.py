@@ -60,6 +60,10 @@ class Trainer:
     """Owns the model, the optimizer state and the train/valid steps on
     ``device`` (the GPU unless the caller asks for the CPU)."""
 
+    # bin/train may hand it chunks of K steps (``steps_per_call``) and the
+    # device-resident corpus
+    supports_steps_per_call = True
+
     def __init__(self, config, device="cuda", seed=None):
         self.config = config
         self.model = build_model(config, device)
@@ -121,12 +125,16 @@ class Trainer:
     def _to_device(self, batch):
         return tuple(torch.as_tensor(a, device=self.device) for a in batch)
 
-    def _begin_step(self):
+    def _reseed(self):
+        """Reseed the step's generators from ``(seed, host iteration)``."""
         step_seed = self.seed * 1_000_003 + self._host_iter
         self.gen.manual_seed(step_seed % (1 << 63))
         if self.level_gens is not None:
             for i, g in self.level_gens.items():
                 g.manual_seed((step_seed * 1_000_033 + i + 1) % (1 << 63))
+
+    def _begin_step(self):
+        self._reseed()
         if self._renorm is not None:
             self._renorm(self.model)
 
@@ -134,22 +142,31 @@ class Trainer:
         """The committed EMA states, by name."""
         return {n: q.state() for n, q in self.ema.items()}
 
-    def _loss_and_grad(self, batch, ema=None):
-        """Flat gradient, the pending EMA states (by name) and the detail
-        of one (micro)batch; ``ema`` chains microbatches."""
+    def _forward(self, batch, ema=None):
+        """The training forward ``(xhat, loss, detail)`` of one
+        (micro)batch and its pending EMA states by name (None without EMA
+        codebooks); ``ema`` chains microbatches."""
         kwargs = {}
         if self._hier:
             kwargs = {"ema_state": ema, "level_gens": self.level_gens}
         elif self.has_ema:
             kwargs = {"ema_state": None if ema is None else ema["quantizer"]}
-        _, loss, detail = self.model(*batch, True, gen=self.gen, **kwargs)
-        grads = torch.autograd.grad(loss, self.params)
-        flat_g = torch.cat([g.float().reshape(-1) for g in grads])
-        detail = {k: v.detach() for k, v in detail.items()}
+        out = self.model(*batch, True, gen=self.gen, **kwargs)
         pending = self.model.pending_ema if self.has_ema else None
         if pending is not None and not self._hier:
             pending = {"quantizer": pending}
-        return flat_g, pending, detail
+        return out, pending
+
+    def _flat_grad(self, loss):
+        grads = torch.autograd.grad(loss, self.params)
+        return torch.cat([g.float().reshape(-1) for g in grads])
+
+    def _loss_and_grad(self, batch, ema=None):
+        """Flat gradient, the pending EMA states (by name) and the detail
+        of one (micro)batch; ``ema`` chains microbatches."""
+        (_, loss, detail), pending = self._forward(batch, ema)
+        flat_g = self._flat_grad(loss)
+        return flat_g, pending, {k: v.detach() for k, v in detail.items()}
 
     def _train_step(self, batch):
         self._begin_step()
@@ -198,9 +215,12 @@ class Trainer:
         self.opt_state = opt_state
         for n, s in (new_ema or {}).items():
             self.ema[n].set_state(s)
-        self._host_iter += 1
+        self._count_step()
         detail["grad_norm"] = torch.sqrt(grad_sq)
         return detail
+
+    def _count_step(self):
+        self._host_iter += 1
 
     def train_step(self, batch):
         """One optimizer step. ``batch`` is the tuple of numpy arrays or

@@ -33,15 +33,20 @@ two. The vocoder trainer's ``optimizer_G``/``optimizer_D`` are such trees,
 one per network.
 
 The evaluation modules (the CTC recognizer, the character LSTM LM and the
-speaker embedder, ``eval/``) keep flax's names too, except the LM's LSTM:
-flax stores layer ``i`` as ``OptimizedLSTMCell_{i}`` with input kernels
-``ii/if/ig/io`` (in, hidden), no input bias, and recurrent kernels and
-biases ``hi/hf/hg/ho``; the port runs ``torch.nn.LSTM`` (``lstm.weight_ih_l{i}``
-(4 hidden, in) in the same gate order i, f, g, o, ``weight_hh_l{i}``,
-``bias_hh_l{i}``, and ``bias_ih_l{i}`` held at zero).
+speaker embedder, ``eval/``) keep flax's names too. An LSTM cell is where
+the two layouts differ: flax stores an ``OptimizedLSTMCell`` as input
+kernels ``ii/if/ig/io`` (in, hidden), no input bias, and recurrent kernels
+and biases ``hi/hf/hg/ho``; the port holds each cell as one
+``nn/rnn.LSTM`` layer at the same path, named by the model after the flax
+cell (the LM's ``OptimizedLSTMCell_{i}``, the Tacotron2 encoder's two
+directions, its decoder's ``dec_cell/lstm_{l}``), with ``weight_ih_l0``
+(4 hidden, in) in the same gate order i, f, g, o, ``weight_hh_l0`` and
+``bias_hh_l0`` (its zero input bias is not in the ``state_dict``).
 :func:`params_from_flax` and :func:`params_to_flax` convert such a ``params``
 tree and the module's ``state_dict``; :func:`load_flax_params` loads a tree
-into a module on its device.
+into a module on its device. :func:`from_jax_variables` and
+:func:`to_jax_variables` map the cells too, so the trainer's checkpoints
+carry them.
 """
 
 from __future__ import annotations
@@ -74,64 +79,63 @@ def _flatten(tree, prefix, out):
 
 def from_jax_variables(variables) -> "OrderedDict[str, torch.Tensor]":
     """``{"params": tree, "ema": tree}`` of numpy arrays -> ``state_dict``."""
-    flat = OrderedDict()
-    _flatten(variables.get("params", {}), "", flat)
+    flat = params_from_flax(variables.get("params", {}))
     ema = OrderedDict()
     _flatten(variables.get("ema", {}), "", ema)
     for k in ema:
         if k in flat or not is_ema_root(k.split(".")[0]):
             raise ValueError(f"unexpected ema variable {k!r}")
-    flat.update(ema)
-    return OrderedDict(
-        (k, torch.from_numpy(np.array(v, copy=True))) for k, v in flat.items())
+        flat[k] = torch.from_numpy(np.array(ema[k], copy=True))
+    return flat
 
 
 def to_jax_variables(state_dict):
     """Inverse of :func:`from_jax_variables`: ``state_dict`` ->
     ``{"params": tree, "ema": tree}`` of numpy arrays."""
-    out = {"params": {}, "ema": {}}
+    params, ema = OrderedDict(), {}
     for key, t in state_dict.items():
         parts = key.split(".")
-        node = out["ema" if is_ema_root(parts[0]) else "params"]
+        if not is_ema_root(parts[0]):
+            params[key] = t
+            continue
+        node = ema
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = t.detach().cpu().numpy()
-    return out
+    return {"params": params_to_flax(params, sort=False), "ema": ema}
 
 
 def _unflatten(flat, layout):
-    """Flat vector -> nested numpy tree; ``layout`` is ``[(dotted name,
-    shape), ...]`` in the vector's order."""
-    flat = flat.detach().cpu().numpy()
-    tree, off = {}, 0
+    """Flat vector -> nested numpy tree of the parameters' flax layout;
+    ``layout`` is ``[(dotted name, shape), ...]`` in the vector's order
+    (an LSTM's packed tensors become flax's per-gate leaves)."""
+    flat = flat.detach().cpu().clone()
+    tensors, off = OrderedDict(), 0
     for name, shape in layout:
         n = int(np.prod(shape, dtype=np.int64))
-        parts = name.split(".")
-        node = tree
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = flat[off:off + n].reshape(shape).copy()
+        tensors[name] = flat[off:off + n].reshape(shape)
         off += n
-    if off != flat.size:
-        raise ValueError(f"layout covers {off} of {flat.size} values")
-    return tree
+    if off != flat.numel():
+        raise ValueError(f"layout covers {off} of {flat.numel()} values")
+    return params_to_flax(tensors)
 
 
 def _flatten_like(tree, layout):
-    """Nested tree -> flat float32 tensor in ``layout`` order."""
-    flat = {}
-    _flatten(tree, "", flat)
-    if set(flat) != {name for name, _ in layout}:
+    """Nested tree of the flax layout -> flat float32 tensor in ``layout``
+    order."""
+    flat = params_from_flax(tree)
+    names = {name for name, _ in layout}
+    if names != set(flat):
         raise ValueError("optimizer moments do not match the parameters: "
-                         f"{sorted(set(flat) ^ {n for n, _ in layout})}")
+                         f"{sorted(names ^ set(flat))}")
     chunks = []
     for name, shape in layout:
-        a = np.asarray(flat[name], np.float32)
-        if a.shape != tuple(shape):
-            raise ValueError(f"{name}: moment shape {a.shape}, parameter "
-                             f"shape {tuple(shape)}")
+        a = flat[name].float()
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{name}: moment shape {tuple(a.shape)}, "
+                             f"parameter shape {tuple(shape)}")
         chunks.append(a.reshape(-1))
-    return torch.from_numpy(np.concatenate(chunks))
+    return torch.cat(chunks)
 
 
 def optimizer_to_jax(opt_state, layout, clips, decoupled=False):
@@ -169,30 +173,36 @@ def optimizer_from_jax(tree, layout, clips, scheduled, device,
             _flatten_like(inner["nu"], layout).to(device), sched)
 
 
-_LSTM_CELL = re.compile(r"OptimizedLSTMCell_(\d+)")
-_LSTM_KEY = re.compile(r"lstm\.(weight_ih|weight_hh|bias_ih|bias_hh)_l(\d+)")
+# an LSTM layer's tensors (``nn/rnn.LSTM``): ``{cell path}.{kind}_l0``
+_LSTM_KEY = re.compile(r"(.+)\.(weight_ih|weight_hh|bias_hh)_l0")
 _GATES = "ifgo"
+_CELL_LEAVES = {f"{kind}{g}" for kind in "ih" for g in _GATES}
 
 
-def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
-    """A flax ``params`` tree of numpy arrays -> ``state_dict`` of an
-    evaluation module; ``OptimizedLSTMCell_{i}`` becomes ``lstm.*_l{i}``."""
+def _is_flax_cell(node):
+    return isinstance(node, dict) and set(node) == _CELL_LEAVES
+
+
+def params_from_flax(tree, path=()) -> "OrderedDict[str, torch.Tensor]":
+    """A flax ``params`` tree of numpy arrays -> ``state_dict``; each
+    ``OptimizedLSTMCell`` becomes the packed tensors of the LSTM layer at
+    its path."""
     flat = OrderedDict()
     for name, sub in tree.items():
-        m = _LSTM_CELL.fullmatch(name)
-        if m is None:
-            _flatten({name: sub}, "", flat)
-            continue
-        i = m.group(1)
-
-        def cat(kind, leaf):
-            return np.concatenate([np.asarray(sub[f"{kind}{g}"][leaf])
-                                   for g in _GATES], axis=-1)
-        flat[f"lstm.weight_ih_l{i}"] = cat("i", "kernel").T
-        flat[f"lstm.weight_hh_l{i}"] = cat("h", "kernel").T
-        bias = cat("h", "bias")
-        flat[f"lstm.bias_ih_l{i}"] = np.zeros_like(bias)
-        flat[f"lstm.bias_hh_l{i}"] = bias
+        key = ".".join(path + (name,))
+        if not isinstance(sub, dict):
+            flat[key] = sub
+        elif not _is_flax_cell(sub):
+            flat.update(params_from_flax(sub, path + (name,)))
+        else:
+            def cat(kind, leaf):
+                return np.concatenate([np.asarray(sub[f"{kind}{g}"][leaf])
+                                       for g in _GATES], axis=-1)
+            flat[f"{key}.weight_ih_l0"] = cat("i", "kernel").T
+            flat[f"{key}.weight_hh_l0"] = cat("h", "kernel").T
+            flat[f"{key}.bias_hh_l0"] = cat("h", "bias")
+    if path:
+        return flat
     return OrderedDict((k, torch.from_numpy(np.array(v, copy=True)))
                        for k, v in flat.items())
 
@@ -202,34 +212,32 @@ def _sorted_tree(node):
             else node[k] for k in sorted(node)}
 
 
-def params_to_flax(state_dict):
+def params_to_flax(state_dict, sort=True):
     """Inverse of :func:`params_from_flax`: ``state_dict`` -> flax
-    ``params`` tree of numpy arrays, keys in flax's sorted order. Raises if
-    an LSTM input bias is not zero (flax's cell has none)."""
+    ``params`` tree of numpy arrays, keys in flax's sorted order (in the
+    ``state_dict``'s with ``sort=False``)."""
     tree, cells = {}, {}
     for key, t in state_dict.items():
         a = t.detach().cpu().numpy()
         m = _LSTM_KEY.fullmatch(key)
-        if m is not None:
-            cells.setdefault(m.group(2), {})[m.group(1)] = a
-            continue
-        parts = key.split(".")
+        path = tuple((m.group(1) if m else key).split("."))
         node = tree
-        for part in parts[:-1]:
+        for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = a
-    for i, c in cells.items():
-        if np.any(c["bias_ih"]):
-            raise ValueError(f"lstm.bias_ih_l{i} is not zero: flax's "
-                             "OptimizedLSTMCell has no input bias")
-        cell = {}
-        for kind, w in (("i", c["weight_ih"]), ("h", c["weight_hh"])):
+        if m is None:
+            node[path[-1]] = a
+        else:
+            cells.setdefault(path, node.setdefault(path[-1], {}))[
+                m.group(2)] = a
+    for c in cells.values():
+        w_ih, w_hh, b_hh = (c.pop(k) for k in ("weight_ih", "weight_hh",
+                                                "bias_hh"))
+        for kind, w in (("i", w_ih), ("h", w_hh)):
             for g, part in zip(_GATES, np.split(w.T, 4, axis=1)):
-                cell[f"{kind}{g}"] = {"kernel": np.ascontiguousarray(part)}
-        for g, part in zip(_GATES, np.split(c["bias_hh"], 4)):
-            cell[f"h{g}"]["bias"] = part.copy()
-        tree[f"OptimizedLSTMCell_{i}"] = cell
-    return _sorted_tree(tree)
+                c[f"{kind}{g}"] = {"kernel": np.ascontiguousarray(part)}
+        for g, part in zip(_GATES, np.split(b_hh, 4)):
+            c[f"h{g}"]["bias"] = part.copy()
+    return _sorted_tree(tree) if sort else tree
 
 
 def load_flax_params(module, tree):
