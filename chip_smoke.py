@@ -11,7 +11,13 @@ golden fixture, then serves conversion requests over HTTP with the flagship
 flat EMA VQ-VAE (``egs/vcc20/vae1/conf/train_vqvae.yaml`` widths, bf16,
 seeded random weights), checks the kernels ran on that path, and holds the
 served weights in fp32 at a full 512-frame batch on the card against the
-same weights on the CPU. Then the training path: every parameter gradient
+same weights on the CPU. On the same engine, ``/stream``
+(``serve/streaming.py``): eight requests of 2-10 s from four clients as
+ragged chunked-transfer bodies, exact and chunked (``?chunk=128&
+lookahead=128``), one at 16 kHz, the exact stream of a mel-only engine
+against ``/convert?mel=1`` (K1 ids and mel bit for bit) and the Griffin-Lim
+stream against ``/convert``, launches per ``infer`` counted (``stream``).
+Then the training path: every parameter gradient
 of the full-width model in fp32 on the card against the CPU
 (``grad_fp32``), the port's ``Trainer`` against the committed JAX training
 fixture (``train_golden``), and some twenty optimizer steps of the recipe's
@@ -32,7 +38,11 @@ optimizer steps at B = 96, T = 256 on a synthetic corpus staged on the
 device with the launch counts per step (``hier_train``), a
 ``ConversionEngine`` on the trained checkpoint answering eight requests
 (``hier_serve``), and vqvae2a / vqvae2b at test width against the CPU
-(``hier_small``). Then the recipes' offline path (``offline``): on a
+(``hier_small``). The trained flagship and vqvae2 checkpoints go through
+``bin/export_checkpoint`` to the reference toolkit's ``.pt`` and back
+through ``bin/convert_checkpoint`` (trees bit for bit; the converted
+flagship serves the same ids and mel, one ``/stream`` request:
+``ckpt_bridge``). Then the recipes' offline path (``offline``): on a
 synthetic corpus of 18 utterances of 1-10 s, ``make_fbank``, CMVN and
 speaker ids, ``bin/decode`` over trials with the flagship flat model and
 its ``--all-targets`` sweep with the trained hierarchy, de-normalization
@@ -56,8 +66,9 @@ own): the port's ``PwgTrainer`` against the committed JAX fixture
 (``voc_grad_fp32``), sixteen steps at B = 8 x 24,576 samples on a synthetic
 corpus staged on the device (``voc_train``), a ``ConversionEngine`` with
 ``vocoder="jpwg"`` answering eight requests (``voc_serve``, the flat
-model's K1/K2 launches counted) and ``jpwg_decode_scp`` over sixteen
-utterances (``voc_offline``). Last, stage 7 of the vae1 recipe, the
+model's K1/K2 launches counted), a streaming session on that engine
+against one-shot synthesis (``voc_stream``) and ``jpwg_decode_scp`` over
+sixteen utterances (``voc_offline``). Last, stage 7 of the vae1 recipe, the
 objective evaluation: the port's CTC recognizer and character LSTM LM
 against the committed JAX fixture (``eval_golden``), ``bin/eval_asr`` with a
 width-192 transformer recognizer (4 heads of 48), beam 10 and the neural
@@ -1121,33 +1132,39 @@ def _speechlike(n, fs, seed):
         .astype(np.float32)
 
 
-def phase_serve(torch):
+def _cmvn_stats(D=80):
+    """Log-mel-like CMVN stats (mean -3, variance 1, count 1,000)."""
+    stats = np.zeros((2, D + 1), np.float64)
+    stats[0, :-1] = -3.0 * 1000
+    stats[0, -1] = 1000
+    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
+    return stats
+
+
+def phase_serve(torch, root):
+    """Ten ``/convert`` requests to the flagship engine (Griffin-Lim), one
+    batch and one request profiled, the served weights in fp32 against the
+    CPU, then :func:`phase_stream` on the same engine. Returns the K1/K2
+    launches of the ten requests and the stream phase's summary."""
     from scipy.io import wavfile
 
-    from vae_npvc_tpu_torch.bin.serve import serve
     from vae_npvc_tpu_torch.ops.groupnorm import fused_group_norm
     from vae_npvc_tpu_torch.ops.vq_fused import vq_fused
     from vae_npvc_tpu_torch.serve import ConversionEngine
 
-    fs, shift, D = 24000, 256, 80
-    stats = np.zeros((2, D + 1), np.float64)   # log-mel-like CMVN stats
-    stats[0, :-1] = -3.0 * 1000
-    stats[0, -1] = 1000
-    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "flagship.msgpack"
-        _random_checkpoint(torch, ckpt)
-        engine = ConversionEngine(FLAGSHIP, ckpt, stats, vocoder="gl",
-                                  device="cuda")
+    fs, shift = 24000, 256
+    stats = _cmvn_stats()
+    root.mkdir(parents=True, exist_ok=True)
+    ckpt = root / "flagship.msgpack"
+    _random_checkpoint(torch, ckpt)
+    engine = ConversionEngine(FLAGSHIP, ckpt, stats, vocoder="gl",
+                              device="cuda")
     httpd = None
-    thread = None
     try:
         t0 = time.monotonic()
         engine.warmup(2)
         warm_s = time.monotonic() - t0
-        httpd = serve(engine, "127.0.0.1", 0)
-        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-        thread.start()
+        httpd, thread, _ = _serving(engine)
         base = f"http://127.0.0.1:{httpd.server_address[1]}"
         durations = np.linspace(1.0, 4.0, 10)
         wavs = [_speechlike(int(d * fs), fs, i)
@@ -1201,14 +1218,399 @@ def phase_serve(torch):
               "launches": launches})
         phase_profile(torch, engine, wavs[-1])
         phase_wide_fp32(torch, engine.converter.model.state_dict())
-        return launches
+        stream = phase_stream(torch, engine, httpd.server_address[1], ckpt,
+                              stats)
+        return launches, stream
     finally:
         if httpd is not None:
-            httpd.shutdown()
-            httpd.server_close()
-        if thread is not None:
-            thread.join(timeout=30)
+            _stop(httpd, thread)
         engine.close()
+
+
+# /stream on the flagship engine: eight requests of 2-10 s from four clients
+# as ragged chunked-transfer bodies of raw PCM (i16 and f32), one at 16 kHz
+# (resampled at finish), in exact mode and in the chunked mode of
+# docs/SERVING.md's recommended row (?chunk=128&lookahead=128)
+STREAM_SECONDS = np.linspace(2.0, 10.0, 8)
+STREAM_RATES = [24000, 24000, 24000, 16000, 24000, 24000, 24000, 24000]
+STREAM_CHUNK, STREAM_LOOKAHEAD, STREAM_CLIENTS = 128, 128, 4
+STREAM_EXACT_CHECKS = (0, 3, 7)     # one at a time on the mel-only engine
+
+
+def _stream_body(x, fmt, seed):
+    """Raw PCM of ``x`` in ragged pieces (1 byte to 16 KiB, so pieces
+    split samples), and the float32 signal the server decodes from it."""
+    if fmt == "i16":
+        pcm = np.clip(np.round(x * 32767), -32768, 32767).astype("<i2")
+        raw, decoded = pcm.tobytes(), pcm.astype(np.float32) * (1 / 32768.0)
+    else:
+        raw, decoded = x.astype("<f4").tobytes(), x.astype(np.float32)
+    rng = np.random.default_rng(seed)
+    pieces, i = [], 0
+    while i < len(raw):
+        n = int(rng.choice([1, 7, 333, 1024, 4801, 16384]))
+        pieces.append(raw[i:i + n])
+        i += n
+    return pieces, decoded
+
+
+def _post_stream(port, query, pieces, timeout=600):
+    """POST ``/stream?query`` with a chunked-transfer body: ``(status,
+    content type, body, s to the first audio byte after the WAV header or
+    None, s to the whole answer)``, timed from the request's start."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", f"/stream?{query}", body=iter(pieces))
+        resp = conn.getresponse()
+        ctype = resp.getheader("Content-Type")
+        first = None
+        if ctype == "audio/wav":
+            body = resp.read(46)          # the 44-byte header, one sample
+            first = time.perf_counter() - t0
+            body += resp.read()
+        else:
+            body = resp.read()
+        return resp.status, ctype, body, first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _post_convert(port, query, signal, sr):
+    """POST ``/convert?query`` with ``signal`` as a float32 WAV (the server
+    decodes the same samples as from a stream body)."""
+    from scipy.io import wavfile
+
+    buf = io.BytesIO()
+    wavfile.write(buf, sr, signal.astype(np.float32))
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/convert?{query}",
+                                 data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.read()
+
+
+def _serving(engine):
+    """``(httpd, thread, port)``: ``engine`` on an ephemeral port."""
+    from vae_npvc_tpu_torch.bin.serve import serve
+
+    httpd = serve(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, thread, httpd.server_address[1]
+
+
+def _stop(httpd, thread):
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(timeout=30)
+    check(not thread.is_alive(), "an HTTP server thread did not stop")
+
+
+def phase_stream(torch, engine, port, ckpt, stats):
+    """``/stream`` (``serve/streaming.py``) on the serve phase's flagship
+    engine (Griffin-Lim, bf16) and on a mel-only engine of the same
+    checkpoint. One request at a time: the mel-only engine's exact stream
+    against ``/convert?mel=1`` of the same samples (mel bit for bit, K1 ids
+    equal) and the Griffin-Lim stream's PCM against ``/convert``'s. Then
+    the eight requests from four clients, exact and chunked, with the K1/K2
+    launches against the batcher's ``infer`` calls and the items against
+    one per exact request and ceil(T / C) per chunked one; the time to the
+    first audio byte and to the whole answer. Returns the launches and
+    calls of both runs."""
+    from scipy.io import wavfile
+
+    from vae_npvc_tpu_torch.data import features
+    from vae_npvc_tpu_torch.serve import ConversionEngine
+
+    fs, shift = engine.fs, engine.n_shift
+    n = len(STREAM_SECONDS)
+    fmts = ["i16" if i % 2 == 0 else "f32" for i in range(n)]
+    bodies = [_stream_body(_speechlike(int(d * r), r, 70 + i), fmts[i],
+                           170 + i)
+              for i, (d, r) in enumerate(zip(STREAM_SECONDS, STREAM_RATES))]
+    frames = [features.num_frames(
+        features.resample(b[1], r, fs).size, shift)
+        for b, r in zip(bodies, STREAM_RATES)]
+
+    def query(i, mode=""):
+        return (f"target={(5 * i) % 117}&sr={STREAM_RATES[i]}"
+                f"&format={fmts[i]}{mode}")
+
+    chunked = f"&chunk={STREAM_CHUNK}&lookahead={STREAM_LOOKAHEAD}"
+    mel_engine = ConversionEngine(FLAGSHIP, ckpt, stats, vocoder="none",
+                                  device="cuda")
+    httpd, thread, mel_port = _serving(mel_engine)
+    exact = []
+    try:
+        for i in STREAM_EXACT_CHECKS:
+            want, want_ids = _k1_ids(lambda: np.load(io.BytesIO(
+                _post_convert(mel_port, f"target={(5 * i) % 117}&mel=1",
+                              bodies[i][1], STREAM_RATES[i]))))
+            (status, ctype, body, _, total), ids = _k1_ids(
+                lambda: _post_stream(mel_port, query(i), bodies[i][0]))
+            check(status == 200 and ctype == "application/octet-stream",
+                  f"stream: mel-only request {i}: {status} {ctype}")
+            got = np.load(io.BytesIO(body))
+            check(got.shape == want.shape == (frames[i], 80),
+                  f"stream: request {i}: {got.shape}, /convert "
+                  f"{want.shape}, {frames[i]} frames")
+            check(len(ids) == len(want_ids) == 1
+                  and torch.equal(ids[0], want_ids[0]),
+                  f"stream: request {i}: K1 ids differ from /convert's")
+            check(np.array_equal(got, want), f"stream: request {i}: mel "
+                  f"differs from /convert?mel=1 by "
+                  f"{float(np.abs(got - want).max())}")
+            exact.append({"request": i, "frames": frames[i],
+                          "sr": STREAM_RATES[i], "format": fmts[i],
+                          "mel_bit_equal": True, "k1_ids_equal": True,
+                          "s": total})
+        # the chunked mode's deviation from exact conversion (statistics
+        # over prefix + lookahead frames only)
+        i = STREAM_EXACT_CHECKS[-1]
+        status, _, body, _, _ = _post_stream(mel_port, query(i, chunked),
+                                             bodies[i][0])
+        approx = np.load(io.BytesIO(body))
+        want = np.load(io.BytesIO(_post_convert(
+            mel_port, f"target={(5 * i) % 117}&mel=1", bodies[i][1],
+            STREAM_RATES[i])))
+        check(status == 200 and approx.shape == want.shape
+              and bool(np.isfinite(approx).all()),
+              f"stream: chunked mel-only request: {approx.shape}")
+        chunked_dev = float(np.sqrt(np.mean((approx - want) ** 2))
+                            / np.sqrt(np.mean(want ** 2)))
+        check(chunked_dev < 1.0, f"stream: chunked deviation {chunked_dev}")
+        tail = STREAM_CHUNK // 2     # the last chunk sees the utterance
+        tail_err = float(np.abs(approx[-tail:] - want[-tail:]).max())
+    finally:
+        _stop(httpd, thread)
+        mel_engine.close()
+
+    # Griffin-Lim: the streamed PCM against /convert's wav
+    i = 1
+    _, want = wavfile.read(io.BytesIO(_post_convert(
+        port, f"target={(5 * i) % 117}", bodies[i][1], STREAM_RATES[i])))
+    status, ctype, body, _, _ = _post_stream(port, query(i), bodies[i][0])
+    got = np.frombuffer(body[44:], "<i2")
+    check(status == 200 and ctype == "audio/wav" and body[:4] == b"RIFF"
+          and np.array_equal(got, want),
+          f"stream: Griffin-Lim PCM differs from /convert's "
+          f"({got.shape} vs {want.shape})")
+
+    def run(mode):
+        calls0, items0 = engine.batcher.calls, engine.batcher.items
+        _zero_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(STREAM_CLIENTS) as ex:
+            res = list(ex.map(lambda i: _post_stream(
+                port, query(i, mode), bodies[i][0]), range(n)))
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        calls = engine.batcher.calls - calls0
+        items = engine.batcher.items - items0
+        for i, (status, ctype, body, _, _) in enumerate(res):
+            pcm = np.frombuffer(body[44:], "<i2")
+            check(status == 200 and ctype == "audio/wav"
+                  and body[:4] == b"RIFF", f"stream: request {i}: {status}")
+            check(pcm.size == frames[i] * shift and np.abs(pcm).max() > 0,
+                  f"stream: request {i}: {pcm.size} samples, want "
+                  f"{frames[i] * shift}, or silent")
+        check({k: launches[k] for k in FLAT_LAUNCHES}
+              == {k: v * calls for k, v in FLAT_LAUNCHES.items()},
+              f"stream{mode}: launches {launches} over {calls} infer calls")
+        first = [r[3] for r in res]
+        total = [r[4] for r in res]
+        return {"wall_s": wall, "infer_calls": calls, "infer_items": items,
+                "launches": launches,
+                "first_audio_byte_s": first, "total_s": total,
+                "first_audio_byte_s_median": float(np.median(first)),
+                "total_s_median": float(np.median(total)),
+                "total_s_max": float(np.max(total)),
+                "audio_s_per_wall_s": float(sum(
+                    f * shift for f in frames) / fs / wall)}
+
+    run("")                                   # warm the shapes
+    exact_run = run("")
+    check(exact_run["infer_items"] == n,
+          f"stream: {exact_run['infer_items']} infer items for {n} exact "
+          "requests")
+    chunked_run = run(chunked)
+    want_items = sum(-(-T // STREAM_CHUNK) for T in frames)
+    check(chunked_run["infer_items"] == want_items,
+          f"stream: {chunked_run['infer_items']} infer items in chunked "
+          f"mode, want sum(ceil(T / C)) = {want_items}")
+    emit({"phase": "stream", "requests": n, "clients": STREAM_CLIENTS,
+          "seconds": [float(d) for d in STREAM_SECONDS],
+          "rates": STREAM_RATES, "formats": fmts, "frames": frames,
+          "exact_checks": exact,
+          "chunk": STREAM_CHUNK, "lookahead": STREAM_LOOKAHEAD,
+          "chunked_mel_rms_dev_over_rms": chunked_dev,
+          "chunked_last_rows_max_abs_err": tail_err,
+          "griffin_lim_pcm_equal_convert": True,
+          "exact": exact_run, "chunked": chunked_run,
+          "chunked_items_want": want_items})
+    return {"exact": exact_run, "chunked": chunked_run}
+
+
+def phase_voc_stream(torch, engine):
+    """A ``StreamingSession`` on the ``jpwg`` engine of ``voc_serve``: a
+    6.5 s utterance fed in ragged pieces, its chunks (``bucket_frames``
+    frames, a halo of the receptive field) against the engine's one-shot
+    synthesis on the same canvas and noise within ``VOC_TOL`` of the peak;
+    the time to the first chunk against the time to the whole; the same
+    request over HTTP ``/stream``, PCM within one LSB of the session's."""
+    from vae_npvc_tpu_torch.serve import StreamingSession
+
+    fs, hop = engine.fs, engine._voc.hop
+    x = _speechlike(int(6.5 * fs), fs, 77)
+    pieces, decoded = _stream_body(x, "f32", 78)
+    t0 = time.perf_counter()
+    want, _ = engine.convert(decoded, fs, 11)
+    one_shot_s = time.perf_counter() - t0
+    calls0 = engine.batcher.calls
+    _zero_counts()
+    session = StreamingSession(engine, 11, fs)
+    ends = np.cumsum([len(p) for p in pieces]) // 4    # the pieces' samples
+    for a, b in zip(np.r_[0, ends[:-1]], ends):
+        session.feed(decoded[a:b])
+    t0 = time.perf_counter()
+    chunks, first = [], None
+    for off, w in session.finish():
+        if first is None:
+            first = time.perf_counter() - t0
+        chunks.append((off, w))
+    whole = time.perf_counter() - t0
+    launches = _read_counts()
+    calls = engine.batcher.calls - calls0
+    step = engine.bucket_frames * hop
+    check([off for off, _ in chunks] == [k * step
+                                         for k in range(len(chunks))]
+          and len(chunks) > 1, f"voc_stream: chunk offsets "
+          f"{[off for off, _ in chunks]}")
+    got = np.concatenate([w for _, w in chunks])
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    peak = float(np.abs(want).max())
+    check(err <= VOC_TOL * peak, f"voc_stream: streamed wav {got.shape} "
+          f"differs from one-shot {want.shape} by {err} (peak {peak})")
+    check({k: launches[k] for k in FLAT_LAUNCHES}
+          == {k: v * calls for k, v in FLAT_LAUNCHES.items()},
+          f"voc_stream: launches {launches} over {calls} infer calls")
+    httpd, thread, port = _serving(engine)
+    try:
+        status, ctype, body, http_first, http_total = _post_stream(
+            port, f"target=11&sr={fs}&format=f32", pieces)
+    finally:
+        _stop(httpd, thread)
+    pcm = np.frombuffer(body[44:], "<i2").astype(np.int32)
+    mine = (np.clip(got, -1.0, 1.0) * 32767.0).astype(np.int16)
+    check(status == 200 and ctype == "audio/wav" and pcm.shape == mine.shape
+          and int(np.abs(pcm - mine).max()) <= 1,
+          f"voc_stream: HTTP /stream PCM {pcm.shape} against the session's")
+    emit({"phase": "voc_stream", "seconds": 6.5,
+          "frames": int(got.size // hop), "chunks": len(chunks),
+          "chunk_frames": engine.bucket_frames,
+          "halo_frames": engine._voc.halo,
+          "first_chunk_s": first, "whole_s": whole,
+          "one_shot_convert_s": one_shot_s,
+          "http_first_audio_byte_s": http_first, "http_total_s": http_total,
+          "max_abs_err_vs_one_shot": err, "peak": peak,
+          "tol_of_peak": VOC_TOL, "infer_calls": calls,
+          "launches": launches})
+    return launches, calls
+
+
+def phase_ckpt_bridge(torch, flat_ckpt, hier_ckpt, root):
+    """The reference-PyTorch checkpoint bridge at full width: the ``train``
+    phase's flagship checkpoint and the ``hier`` phase's vqvae2 checkpoint
+    through ``bin/export_checkpoint`` and back through
+    ``bin/convert_checkpoint`` (model and EMA trees bit for bit); a
+    ``ConversionEngine`` on the converted flagship against one on the
+    original (K1 ids and mel equal) and one ``/stream`` request served from
+    it. Returns the K1/K2 launches and the ``infer`` calls."""
+    from vae_npvc_tpu_torch.bin import convert_checkpoint, export_checkpoint
+    from vae_npvc_tpu_torch.serve import ConversionEngine
+    from vae_npvc_tpu_torch.utils import msgpack_io
+
+    root.mkdir(parents=True, exist_ok=True)
+    trees = {}
+    for name, ck, cfg in (("flagship", flat_ckpt, dict(FLAGSHIP, **TRAIN)),
+                          ("vqvae2", hier_ckpt, HIER)):
+        conf = root / f"{name}.json"
+        conf.write_text(json.dumps(cfg))
+        pt, back = root / f"{name}.pt", root / f"{name}.msgpack"
+        t0 = time.perf_counter()
+        _quiet(export_checkpoint.main,
+               [str(ck), "-c", str(conf), "-o", str(pt)])
+        export_s = time.perf_counter() - t0
+        state = torch.load(pt, map_location="cpu", weights_only=True)
+        t0 = time.perf_counter()
+        _quiet(convert_checkpoint.main,
+               [str(pt), str(back), "-c", str(conf)])
+        convert_s = time.perf_counter() - t0
+        a = msgpack_io.msgpack_restore(ck.read_bytes())
+        b = msgpack_io.msgpack_restore(back.read_bytes())
+        check(a["iteration"] == b["iteration"] == state["iteration"],
+              f"ckpt_bridge: {name}: iterations {a['iteration']}, "
+              f"{b['iteration']}")
+        n_leaves = 0
+        for part in ("model", "ema"):
+            la, lb = _leaves(a.get(part, {})), _leaves(b.get(part, {}))
+            check(la.keys() == lb.keys(), f"ckpt_bridge: {name} {part}: "
+                  f"keys {sorted(la.keys() ^ lb.keys())[:5]}")
+            for k, v in la.items():
+                check(v.dtype == lb[k].dtype and np.array_equal(v, lb[k]),
+                      f"ckpt_bridge: {name} {part}/{k} changed")
+            n_leaves += len(la)
+        init = [k for k in state["model"] if k.endswith(".emb_init")]
+        check(all(state["model"][k].dtype == torch.bool for k in init),
+              f"ckpt_bridge: {name}: emb_init not bool")
+        trees[name] = {"state_dict_entries": len(state["model"]),
+                       "leaves_equal": n_leaves, "emb_init": len(init),
+                       "pt_mb": pt.stat().st_size / 1e6,
+                       "export_s": export_s, "convert_s": convert_s}
+
+    stats = _cmvn_stats()
+    fs = 24000
+    x = _speechlike(int(5.2 * fs), fs, 88)
+    orig = ConversionEngine(FLAGSHIP, flat_ckpt, stats, vocoder="none",
+                            device="cuda")
+    conv = ConversionEngine(FLAGSHIP, root / "flagship.msgpack", stats,
+                            vocoder="none", device="cuda")
+    try:
+        _zero_counts()
+        want, want_ids = _k1_ids(
+            lambda: orig.convert(x, fs, 17, return_mel=True)[0])
+        got, ids = _k1_ids(lambda: conv.convert(x, fs, 17, return_mel=True)[0])
+        check(len(ids) == len(want_ids) == 1
+              and torch.equal(ids[0], want_ids[0])
+              and np.array_equal(got, want),
+              "ckpt_bridge: the converted flagship's ids or mel differ")
+        httpd, thread, port = _serving(conv)
+        try:
+            pieces, _ = _stream_body(x, "f32", 89)
+            status, _, body, _, stream_s = _post_stream(
+                port, f"target=17&sr={fs}&format=f32", pieces)
+        finally:
+            _stop(httpd, thread)
+        streamed = np.load(io.BytesIO(body))
+        check(status == 200 and np.array_equal(streamed, got),
+              "ckpt_bridge: /stream on the converted checkpoint differs "
+              "from its /convert mel")
+        launches = _read_counts()
+        calls = orig.batcher.calls + conv.batcher.calls
+        check({k: launches[k] for k in FLAT_LAUNCHES}
+              == {k: v * calls for k, v in FLAT_LAUNCHES.items()},
+              f"ckpt_bridge: launches {launches} over {calls} infer calls")
+    finally:
+        orig.close()
+        conv.close()
+    emit({"phase": "ckpt_bridge", "checkpoints": trees,
+          "converted_flagship_ids_and_mel_equal": True,
+          "stream_request_s": stream_s, "infer_calls": calls,
+          "launches": launches})
+    return launches, calls
 
 
 def _kernel_class(name):
@@ -1528,12 +1930,13 @@ def _synthetic_corpus(root, n_utts, seed):
         "".join(f"utt{i:04d} {s}\n" for i, s in enumerate(spks)))
 
 
-def phase_train(torch):
+def phase_train(torch, keep):
     """The recipe's model at full width, bf16, B = 128, T = 256 through
     ``Trainer`` on a synthetic corpus staged on the device: the lazy
     codebook init and ``TRAIN_STEPS`` optimizer steps in the recipe's
     chunks of 8, with the kernels' launch counts, a save/load round trip
-    and one profiled step. Returns the launch counts of the run."""
+    and one profiled step. The checkpoint is copied to ``keep``. Returns
+    the launch counts of the run."""
     from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
                                                  batch_iterator,
                                                  index_iterator)
@@ -1612,6 +2015,7 @@ def phase_train(torch):
         # save -> load into a second trainer -> the same next step
         ckpt = root / f"iter.{TRAIN_STEPS}"
         tr.save_checkpoint(ckpt)
+        Path(keep).write_bytes(ckpt.read_bytes())
         other = build_trainer(cfg, device="cuda")
         check(other.load_checkpoint(ckpt) == TRAIN_STEPS, "train: iteration")
         other.stage_dataset(dataset, B)
@@ -2324,10 +2728,7 @@ def _hier_serve(torch, ckpt):
     from vae_npvc_tpu_torch.serve import ConversionEngine
 
     fs, shift, D = 24000, 256, 80
-    stats = np.zeros((2, D + 1), np.float64)
-    stats[0, :-1] = -3.0 * 1000
-    stats[0, -1] = 1000
-    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
+    stats = _cmvn_stats()
     engine = ConversionEngine(HIER, ckpt, stats, vocoder="gl", device="cuda")
     try:
         t0 = time.monotonic()
@@ -3083,7 +3484,6 @@ def phase_bundle(torch, off, hier_ckpt):
     from scipy.io import wavfile
 
     from vae_npvc_tpu_torch.bin import bundle_check
-    from vae_npvc_tpu_torch.bin.serve import serve
     from vae_npvc_tpu_torch.data import kaldi_io
     from vae_npvc_tpu_torch.infer.convert import Converter
     from vae_npvc_tpu_torch.infer.export_serving import ServingBundle
@@ -3258,19 +3658,14 @@ def phase_bundle(torch, off, hier_ckpt):
         profiles[who].append(_profiled(torch, lambda: fn(x, y, n)))
 
     # recipe serving through the bundle: HTTP /convert
-    fs, shift, D = 24000, 256, 80
-    stats = np.zeros((2, D + 1), np.float64)
-    stats[0, :-1] = -3.0 * 1000
-    stats[0, -1] = 1000
-    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
+    fs, shift = 24000, 256
+    stats = _cmvn_stats()
     engine = ConversionEngine(None, None, stats, bundle=root / "bundle_fp32",
                               vocoder="gl", device="cuda")
-    httpd = thread = None
+    httpd = None
     try:
         engine.warmup(2)
-        httpd = serve(engine, "127.0.0.1", 0)
-        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-        thread.start()
+        httpd, thread, _ = _serving(engine)
         base = f"http://127.0.0.1:{httpd.server_address[1]}"
         durations = np.linspace(1.0, 4.0, BUNDLE_REQUESTS)
         wavs = [_speechlike(int(d * fs), fs, 40 + i)
@@ -3305,10 +3700,7 @@ def phase_bundle(torch, off, hier_ckpt):
               f"{http_counts}")
     finally:
         if httpd is not None:
-            httpd.shutdown()
-            httpd.server_close()
-        if thread is not None:
-            thread.join(timeout=30)
+            _stop(httpd, thread)
         engine.close()
 
     step("profiles_and_http")
@@ -3908,17 +4300,15 @@ def phase_voc_serve(torch, root, voc_ckpt):
     (bf16, seeded weights) and ``voc_train``'s vocoder answering
     ``VOC_REQUESTS`` requests of 1-4 s from four threads; one 512-frame
     synthesis profiled; the served wav against the generator run directly
-    on the same canvas and noise. Returns the K1/K2 launches per ``infer``.
-    """
+    on the same canvas and noise; then :func:`phase_voc_stream` on the same
+    engine. Returns the K1/K2 launches and ``infer`` calls of the requests
+    and of the stream phase."""
     from vae_npvc_tpu_torch.serve import ConversionEngine
 
     fs, shift, D = 24000, 256, 80
     ckpt = root / "voc_flat.ckpt"
     _random_checkpoint(torch, ckpt, seed=3)
-    stats = np.zeros((2, D + 1), np.float64)
-    stats[0, :-1] = -3.0 * 1000
-    stats[0, -1] = 1000
-    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
+    stats = _cmvn_stats()
     engine = ConversionEngine(FLAGSHIP, ckpt, stats, vocoder="jpwg",
                               voc_config=_voc_config_file(root),
                               voc_checkpoint=voc_ckpt, seed=5,
@@ -3992,7 +4382,7 @@ def phase_voc_serve(torch, root, voc_ckpt):
                                        for k in FLAT_LAUNCHES},
               "served_wav_err": served_err, "served_wav_peak": served_peak,
               "synthesis_512_frames_profile": profile})
-        return launches, calls
+        return (launches, calls), phase_voc_stream(torch, engine)
     finally:
         engine.close()
 
@@ -4074,8 +4464,9 @@ def phase_voc_offline(torch, root, voc_ckpt):
 
 
 def phase_voc(torch, root):
-    """The vocoder slice: golden, gradients, training, serving, offline.
-    Returns the flat model's launches and ``infer`` calls in serving."""
+    """The vocoder slice: golden, gradients, training, serving, streaming,
+    offline. Returns the flat model's launches and ``infer`` calls in
+    serving and in the stream phase."""
     phase_voc_golden(torch)
     phase_voc_grad_fp32(torch)
     ckpt = phase_voc_train(torch, root)
@@ -4858,7 +5249,6 @@ def phase_gan(torch, root):
     one generator step (``generator``)."""
     from scipy.io import wavfile
 
-    from vae_npvc_tpu_torch.bin.serve import serve
     from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
                                                  batch_iterator)
     from vae_npvc_tpu_torch.serve import ConversionEngine
@@ -4928,18 +5318,13 @@ def phase_gan(torch, root):
     check(dec_counts["vq_fused"] >= 1 and dec_counts["fused_group_norm"]
           == 20 * dec_counts["vq_fused"], f"gan: decode launched "
           f"{dec_counts}")
-    fs, D = 24000, 80
-    stats = np.zeros((2, D + 1), np.float64)
-    stats[0, :-1] = -3.0 * 1000
-    stats[0, -1] = 1000
-    stats[1, :-1] = (1.0 + 3.0 ** 2) * 1000
+    fs = 24000
+    stats = _cmvn_stats()
     engine = ConversionEngine(cfg, ckpt, stats, vocoder="gl", device="cuda")
-    httpd = thread = None
+    httpd = None
     try:
         engine.warmup(1)
-        httpd = serve(engine, "127.0.0.1", 0)
-        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-        thread.start()
+        httpd, thread, _ = _serving(engine)
         wav = _speechlike(2 * fs, fs, 31)
         buf = io.BytesIO()
         wavfile.write(buf, fs, (wav * 32767).astype(np.int16))
@@ -4954,10 +5339,7 @@ def phase_gan(torch, root):
         req_counts = _read_counts()
     finally:
         if httpd is not None:
-            httpd.shutdown()
-            httpd.server_close()
-        if thread is not None:
-            thread.join(timeout=30)
+            _stop(httpd, thread)
         engine.close()
     check(sr == fs and out.size > 0 and np.abs(out).max() > 0,
           f"gan: /convert gave {out.shape} at {sr} Hz")
@@ -5045,6 +5427,23 @@ def phase_vae(torch, root):
     return launches
 
 
+def _stream_launches(kernel, stream, vs_launches, vs_calls,
+                     bridge_launches, bridge_calls):
+    """The ``kernels`` line's keys of the stream, voc_stream and
+    ckpt_bridge phases for ``kernel``."""
+    out = {}
+    for mode in ("exact", "chunked"):
+        run = stream[mode]
+        out[f"launches_stream_{mode}"] = run["launches"][kernel]
+        out[f"stream_{mode}_infer_calls_items"] = [run["infer_calls"],
+                                                   run["infer_items"]]
+    out["launches_voc_stream"] = vs_launches[kernel]
+    out["voc_stream_infer_calls"] = vs_calls
+    out["launches_ckpt_bridge"] = bridge_launches[kernel]
+    out["ckpt_bridge_infer_calls"] = bridge_calls
+    return out
+
+
 def main():
     import torch
 
@@ -5060,27 +5459,31 @@ def main():
     smi = phase_build(torch)
     vq, gn, gnb, attn, attn_long = phase_kernels(torch)
     phase_golden(torch)
-    launches = phase_serve(torch)
-    phase_grad_fp32(torch)
-    phase_train_golden(torch)
-    train_launches = phase_train(torch)
-    phase_tts_golden(torch)
-    tts_launches = phase_tts(torch)
-    phase_hier_golden(torch)
     with tempfile.TemporaryDirectory() as tmp:
-        hier_train, hier_infer, hier_k1, hier_ckpt = phase_hier(
-            torch, Path(tmp))
-        offline = phase_offline(torch, hier_ckpt, Path(tmp) / "offline")
+        tmp = Path(tmp)
+        launches, stream = phase_serve(torch, tmp / "serve")
+        phase_grad_fp32(torch)
+        phase_train_golden(torch)
+        trained = tmp / "flagship_trained.msgpack"
+        train_launches = phase_train(torch, trained)
+        phase_tts_golden(torch)
+        tts_launches = phase_tts(torch)
+        phase_hier_golden(torch)
+        hier_train, hier_infer, hier_k1, hier_ckpt = phase_hier(torch, tmp)
+        bridge_launches, bridge_calls = phase_ckpt_bridge(
+            torch, trained, hier_ckpt, tmp / "bridge")
+        offline = phase_offline(torch, hier_ckpt, tmp / "offline")
         bundle = phase_bundle(torch, offline["paths"], hier_ckpt)
-        bnf = phase_bnf(torch, Path(tmp) / "bnf")
-        voc_launches, voc_calls = phase_voc(torch, Path(tmp))
-        evaluation = phase_eval(torch, Path(tmp) / "eval")
+        bnf = phase_bnf(torch, tmp / "bnf")
+        (voc_launches, voc_calls), (vs_launches, vs_calls) = phase_voc(
+            torch, tmp)
+        evaluation = phase_eval(torch, tmp / "eval")
         phase_tac2_golden(torch)
-        phase_tac2(torch, Path(tmp) / "tac2")
+        phase_tac2(torch, tmp / "tac2")
         phase_gan_golden(torch)
-        gan_launches = phase_gan(torch, Path(tmp) / "gan")
+        gan_launches = phase_gan(torch, tmp / "gan")
         phase_vae_golden(torch)
-        vae_launches = phase_vae(torch, Path(tmp) / "vae")
+        vae_launches = phase_vae(torch, tmp / "vae")
 
     vq_main = vq[0]
     # K2 and K3 in the layout the model hands them (channels-first x)
@@ -5183,7 +5586,9 @@ def main():
          "launches_gan_iteration": gan_launches["iteration"]["vq_fused"],
          "launches_per_gan_critic_and_generator_step": [
              gan_launches["critic"]["vq_fused"],
-             gan_launches["generator"]["vq_fused"]]},
+             gan_launches["generator"]["vq_fused"]],
+         **_stream_launches("vq_fused", stream, vs_launches, vs_calls,
+                            bridge_launches, bridge_calls)},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",
@@ -5219,7 +5624,9 @@ def main():
          "launches_per_gan_critic_and_generator_step": [
              gan_launches["critic"]["fused_group_norm"],
              gan_launches["generator"]["fused_group_norm"]],
-         "launches_vae_two_steps": vae_launches["fused_group_norm"]},
+         "launches_vae_two_steps": vae_launches["fused_group_norm"],
+         **_stream_launches("fused_group_norm", stream, vs_launches,
+                            vs_calls, bridge_launches, bridge_calls)},
         {"name": "fused_group_norm_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",

@@ -1077,3 +1077,71 @@ def test_critic_step_leaves_the_codebook_on_the_card(dev, gan_draws):
     for a, b in zip(tr.model.quantizer.state(), state):
         assert torch.equal(a, b)
     assert not bool(tr.model.quantizer.initted)
+
+
+# ------------------------------------------------------- streaming (/stream)
+@pytest.fixture(scope="module")
+def flagship_engine(dev, tmp_path_factory):
+    """A mel-only ``ConversionEngine`` of the flagship flat model
+    (``chip_smoke.FLAGSHIP``: ``train_vqvae.yaml`` widths, bf16, seeded
+    random weights)."""
+    import chip_smoke as S
+    from vae_npvc_tpu_torch.serve import ConversionEngine
+
+    ckpt = tmp_path_factory.mktemp("flagship") / "flagship.msgpack"
+    S._random_checkpoint(torch, ckpt)
+    eng = ConversionEngine(S.FLAGSHIP, ckpt, S._cmvn_stats(),
+                           vocoder="none", device="cuda")
+    yield eng
+    eng.close()
+
+
+def _streamed(eng, x, sr, target):
+    """An exact-mode session fed ``x`` in ragged pieces: (its raw log-mel
+    rows, its converted mel)."""
+    from vae_npvc_tpu_torch.serve import StreamingSession
+
+    s = StreamingSession(eng, target, sr)
+    rng = np.random.default_rng(x.size)
+    i = 0
+    while i < x.size:
+        n = int(rng.choice([1, 7, 333, 1024, 4800]))
+        s.feed(x[i:i + n])
+        i += n
+    (_, mel), = s.finish()
+    return np.concatenate(s._mel_blocks), mel
+
+
+@pytest.mark.parametrize("seconds", [2.0, 5.3, 9.7])
+def test_streamed_front_end_equals_offline_on_the_card(flagship_engine,
+                                                       seconds):
+    """Streamed 64-frame blocks against the offline canvas: every log-mel
+    row bit for bit (both run the engine's fixed-shape front end)."""
+    import chip_smoke as S
+    from vae_npvc_tpu_torch.data import features
+
+    eng = flagship_engine
+    x = S._speechlike(int(seconds * eng.fs), eng.fs, int(seconds * 10))
+    T = features.num_frames(x.size, eng.n_shift)
+    xp = np.zeros((1, eng._pick_pad(T) * eng.n_shift - 1), np.float32)
+    xp[0, :x.size] = x
+    offline = eng._mel_batch(xp)[0][:T]
+    rows, _ = _streamed(eng, x, eng.fs, 0)
+    assert np.array_equal(rows[:T], offline)
+
+
+@pytest.mark.parametrize("seconds,sr", [(2.0, 24000), (6.1, 24000),
+                                        (3.3, 16000)])
+def test_exact_stream_k1_ids_equal_convert(flagship_engine, seconds, sr):
+    """One request at a time (one batch shape): the exact stream's K1 ids
+    and converted mel equal ``convert``'s."""
+    import chip_smoke as S
+
+    eng = flagship_engine
+    x = S._speechlike(int(seconds * sr), sr, 7)
+    want, want_ids = S._k1_ids(
+        lambda: eng.convert(x, sr, 5, return_mel=True)[0])
+    (_, got), ids = S._k1_ids(lambda: _streamed(eng, x, sr, 5))
+    assert len(ids) == len(want_ids) == 1
+    assert torch.equal(ids[0], want_ids[0])
+    assert np.array_equal(got, want)

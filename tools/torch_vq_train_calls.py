@@ -22,6 +22,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -81,7 +82,8 @@ def main(argv=None):
             obj.get("held_batch_x_like_after_first_chunk_and_last")}),
         flush=True)
     try:
-        cs.phase_train(torch)
+        with tempfile.TemporaryDirectory() as tmp:
+            cs.phase_train(torch, Path(tmp) / "trained.msgpack")
     except RuntimeError as e:
         print(json.dumps({"train_failed": str(e)}), flush=True)
     print(subprocess.run(

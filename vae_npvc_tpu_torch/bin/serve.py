@@ -12,8 +12,19 @@ Endpoints
 ``GET  /metrics``                    the same, Prometheus text format
 ``POST /convert?target=NAME``        body = WAV file -> converted WAV
 ``POST /convert?target=NAME&mel=1``  -> float32 mel matrix (``.npy`` bytes)
+``POST /stream?target=NAME&sr=RATE`` body = raw mono PCM (``format=i16``
+                                     default, or ``f32``), sent with
+                                     ``Transfer-Encoding: chunked`` or a
+                                     Content-Length -> chunked streaming-WAV
+                                     response (``serve/streaming.py``): mel
+                                     frames are computed while audio
+                                     arrives, and with ``jpwg`` audio leaves
+                                     chunk by chunk; ``&chunk=C&lookahead=L``
+                                     (default 64) converts prefixes while
+                                     audio arrives (approximate); a mel-only
+                                     engine answers with ``.npy`` bytes
 
-(``/stream`` belongs to a later slice.) Example::
+Example::
 
     python -m vae_npvc_tpu_torch.bin.serve --config conf/train_vqvae.yaml \\
         --checkpoint exp/.../model.loss.best --cmvn dump/.../cmvn.ark \\
@@ -65,6 +76,46 @@ def _read_wav_bytes(body):
     if data.ndim > 1:                     # downmix multi-channel
         data = data.mean(axis=1)
     return data, int(sr)
+
+
+def _streaming_wav_header(fs):
+    """RIFF/WAVE header with unknown-length placeholder sizes (0xFFFFFFFF),
+    the convention for a live-stream WAV (read until the connection
+    closes)."""
+    import struct
+
+    return (b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVEfmt "
+            + struct.pack("<IHHIIHH", 16, 1, 1, int(fs), int(fs) * 2, 2, 16)
+            + b"data" + struct.pack("<I", 0xFFFFFFFF))
+
+
+def _iter_body(handler, chunk_bytes=1 << 15):
+    """Request-body byte chunks: chunked transfer-encoding framing when
+    present (BaseHTTPRequestHandler does not decode it), else
+    Content-Length slices."""
+    if handler.headers.get("Transfer-Encoding", "").lower() == "chunked":
+        while True:
+            size_line = handler.rfile.readline(64).strip()
+            size = int(size_line.split(b";")[0], 16)
+            if size == 0:
+                handler.rfile.readline(8)          # trailing CRLF
+                return
+            remaining = size
+            while remaining:
+                piece = handler.rfile.read(min(remaining, chunk_bytes))
+                if not piece:
+                    raise ConnectionError("truncated chunked body")
+                remaining -= len(piece)
+                yield piece
+            handler.rfile.readline(8)              # chunk CRLF
+    else:
+        length = int(handler.headers.get("Content-Length", 0))
+        while length > 0:
+            piece = handler.rfile.read(min(length, chunk_bytes))
+            if not piece:
+                raise ConnectionError("truncated body")
+            length -= len(piece)
+            yield piece
 
 
 def make_handler(engine):
@@ -120,6 +171,8 @@ def make_handler(engine):
 
         def do_POST(self):
             url = urlparse(self.path)
+            if url.path == "/stream":
+                return self._do_stream(url)
             if url.path != "/convert":
                 return self._error(404, f"no route {url.path}")
             q = parse_qs(url.query)
@@ -150,6 +203,95 @@ def make_handler(engine):
                 self._send(200, buf.getvalue(), "application/octet-stream")
             else:
                 self._send(200, _wav_bytes(out, fs), "audio/wav")
+
+        def _write_chunk(self, data):
+            if data:
+                self.wfile.write(b"%x\r\n" % len(data) + data + b"\r\n")
+
+        def _stream_error(self, code, msg):
+            # an error may leave request-body bytes unread: a reused
+            # connection would read the leftover PCM as the next request,
+            # so close it after the reply
+            self.close_connection = True
+            return self._error(code, msg)
+
+        def _do_stream(self, url):
+            from ..serve.streaming import StreamingSession
+
+            q = parse_qs(url.query)
+            target = q.get("target", [None])[0]
+            sr = q.get("sr", [None])[0]
+            fmt = q.get("format", ["i16"])[0]
+            try:
+                sr = int(sr) if sr is not None else None
+            except ValueError:
+                sr = None
+            if target is None or sr is None:
+                return self._stream_error(400, "need ?target= and "
+                                               "integer ?sr=")
+            if fmt not in ("i16", "f32"):
+                return self._stream_error(400, f"unknown format {fmt!r}")
+            # ?chunk=C[&lookahead=L]: approximate chunked conversion
+            # (GroupNorm statistics over prefix + L frames); default exact
+            try:
+                chunk = int(q.get("chunk", [0])[0]) or None
+                lookahead = int(q.get("lookahead", [64])[0])
+            except ValueError:
+                return self._stream_error(400, "integer ?chunk=/?lookahead=")
+            dtype, width, scale = (
+                (np.int16, 2, 1 / 32768.0) if fmt == "i16"
+                else (np.float32, 4, 1.0))
+            try:
+                session = StreamingSession(engine, target, sr,
+                                           chunk_frames=chunk,
+                                           lookahead_frames=lookahead)
+            except (KeyError, ValueError) as e:
+                return self._stream_error(400, str(e))
+            t0 = time.monotonic()
+            try:
+                carry = b""                # chunk edges can split a sample
+                for piece in _iter_body(self):
+                    buf = carry + piece
+                    cut = len(buf) - len(buf) % width
+                    carry = buf[cut:]
+                    if cut:
+                        session.feed(np.frombuffer(buf[:cut], dtype)
+                                     .astype(np.float32) * scale)
+            except Exception as e:  # noqa: BLE001 — report, keep serving
+                logger.exception("stream ingest failed")
+                return self._stream_error(400, f"{type(e).__name__}: {e}")
+            if engine.vocoder == "none":
+                # mel-only engine: the /convert?mel=1 answer (.npy bytes)
+                try:
+                    (_at, mel), = session.finish()
+                except Exception as e:  # noqa: BLE001
+                    logger.exception("stream convert failed")
+                    return self._error(500, f"{type(e).__name__}: {e}")
+                buf = io.BytesIO()
+                np.save(buf, mel.astype(np.float32))
+                return self._send(200, buf.getvalue(),
+                                  "application/octet-stream")
+            # chunked response: audio leaves as synthesized; past the status
+            # line a failure can only abort the connection
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            try:
+                self._write_chunk(_streaming_wav_header(engine.fs))
+                n_out = 0
+                for _at, wav in session.finish():
+                    pcm = np.clip(wav, -1.0, 1.0)
+                    self._write_chunk((pcm * 32767.0).astype("<i2")
+                                      .tobytes())
+                    n_out += wav.size
+                self.wfile.write(b"0\r\n\r\n")
+            except Exception:  # noqa: BLE001 — mid-stream: abort
+                logger.exception("stream emit failed")
+                self.close_connection = True
+                return
+            logger.info("stream target=%s out=%.2fs %.0fms", target,
+                        n_out / engine.fs, (time.monotonic() - t0) * 1e3)
 
     return Handler
 

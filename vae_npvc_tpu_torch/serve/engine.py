@@ -8,6 +8,12 @@ Counterpart of ``vae_npvc_tpu/serve/engine.py``. Per request:
     -> reverse CMVN -> Griffin-Lim or the native Parallel WaveGAN
        (``jpwg``, device) or mel only
 
+The front end runs in slabs of :data:`FRONT_ROWS` frames, one call per
+slab, so a frame's rfft and mel product have the same shape whether it
+comes from a whole request or from a streamed block
+(``serve/streaming.py``): on the card cuFFT and cuBLAS pick their kernels
+by shape, and a streamed row then equals the offline row bit for bit.
+
 Every device stage runs on the engine's device or raises; there is no
 retry on another device. Data-parallel serving is not ported yet.
 """
@@ -29,6 +35,11 @@ from ..data import features
 from ..infer.convert import Converter, _bucket
 
 logger = logging.getLogger("vae_npvc_tpu_torch.serve")
+
+# frames per front-end call: one rfft and one mel product shape for the
+# offline canvas and for every streamed block (a multiple of it keeps the
+# streamed rows bit-identical to the offline ones on the card)
+FRONT_ROWS = 64
 
 # the vcc20 recipe's front-end settings (egs/vcc20/vae1/run.sh:13-18)
 DEFAULT_FEATURE = {
@@ -138,7 +149,7 @@ class ConversionEngine:
                  voc_checkpoint=None, device="cuda"):
         if data_parallel:
             raise NotImplementedError("data-parallel serving is not ported "
-                                      "yet (ROADMAP Queue A item 12)")
+                                      "yet (ROADMAP Queue A item 15)")
         if vocoder not in ("gl", "jpwg", "none"):
             raise ValueError(f"unknown vocoder {vocoder!r}")
         self.bundle = None
@@ -239,12 +250,35 @@ class ConversionEngine:
     def _front_kw(self):
         return {k: v for k, v in self.feature.items() if k != "fs"}
 
-    def _mel_batch(self, xp):
-        """(B, N) host waveform -> (B, T, M) host log-mel, on the device."""
+    def _mel_window(self, window):
+        """Log-mel rows of the frames a window of samples holds.
+
+        ``window`` is a host (N,) float32 array, ``N = (T - 1) * hop +
+        n_fft``, starting at the first sample of frame 0 (``center=False``
+        framing): returns the (T, M) host rows, computed on the device in
+        slabs of :data:`FRONT_ROWS` frames, the last zero-padded to a full
+        slab."""
+        hop, n_fft = self.n_shift, int(self.feature["n_fft"])
+        T = 1 + (window.size - n_fft) // hop
+        span = (FRONT_ROWS - 1) * hop + n_fft
+        rows = []
         with torch.inference_mode():
-            x = torch.as_tensor(xp, device=self.device)
-            return features.logmelspectrogram(
-                x, fs=self.fs, **self._front_kw()).cpu().numpy()
+            x = torch.as_tensor(window, device=self.device)
+            for t0 in range(0, T, FRONT_ROWS):
+                seg = x[t0 * hop:t0 * hop + span]
+                if seg.numel() < span:
+                    seg = torch.nn.functional.pad(seg, (0, span - seg.numel()))
+                rows.append(features.logmelspectrogram(
+                    seg[None], fs=self.fs, **self._front_kw(),
+                    center=False)[0, :T - t0])
+            return torch.cat(rows).cpu().numpy()
+
+    def _mel_batch(self, xp):
+        """(B, N) host waveform -> (B, T, M) host log-mel (centered frames,
+        reflect padding), through :meth:`_mel_window`."""
+        pad = int(self.feature["n_fft"]) // 2
+        return np.stack([self._mel_window(np.pad(x, pad, mode="reflect"))
+                         for x in np.asarray(xp, np.float32)])
 
     def _pick_pad(self, T_true):
         if self.bundle is not None:
@@ -366,7 +400,7 @@ class _JPWG:
 
     def __init__(self, config, checkpoint, n_mels, device):
         from ..bin.train import load_config
-        from ..infer.vocoder import load_generator
+        from ..infer.vocoder import jpwg_receptive_frames, load_generator
 
         if config is None or checkpoint is None:
             raise ValueError("vocoder='jpwg' needs voc_config and "
@@ -375,6 +409,8 @@ class _JPWG:
         self.gen = load_generator(self.config, checkpoint, n_mels, device)
         self.device = device
         self.hop = self.gen.hop
+        # context frames on each side of a streamed synthesis chunk
+        self.halo = jpwg_receptive_frames(self.config)
 
     def noise(self, T_pad, seed):
         """The synthesis noise (T_pad * hop, 1) of a ``T_pad``-frame canvas
