@@ -90,8 +90,18 @@ critic step and per generator step, the checkpoint through ``bin/decode``
 and one HTTP ``/convert`` (``gan``); the Gaussian VAE against its fixture
 (``vae_golden``) and at the width of ``egs/vcc20/vae1/conf/train_vae.yaml``
 (``VAE``): ``bin/train`` steps with K2/K3 counted, ``bin/decode`` and an
-``--all-targets`` sweep (``vae``). Each phase prints one JSON line; any
-failure exits non-zero. The last lines are the kernel summary, the card's
+``--all-targets`` sweep (``vae``). Then the rest of the training path
+(``trainer_rest``): on a Kaldi dir of 256 utterances of 1-10 s written as
+compressed CM arks, ``bin/train`` with the flagship at B = 128, T = 256,
+bf16: ``device_resident_sampling: iid`` for 16 steps with
+``--profile_dir`` (K1/K2/K3 launches per step, the trace's kernels, every
+crop drawn on the card against the Python reads from disk) and a run
+resumed from ``iter.8`` drawing the same windows; the host loader with the
+native C++ ark loader through ``prefetch_to_device`` for 8 steps (every
+native batch against the Python reads), the loader's frames/s; and
+``bin/doctor --config --bundle --json`` on the stage-8 bundle, its model
+probe's K1/K2 launches. Each phase prints one JSON line; any failure exits
+non-zero. The last lines are the kernel summary, the card's
 name and power limit as ``nvidia-smi`` gives them, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -102,6 +112,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -109,7 +120,7 @@ import threading
 import time
 import urllib.request
 import wave
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -469,17 +480,23 @@ def _only_groupnorm_kernels(names, what):
 
 # ------------------------------------------------------------------ phases
 def phase_build(torch):
+    from vae_npvc_tpu_torch.data import native_loader
     from vae_npvc_tpu_torch.ops import _build
 
     t0 = time.monotonic()
-    libs = _build.build_all()
+    with ThreadPoolExecutor(1) as ex:
+        # the host loader's g++ build beside the kernels' nvcc builds
+        loader = ex.submit(native_loader.build)
+        libs = _build.build_all()
+        loader = loader.result()
     build_s = time.monotonic() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     emit({"phase": "build", "seconds": round(build_s, 3),
-          "libraries": sorted(libs), "gpu": smi,
+          "libraries": sorted(libs), "native_loader": loader.name,
+          "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi
 
@@ -1899,10 +1916,12 @@ def phase_train_golden(torch):
           "state_atol_rtol": list(GOLDEN_STATE_TOL)})
 
 
-def _synthetic_corpus(root, n_utts, seed):
+def _synthetic_corpus(root, n_utts, seed, frames=None,
+                      compression_method=None):
     """A Kaldi data dir of smooth mel-like utterances (a few slow
     sinusoids per band on a speaker-dependent offset, plus noise), written
-    with the port's ark writer."""
+    with the port's ark writer; ``frames`` gives each utterance's length
+    (default: 280-519 frames drawn from the seed)."""
     from vae_npvc_tpu_torch.data import kaldi_io
 
     rng = np.random.default_rng(seed)
@@ -1910,9 +1929,11 @@ def _synthetic_corpus(root, n_utts, seed):
     band = np.linspace(0, 1, D)[None, :]
     spk_offset = rng.normal(0, 0.5, size=(FLAGSHIP["y_num"], D))
     lens, spks = [], []
-    with kaldi_io.ArkWriter(root / "feats.ark", root / "feats.scp") as w:
+    with kaldi_io.ArkWriter(root / "feats.ark", root / "feats.scp",
+                            compression_method) as w:
         for i in range(n_utts):
-            n = int(rng.integers(280, 520))
+            n = int(rng.integers(280, 520)) if frames is None \
+                else int(frames[i])
             spk = int(rng.integers(0, FLAGSHIP["y_num"]))
             t = np.arange(n)[:, None] / 100.0
             mel = sum(rng.uniform(0.3, 1.0)
@@ -5427,6 +5448,305 @@ def phase_vae(torch, root):
     return launches
 
 
+# trainer_rest: the flagship through bin/train on a Kaldi dir of 1-10 s
+# utterances written as compressed CM arks. The host loader's batch of 128
+# needs at least 128 utterances (drop_last), so the corpus holds 256.
+REST_UTTS = 256
+REST_SECONDS = np.linspace(1.0, 10.0, REST_UTTS)
+REST_FRAMES = [int(round(s * OFFLINE_FEATURE["fs"]
+                         / OFFLINE_FEATURE["n_shift"])) for s in REST_SECONDS]
+REST_STEPS, REST_HOST_STEPS = 16, 8
+REST_STEP_LAUNCHES = {"vq_fused": 1, "fused_group_norm": 20,
+                      "fused_group_norm_backward": 20}
+DOCTOR_LAUNCHES = {"vq_fused": 1, "fused_group_norm": 20}
+DOCTOR_CHECKS = ("imports", "platform", "devices", "cpu-fallback",
+                 "compile-cache", "model", "bundle")
+
+
+def _record_method(cls, name, calls, keep):
+    """Patch ``cls.name`` to append ``keep(args, result)`` to ``calls``;
+    returns the original, for the caller to restore."""
+    orig = getattr(cls, name)
+
+    def recording(self, *args, **kw):
+        out = orig(self, *args, **kw)
+        calls.append(keep(args, out))
+        return out
+
+    setattr(cls, name, recording)
+    return orig
+
+
+def _metrics(out_dir):
+    return [json.loads(ln) for ln in
+            (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
+
+
+def _trace_kernels(trace_dir):
+    """The device kernels of the Chrome trace that ``--profile_dir``
+    wrote: names by kernel class, and the trace's size."""
+    (path,) = sorted(Path(trace_dir).glob("*.json"))
+    events = json.loads(path.read_text())["traceEvents"]
+    by_class = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            m = re.search(r"::(\w+)", e["name"])
+            by_class.setdefault(_kernel_class(e["name"]), set()).add(
+                m.group(1) if m else e["name"][:40])
+    return path, {k: sorted(v) for k, v in by_class.items()}, \
+        path.stat().st_size, len(events)
+
+
+def _python_windows(data_dir, crop, items):
+    """``UttMelSpkDataset.get_at`` of each ``(idx, start)`` of ``items``:
+    the windows read from disk by the port's Python kaldi_io (a worker
+    process of :func:`_windows_equal`)."""
+    from vae_npvc_tpu_torch.data.dataset import UttMelSpkDataset
+
+    ds = UttMelSpkDataset(data_dir, {"crop_length": crop,
+                                     "use_native_loader": False})
+    return np.stack([ds.get_at(i, s)[0] for i, s in items])
+
+
+def _windows_equal(data_dir, crop, pairs, batches, what, workers=8):
+    """Every row of ``batches`` (one per ``(idx[B], starts[B])`` of
+    ``pairs``) equals ``get_at`` read from disk, bit for bit. The reads
+    decode CM arks in numpy, so they run in ``workers`` processes."""
+    import multiprocessing
+
+    items = [(int(i), int(s)) for idx, starts in pairs
+             for i, s in zip(idx, starts)]
+    got = np.concatenate([np.asarray(b, np.float32) for b in batches])
+    check(len(got) == len(items), f"trainer_rest: {what}: {len(got)} rows "
+                                  f"for {len(items)} windows")
+    step = -(-len(items) // workers)
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        want = np.concatenate(list(ex.map(
+            _python_windows, [str(data_dir)] * workers, [crop] * workers,
+            [items[k:k + step] for k in range(0, len(items), step)])))
+    bad = int(sum(not np.array_equal(a, b) for a, b in zip(got, want)))
+    check(bad == 0, f"trainer_rest: {what}: {bad} of {len(items)} windows "
+                    "differ from the Python reads")
+    return len(items)
+
+
+def phase_trainer_rest(torch, root, bundle, smi):
+    """The trainer rest on the flagship (``train_vqvae.yaml``, bf16,
+    B = 128, T = 256) through ``bin/train --device cuda`` on a Kaldi dir
+    of ``REST_UTTS`` utterances of 1-10 s as CM arks: (a) ``iid`` sampling
+    on the staged corpus, ``steps_per_call: 8``, ``REST_STEPS`` steps with
+    ``--profile_dir`` (per-step K1/K2/K3 launches, the trace names their
+    kernels, every drawn crop against ``get_at`` from disk), then a run
+    resumed from ``iter.8`` drawing what the uninterrupted one drew; (b)
+    the host loader with ``use_native_loader`` through
+    ``prefetch_to_device``, every native batch against the Python reads;
+    the loader's frames/s beside both runs' training frames/s; (c)
+    ``bin/doctor --config --bundle --json`` with the model probe's K1/K2
+    launches. Returns the launches per step of (a) and (b) and the
+    doctor's."""
+    import contextlib
+
+    from vae_npvc_tpu_torch.bin import doctor
+    from vae_npvc_tpu_torch.bin import train as train_cli
+    from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
+                                                 index_iterator)
+    from vae_npvc_tpu_torch.data.native_loader import NativeArkLoader
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
+    corpus = root / "corpus"
+    corpus.mkdir(parents=True)
+    t0 = time.perf_counter()
+    _synthetic_corpus(corpus, REST_UTTS, seed=14, frames=REST_FRAMES,
+                      compression_method=1)
+    corpus_s = time.perf_counter() - t0
+    with open(corpus / "feats.ark", "rb") as f:
+        f.seek(int((corpus / "feats.scp").read_text().split("\n")[0]
+                   .rsplit(":", 1)[1]))
+        check(f.read(5) == b"\x00BCM ",
+              "trainer_rest: the corpus is not CM-compressed")
+    cfg = dict(FLAGSHIP, **TRAIN, device_resident_sampling="iid",
+               max_iter=REST_STEPS, iters_per_log=8, iters_per_checkpoint=8)
+    B, T = cfg["batch_size"], cfg["crop_length"]
+    dataset = UttMelSpkDataset(corpus, cfg)
+    check(dataset.native is not None, "trainer_rest: no native loader")
+    short = sum(n < T for n in REST_FRAMES)
+
+    def conf(name, **kw):
+        path = root / f"{name}.json"
+        path.write_text(json.dumps(dict(cfg, **kw)))
+        return path
+
+    def run(conf_path, out, *extra):
+        _zero_counts()
+        t0 = time.perf_counter()
+        train_cli.main(["-c", str(conf_path), "--train_dir", str(corpus),
+                        "--output_dir", str(out), *extra])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, _read_counts()
+
+    def per_step(counts, steps, what):
+        want = {k: v * steps for k, v in REST_STEP_LAUNCHES.items()}
+        check(counts == want, f"trainer_rest: {what}: launches {counts} "
+                              f"over {steps} steps, want {want}")
+        return {k: v // steps for k, v in counts.items()}
+
+    # (a) iid sampling, with the draws and the gathered crops recorded
+    draws, crops = [], []
+    orig_sample = _record_method(
+        Trainer, "_sample_iid", draws,
+        lambda a, o: (a[0], o[0].clone(), o[1].clone()))
+    orig_gather = _record_method(Trainer, "_gather", crops,
+                                 lambda a, o: o[0].clone())
+    try:
+        iid = conf("iid")
+        full_s, counts = run(iid, root / "iid", "--profile_dir",
+                             str(root / "trace"))
+        iid_per_step = per_step(counts, REST_STEPS, "iid run")
+        full_draws, full_crops = list(draws), list(crops)
+        draws.clear()
+        crops.clear()
+        # logged every 4 steps: steps 13-16 are a window past the staging
+        resume_s, counts = run(conf("iid_resumed", iters_per_log=4),
+                               root / "iid_resumed", "--checkpoint",
+                               str(root / "iid" / "iter.8"))
+        per_step(counts, REST_STEPS - 8, "resumed iid run")
+    finally:
+        Trainer._sample_iid = orig_sample
+        Trainer._gather = orig_gather
+    check([d[0] for d in full_draws] == list(range(REST_STEPS)),
+          f"trainer_rest: draws of steps {[d[0] for d in full_draws]}")
+    check([d[0] for d in draws] == list(range(8, REST_STEPS)),
+          f"trainer_rest: resumed draws of steps {[d[0] for d in draws]}")
+    for (step, i1, s1), (_, i2, s2) in zip(full_draws[8:], draws):
+        check(torch.equal(i1, i2) and torch.equal(s1, s2),
+              f"trainer_rest: the resumed run drew other windows at step "
+              f"{step + 1}")
+    pairs = [(i.cpu().numpy(), s.cpu().numpy()) for _, i, s in full_draws]
+    hi = np.maximum(np.asarray(REST_FRAMES) - T, 0)
+    for idx, starts in pairs:
+        check(bool(np.all(starts >= 0) & np.all(starts <= hi[idx])),
+              "trainer_rest: a drawn start out of range")
+    drawn_short = int(sum((np.asarray(REST_FRAMES)[idx] < T).sum()
+                          for idx, _ in pairs))
+    n_crops = _windows_equal(corpus, T, pairs,
+                             [c.float().cpu().numpy() for c in full_crops],
+                             "iid crops gathered on the card")
+    rows = _metrics(root / "iid")
+    resumed_rows = _metrics(root / "iid_resumed")
+    for r in rows + resumed_rows:
+        check(all(math.isfinite(v) for k, v in r.items()
+                  if k not in ("iter", "split")),
+              f"trainer_rest: non-finite log window {r}")
+        check(r["skipped_nonfinite"] == 0.0, f"trainer_rest: skipped {r}")
+    log = (root / "iid" / "train.log").read_text()
+    check("(iid sampling)" in log and "Saved profiler trace to" in log,
+          "trainer_rest: iid or profiler log line missing")
+    trace, trace_kernels, trace_bytes, trace_events = _trace_kernels(
+        root / "trace")
+    for k in REST_STEP_LAUNCHES:
+        check(bool(trace_kernels.get(k)),
+              f"trainer_rest: the trace names no {k} kernel: "
+              f"{sorted(trace_kernels)}")
+
+    # (b) the host loader: native batches through prefetch_to_device
+    loads = []
+    orig_load = _record_method(
+        NativeArkLoader, "load_batch", loads,
+        lambda a, o: (np.asarray(a[0]).copy(), np.asarray(a[1]).copy(),
+                      o.copy()))
+    try:
+        host_s, counts = run(
+            conf("host", device_resident=False, use_native_loader=True,
+                 max_iter=REST_HOST_STEPS, iters_per_log=4,
+                 iters_per_checkpoint=REST_HOST_STEPS), root / "host")
+    finally:
+        NativeArkLoader.load_batch = orig_load
+    host_per_step = per_step(counts, REST_HOST_STEPS, "host-loader run")
+    check(len(loads) >= REST_HOST_STEPS,
+          f"trainer_rest: {len(loads)} native batches for "
+          f"{REST_HOST_STEPS} steps")
+    scp_to_item = np.argsort(dataset._native_row)
+    n_native = _windows_equal(
+        corpus, T, [(scp_to_item[rws], st) for rws, st, _ in loads],
+        [o for _, _, o in loads], "native batches")
+    host_rows = _metrics(root / "host")
+    for r in host_rows:
+        check(all(math.isfinite(v) for k, v in r.items()
+                  if k not in ("iter", "split")),
+              f"trainer_rest: non-finite log window {r}")
+    # the loader alone, as bin/train calls it (num_jobs = 8 threads), and
+    # on one thread
+    idx_it = index_iterator(dataset, B, shuffle=True, drop_last=True,
+                            seed=cfg["seed"])
+    jobs = [next(idx_it) for _ in range(8)]
+    out = np.empty((B, T, 80), np.float32)
+
+    def load(batches, threads):
+        t0 = time.perf_counter()
+        for idx, starts in batches:
+            dataset.native.load_batch(dataset._native_row[idx], starts, T,
+                                      out=out, nthreads=threads)
+        return time.perf_counter() - t0
+
+    loader_s = [load(jobs, 8) for _ in range(3)]
+    loader_fps = 8 * B * T / min(loader_s)
+    loader_fps_1 = 2 * B * T / load(jobs[:2], 1)
+
+    # (c) the doctor, as a user runs it, on the stage-8 bundle
+    _zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = doctor.main(["--config", str(iid), "--bundle", str(bundle),
+                          "--json"])
+    doctor_counts = _read_counts()
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and report["ok"], f"trainer_rest: doctor rc {rc}: "
+                                    f"{report}")
+    for name in DOCTOR_CHECKS:
+        check(report["checks"][name]["status"] == "ok",
+              f"trainer_rest: doctor {name}: {report['checks'][name]}")
+    doctor_launches = report["checks"]["model"]["launches"]
+    check(doctor_launches == DOCTOR_LAUNCHES,
+          f"trainer_rest: doctor model launches {doctor_launches}")
+
+    emit({"phase": "trainer_rest", "card": smi, "B": B, "T": T,
+          "dtype": cfg["compute_dtype"], "utterances": REST_UTTS,
+          "shorter_than_crop": short, "corpus_write_s": corpus_s,
+          "iid": {"steps": REST_STEPS, "wall_s": full_s,
+                  "resumed_wall_s": resume_s,
+                  "launches_per_step": iid_per_step,
+                  "frames_per_s_steps_1_8": rows[0]["frames_per_sec"],
+                  "frames_per_s_9_16_profiled": rows[1]["frames_per_sec"],
+                  "frames_per_s_resumed_9_12_13_16":
+                      [r["frames_per_sec"] for r in resumed_rows],
+                  "total_per_window": [r["Total"] for r in rows],
+                  "resumed_total_per_window":
+                      [r["Total"] for r in resumed_rows],
+                  "crops_equal_get_at": n_crops,
+                  "drawn_rows_shorter_than_crop": drawn_short,
+                  "resumed_draws_equal": REST_STEPS - 8},
+          "trace": {"file": trace.name, "bytes": trace_bytes,
+                    "events": trace_events, "kernels": trace_kernels},
+          "host_loader": {"steps": REST_HOST_STEPS, "wall_s": host_s,
+                          "launches_per_step": host_per_step,
+                          "native_batches": len(loads),
+                          "windows_equal_python_reads": n_native,
+                          "frames_per_s": [r["frames_per_sec"]
+                                           for r in host_rows],
+                          "total_per_window": [r["Total"]
+                                               for r in host_rows]},
+          "loader_frames_per_s": loader_fps,
+          "loader_frames_per_s_one_thread": loader_fps_1,
+          "loader_8_batches_s": loader_s,
+          "doctor": {"rc": rc, "model_launches": doctor_launches,
+                     "launches_with_bundle": doctor_counts,
+                     "checks": {k: v["detail"] for k, v in
+                                report["checks"].items()}}})
+    return {"iid": iid_per_step, "host": host_per_step,
+            "doctor": doctor_launches}
+
+
 def _stream_launches(kernel, stream, vs_launches, vs_calls,
                      bridge_launches, bridge_calls):
     """The ``kernels`` line's keys of the stream, voc_stream and
@@ -5441,6 +5761,17 @@ def _stream_launches(kernel, stream, vs_launches, vs_calls,
     out["voc_stream_infer_calls"] = vs_calls
     out["launches_ckpt_bridge"] = bridge_launches[kernel]
     out["ckpt_bridge_infer_calls"] = bridge_calls
+    return out
+
+
+def _rest_launches(kernel, rest):
+    """The ``kernels`` line's keys of the trainer_rest phase for
+    ``kernel``: launches per iid step, per host-loader step and, for K1
+    and K2, per doctor ``infer``."""
+    out = {"launches_per_iid_step": rest["iid"][kernel],
+           "launches_per_host_loader_step": rest["host"][kernel]}
+    if kernel in rest["doctor"]:
+        out["launches_doctor_infer"] = rest["doctor"][kernel]
     return out
 
 
@@ -5474,6 +5805,9 @@ def main():
             torch, trained, hier_ckpt, tmp / "bridge")
         offline = phase_offline(torch, hier_ckpt, tmp / "offline")
         bundle = phase_bundle(torch, offline["paths"], hier_ckpt)
+        rest = phase_trainer_rest(torch, tmp / "rest",
+                                  offline["paths"]["root"] / "bundle_fp32",
+                                  smi)
         bnf = phase_bnf(torch, tmp / "bnf")
         (voc_launches, voc_calls), (vs_launches, vs_calls) = phase_voc(
             torch, tmp)
@@ -5559,6 +5893,7 @@ def main():
          "rescored_rows": vq_main["rescored_rows"],
          "rescored_all_codes": vq_main["rescored_all_codes"],
          "launches_train": train_launches["vq_fused"],
+         **_rest_launches("vq_fused", rest),
          "train_shape": {k: vq_train[k] for k in (
              "N", "mode", "ms", "ms_l2_cold", "plain_ms", "bound_ms",
              "bound_by", "fma_bound_ms", "sgemm_argmin_ms", "kernels",
@@ -5598,6 +5933,7 @@ def main():
          "plain_ms": gn_main["plain_ms"], "bound_ms": gn_main["bound_ms"],
          "bound_by": gn_main["bound_by"], "library_ms": None,
          "launches_train": train_launches["fused_group_norm"],
+         **_rest_launches("fused_group_norm", rest),
          "train_shape": {k: gn_train[k] for k in gn_keys},
          "encoder_shape": {k: gn_enc[k] for k in gn_keys},
          "long_row": {k: gn_long[k] for k in gn_keys},
@@ -5631,6 +5967,7 @@ def main():
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",
          "launches": train_launches["fused_group_norm_backward"],
+         **_rest_launches("fused_group_norm_backward", rest),
          "max_abs_err": gnb_train["max_abs_err"], "ms": gnb_train["ms"],
          "ms_l2_cold": gnb_train["ms_l2_cold"],
          "plain_ms": gnb_train["plain_ms"],

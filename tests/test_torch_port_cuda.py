@@ -1145,3 +1145,87 @@ def test_exact_stream_k1_ids_equal_convert(flagship_engine, seconds, sr):
     assert len(ids) == len(want_ids) == 1
     assert torch.equal(ids[0], want_ids[0])
     assert np.array_equal(got, want)
+
+
+# ------------------------------------------------------------ trainer rest
+def test_iid_crops_on_the_card_equal_get_at(dev, tmp_path):
+    """``train_steps_device``'s draws gathered from the corpus staged on
+    the card equal the windows read from disk, bit for bit, and the draws
+    stay in range; a step on them trains."""
+    from vae_npvc_tpu_torch.data import kaldi_io
+    from vae_npvc_tpu_torch.data.dataset import UttMelSpkDataset
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    rng = np.random.default_rng(5)
+    lens = [30, 9, 45, 60, 22, 38, 51, 40, 16, 3]
+    with kaldi_io.ArkWriter(tmp_path / "f.ark", tmp_path / "feats.scp",
+                            compression_method=1) as w:
+        for i, n in enumerate(lens):
+            w.write(f"u{i}", rng.normal(size=(n, 10)).astype(np.float32))
+    (tmp_path / "utt2num_frames").write_text(
+        "".join(f"u{i} {n}\n" for i, n in enumerate(lens)))
+    (tmp_path / "utt2spk_id").write_text(
+        "".join(f"u{i} {i % 3}\n" for i in range(len(lens))))
+    cfg = {"model_type": "vae_npvc.model.vqvae", "seed": 7, "y_dim": 8,
+           "y_num": 3, "z_dim": 8, "z_num": 16, "use_ema": True,
+           "beta": 0.01, "mu": 0.9, "jitter_p": 0.0, "optim_type": "Adam",
+           "learning_rate": 1e-3, "max_grad_norm": 10, "crop_length": 16,
+           "compute_dtype": "float32",
+           "encoder": {"in_channels": [10], "out_channels": [12],
+                       "kernel_size": 3, "downsample_scales": [1],
+                       "z_channels": 8, "dilation": False,
+                       "stack_kernel_size": 3, "stack_layers": 1,
+                       "stacks": [1], "use_weight_norm": True},
+           "decoder": {"in_channels": [8], "out_channels": [12],
+                       "cond_channels": 8, "skip_channels": 8,
+                       "final_channels": 10, "kernel_size": 3,
+                       "upsample_scales": [1], "dilation": False,
+                       "stack_kernel_size": 3, "stacks": [1],
+                       "use_weight_norm": True}}
+    ds = UttMelSpkDataset(tmp_path, cfg)
+    assert ds.native is not None
+    tr = build_trainer(cfg, device="cuda")
+    tr.init_state()
+    tr.stage_dataset(ds, 8)
+    for step in range(6):
+        idx, starts = tr._sample_iid(step)
+        assert idx.device.type == "cuda"
+        hi = np.maximum(np.asarray(lens)[idx.cpu().numpy()] - 16, 0)
+        s = starts.cpu().numpy()
+        assert np.all(s >= 0) and np.all(s <= hi)
+        feats, _ = tr._gather(idx, starts)
+        want = np.stack([ds.get_at(i, st)[0] for i, st in
+                         zip(idx.tolist(), s.tolist())])
+        assert np.array_equal(feats.cpu().numpy(), want)
+    d = tr.train_steps_device(2)
+    assert tr.iteration == 2 and bool(torch.isfinite(d["Total"]).all())
+
+
+def test_prefetch_to_device_side_stream_equals_a_synchronous_copy(dev):
+    from vae_npvc_tpu_torch.data.dataset import prefetch_to_device
+
+    rng = np.random.default_rng(2)
+    batches = [(rng.normal(size=(128, 256, 80)).astype(np.float32),
+                rng.integers(0, 14, size=(128,)).astype(np.int32))
+               for _ in range(6)]
+    got = []
+    for feats, spks in prefetch_to_device(iter(batches), size=2,
+                                          device="cuda"):
+        assert feats.device.type == "cuda" and spks.dtype == torch.int32
+        # work queued on the consumer's stream right after the wait
+        got.append(((feats * 2).cpu(), spks.cpu()))
+    assert len(got) == len(batches)
+    for (gf, gs), (f, s) in zip(got, batches):
+        sync = torch.as_tensor(f, device="cuda") * 2
+        assert torch.equal(gf, sync.cpu())
+        assert np.array_equal(gs.numpy(), s)
+
+
+def test_doctor_compile_cache_and_devices_on_the_card(dev):
+    from vae_npvc_tpu_torch.bin import doctor
+
+    status, detail = doctor._check_devices("cuda", 120)
+    assert status == "ok", detail
+    status, detail = doctor._check_cache("cuda", 600)
+    assert status == "ok", detail
+    assert "3 kernel libraries" in detail and "ark_loader-" in detail

@@ -76,8 +76,16 @@ def test_train_steps_indices_equals_train_step_on_the_same_windows(data_dirs):
     # the lazy codebook init ran on the first step
     assert bool(a.model.quantizer.initted)
     assert float(got["skipped_nonfinite"].sum()) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        a.train_steps_device(2)
+    # iid sampling on the staged corpus carries on from there: its steps
+    # are train_steps_indices on the windows it drew
+    draws = [a._sample_iid(s) for s in (3, 4)]
+    dev = a.train_steps_device(2)
+    assert a.iteration == 5 and dev["Total"].shape == (2,)
+    b.stage_dataset(dataset, 4)
+    again = b.train_steps_indices(np.stack([d[0].numpy() for d in draws]),
+                                  np.stack([d[1].numpy() for d in draws]))
+    assert torch.equal(dev["Total"], again["Total"])
+    assert torch.equal(a.flat, b.flat)
 
 
 def test_trainer_registry_and_default_device():
@@ -160,9 +168,20 @@ def test_train_cli_runs_and_resumes(tmp_path, data_dirs, device_resident):
 
 
 def test_train_cli_rejects_unported_sampling(tmp_path, data_dirs):
-    cfg = _config(device_resident=True, device_resident_sampling="iid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(cfg, tmp_path, tmp_path / "out", data_dirs)
+    """``iid`` sampling trains (a run resumed at 3 ends on the same bytes
+    as an uninterrupted one: the draws follow the iteration); a mode that
+    is neither ``epoch`` nor ``iid`` is refused."""
+    cfg = _config(device_resident=True, device_resident_sampling="iid",
+                  max_iter=6, iters_per_log=2, iters_per_checkpoint=3,
+                  steps_per_call=2)
+    _run(cfg, tmp_path, tmp_path / "out", data_dirs)
+    log = (tmp_path / "out" / "train.log").read_text()
+    assert "(iid sampling)" in log and "Iter 6:" in log
+    _run(dict(cfg, max_iter=3), tmp_path, tmp_path / "part", data_dirs,
+         name="part.json")
+    _run(cfg, tmp_path, tmp_path / "part", data_dirs, checkpoint="auto")
+    assert (tmp_path / "part" / "iter.6").read_bytes() \
+        == (tmp_path / "out" / "iter.6").read_bytes()
     with pytest.raises(ValueError, match="device_resident_sampling"):
         _run(dict(cfg, device_resident_sampling="x"), tmp_path,
              tmp_path / "out", data_dirs)

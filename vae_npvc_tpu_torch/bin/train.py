@@ -7,6 +7,14 @@ and best-model selection (``check_loss_kind`` -> copy to
 cpu`` for a CPU run). The config is a YAML file (or a ``.json`` file, for
 hosts without a YAML parser).
 
+The host loader's batches reach the device through
+``data.dataset.prefetch_to_device`` (``prefetch_factor`` batches ahead).
+``device_resident: true`` stages the corpus on the device: ``epoch``
+sampling gathers the host loader's windows there, ``iid`` draws them there
+(``Trainer.train_steps_device``). ``--profile_dir`` traces one log
+interval with ``torch.profiler`` once two steps are done and writes a
+Chrome trace into the directory.
+
 Usage:
     python -m vae_npvc_tpu_torch.bin.train -c conf/train_vqvae.yaml \
         --train_dir dump/train --valid_dir dump/dev --output_dir exp/vqvae
@@ -70,6 +78,33 @@ def flat_mean_log(train_log):
             for k, v in train_log.items()}
 
 
+def start_profiler(device):
+    """A running ``torch.profiler`` of the host and, on a CUDA device, of
+    the device's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profiler(prof, device, profile_dir, iteration):
+    """Wait for the device, stop ``prof`` and write its Chrome trace into
+    ``profile_dir``; returns the trace's path."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    path = Path(profile_dir) / f"trace_iter{iteration}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return path
+
+
 def get_logger(output_dir):
     logger = logging.getLogger("vae_npvc_tpu_torch.train")
     logger.setLevel(logging.INFO)
@@ -85,7 +120,7 @@ def get_logger(output_dir):
 
 def train(args):
     from ..data.dataset import (UttMelSpkDataset, batch_iterator,
-                                index_iterator)
+                                index_iterator, prefetch_to_device)
     from ..train import build_trainer
 
     config = load_config(args.config)
@@ -95,6 +130,7 @@ def train(args):
     iters_per_log = config.get("iters_per_log", 1000)
     check_loss_kind = config.get("check_loss_kind", "X like")
     num_jobs = config.get("num_jobs", 8)
+    prefetch_factor = config.get("prefetch_factor", 2)
     seed = config.get("seed", 777)
 
     output_dir = Path(args.output_dir)
@@ -108,9 +144,10 @@ def train(args):
     train_set = UttMelSpkDataset(args.train_dir, config)
 
     # device-resident corpus (opt-in): stage every utterance on the device
-    # once and gather the host loader's exact epoch-permutation + crop
-    # windows there (data.dataset.index_iterator is the single source of
-    # both), so only indices cross to the device per step
+    # once. "epoch" sampling gathers the host loader's exact
+    # epoch-permutation + crop windows there (data.dataset.index_iterator
+    # is the single source of both), so only indices cross to the device
+    # per step; "iid" draws utterances and crops on the device
     use_dev = bool(config.get("device_resident", False))
     dev_sampling = config.get("device_resident_sampling", "epoch")
     if dev_sampling not in ("epoch", "iid"):
@@ -124,10 +161,6 @@ def train(args):
         logger.warning("device_resident is not supported by this trainer; "
                        "using the host loader")
         use_dev = False
-    if use_dev and dev_sampling == "iid":
-        raise NotImplementedError(
-            "device_resident_sampling: iid is not ported yet (ROADMAP "
-            "Queue A, trainer rest); use epoch")
     if use_dev:
         limit = config.get("device_resident_limit_bytes", 4 << 30)
         need = train_set.padded_nbytes()
@@ -137,9 +170,10 @@ def train(args):
                 f"> limit {limit / 1e9:.1f} GB; using the host loader")
             use_dev = False
 
-    train_iter = () if use_dev else batch_iterator(
-        train_set, train_batch, shuffle=True, drop_last=True, seed=seed,
-        num_workers=num_jobs)
+    train_iter = () if use_dev else prefetch_to_device(
+        batch_iterator(train_set, train_batch, shuffle=True, drop_last=True,
+                       seed=seed, num_workers=num_jobs),
+        size=prefetch_factor, device=trainer.device)
 
     valid_set = None
     if args.valid_dir:
@@ -203,6 +237,9 @@ def train(args):
     t_log = time.time()
     frames_per_batch = train_batch * train_set.crop_length
 
+    profile_dir = getattr(args, "profile_dir", None)
+    profiler = None
+
     # K optimizer steps per trainer call; chunks never cross a
     # log/checkpoint/max_iter boundary, so the logging cadence and the
     # checkpoint contents do not depend on K
@@ -225,14 +262,19 @@ def train(args):
         logger.info(f"Device-resident corpus: {nbytes / 1e6:.0f} MB staged "
                     f"on {trainer.device}; crops gathered on the device "
                     f"({dev_sampling} sampling)")
-        idx_it = index_iterator(train_set, train_batch, shuffle=True,
-                                drop_last=True, seed=seed)
+        if dev_sampling == "epoch":
+            idx_it = index_iterator(train_set, train_batch, shuffle=True,
+                                    drop_last=True, seed=seed)
     train_it = iter(train_iter)
     running = True
     while running:
         i = trainer.iteration
         if i >= max_iter:
             break
+        if profile_dir and profiler is None and i >= 2:
+            # past the first steps (lazy init, cuDNN's algorithm search),
+            # trace one log interval
+            profiler = start_profiler(trainer.device)
         K = chunk_size(i, steps_per_call, iters_per_log,
                        iters_per_checkpoint, max_iter)
         if idx_it is not None:
@@ -240,6 +282,8 @@ def train(args):
             detail = trainer.train_steps_indices(
                 np.stack([p[0] for p in pairs]),
                 np.stack([p[1] for p in pairs]))
+        elif use_dev:
+            detail = trainer.train_steps_device(K)
         else:
             batches = pull_chunk(train_it, K)
             if len(batches) < K:
@@ -248,6 +292,12 @@ def train(args):
                 break
             detail = trainer.train_steps(batches)
         iteration = trainer.iteration
+        if profiler is not None and profile_dir and (
+                iteration >= 2 + iters_per_log or iteration >= max_iter):
+            path = stop_profiler(profiler, trainer.device, profile_dir,
+                                 iteration)
+            logger.info(f"Saved profiler trace to {path}")
+            profile_dir = None
         for k, v in detail.items():
             train_log.setdefault(k, []).append(v)
 
@@ -301,6 +351,8 @@ def train(args):
         if iteration >= max_iter:
             break
 
+    if hasattr(train_it, "close"):
+        train_it.close()      # stops the prefetch thread
     if best_iter > 0:
         copyfile(str(output_dir / f"iter.{best_iter}"),
                  str(output_dir / "model.loss.best"))
@@ -334,6 +386,10 @@ def main(argv=None):
     parser.add_argument("--valid_dir", type=str, default=None,
                         help="Validation data dir")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler Chrome trace of the "
+                             "first log interval after two steps into this "
+                             "directory")
     train(parser.parse_args(argv))
 
 

@@ -8,12 +8,18 @@ zero-padded when shorter), read straight from the ark by row range.
 :func:`index_iterator` is the single source of the epoch permutation and
 the per-item crop starts: :func:`batch_iterator` loads those windows from
 disk, and ``Trainer.train_steps_indices`` gathers the same windows from
-the corpus staged on the device. The native C++ batch loader of the JAX
-package is not ported; ``use_native_loader`` is ignored.
+the corpus staged on the device. With ``use_native_loader`` (default on,
+as in the JAX package) a batch is read by the C++ loader
+(``data/native_loader.py``) in one call, bit for bit what the Python reads
+give; scps it does not take are read with Python. :func:`prefetch_to_device`
+keeps batches ahead of the train step, copied on a side CUDA stream from
+pinned memory.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -38,6 +44,18 @@ class UttMelSpkDataset:
             kaldi_io.load_dict_data(data_dir / "utt2num_frames").items()}
         self.utt2spks = kaldi_io.load_list_data(data_dir / "utt2spk_id")
         self.num_data = len(self.utt2spks)
+
+        # the native loader's rows follow feats.scp's line order
+        self.native = None
+        self._native_row = None
+        if config.get("use_native_loader", True):
+            from .native_loader import NativeArkLoader
+
+            self.native = NativeArkLoader.open(data_dir / "feats.scp")
+            if self.native is not None:
+                scp_row = {u: i for i, u in enumerate(self.feats_scp)}
+                self._native_row = np.asarray(
+                    [scp_row[u] for u, _ in self.utt2spks], np.int64)
         self.spk_ids = np.asarray([int(s) for _, s in self.utt2spks],
                                   np.int32)
 
@@ -140,6 +158,11 @@ def batch_iterator(dataset, batch_size, *, shuffle, drop_last, seed=0,
         for chunk, starts in index_iterator(
                 dataset, batch_size, shuffle=shuffle, drop_last=drop_last,
                 seed=seed, epochs=epochs):
+            if dataset.native is not None:
+                yield (dataset.native.load_batch(
+                    dataset._native_row[chunk], starts, dataset.crop_length,
+                    nthreads=max(num_workers, 1)), dataset.spk_ids[chunk])
+                continue
             pairs = list(zip(chunk, starts))
             if pool is not None:
                 items = list(pool.map(lambda a: dataset.get_at(*a), pairs))
@@ -150,3 +173,82 @@ def batch_iterator(dataset, batch_size, *, shuffle, drop_last, seed=0,
     finally:
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)
+
+
+def prefetch_to_device(iterator, size=2, device="cuda", put=None):
+    """Move the batches of ``iterator`` to ``device`` in a producer thread,
+    keeping up to ``size`` of them ahead of the consumer; yields tuples of
+    tensors. ``put`` (``batch -> device batch``) replaces the move.
+
+    On a CUDA device each batch is pinned (a fresh pinned buffer per
+    batch) and copied with ``non_blocking=True`` on a side stream, then an
+    event is recorded; the consumer makes its current stream wait on that
+    event and calls ``record_stream`` before it uses the tensors. On the
+    CPU the tensors are only wrapped; no stream is involved. An error of
+    the loader is raised in the consumer.
+    """
+    import torch
+
+    device = torch.device(device)
+    side = (torch.cuda.Stream(device)
+            if put is None and device.type == "cuda" else None)
+
+    def move(batch):
+        if put is not None:
+            return put(batch), None, None
+        if side is None:
+            return tuple(torch.as_tensor(a, device=device)
+                         for a in batch), None, None
+        host = [torch.as_tensor(a).contiguous().pin_memory() for a in batch]
+        with torch.cuda.stream(side):
+            out = tuple(h.to(device, non_blocking=True) for h in host)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        # the pinned buffers stay referenced until the consumer moves on
+        return out, ready, host
+
+    q: queue.Queue = queue.Queue(maxsize=max(int(size), 1))
+    stop = threading.Event()
+    end = object()
+
+    def offer(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def producer():
+        try:
+            for batch in iterator:
+                if not offer(move(batch)):
+                    return
+            offer(end)
+        except BaseException as e:  # raised again in the consumer
+            offer(e)
+        finally:
+            close = getattr(iterator, "close", None)
+            if close is not None:
+                close()
+
+    thread = threading.Thread(target=producer, daemon=True,
+                              name="prefetch_to_device")
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            out, ready, _host = item
+            if ready is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(ready)
+                for t in out:
+                    t.record_stream(current)
+            yield out
+    finally:
+        stop.set()

@@ -3,7 +3,8 @@
 Counterpart of the core of ``vae_npvc_tpu/train/trainer.py`` (``Trainer``:
 ``init_state``, ``train_step``, ``train_steps``, the non-finite guard,
 ``grad_accum``, ``valid``, ``stage_dataset`` + ``train_steps_indices``,
-``save_checkpoint`` / ``load_checkpoint`` in the JAX checkpoint format).
+``train_steps_device``, ``save_checkpoint`` / ``load_checkpoint`` in the
+JAX checkpoint format).
 Meshes, model-axis sharding and multi-host assembly belong to the parallel
 slice. It drives any registered model: the flat VQ-VAE with its EMA
 codebook and ``(feats, spks)`` batches, the hierarchical VQ-VAEs with one
@@ -27,7 +28,10 @@ Random draws (lazy codebook init, dead-code restarts, jitter) come from a
 ``torch.Generator`` on the trainer's device, reseeded from ``(seed, step)``
 at every step, so a resumed run draws what an uninterrupted one would; each
 EMA level of a hierarchy draws from its own generator, reseeded from
-``(seed, step, level)``. They are not the JAX package's draws.
+``(seed, step, level)``. The crops of :meth:`Trainer.train_steps_device`
+come from a generator of their own, reseeded from ``(seed, IID_SALT,
+step)``, so the VQ draws are the same with or without on-device sampling.
+They are not the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -47,6 +51,10 @@ from ..utils.bridge import (from_jax_variables, optimizer_from_jax,
                             optimizer_to_jax, to_jax_variables)
 from ..utils.migrate import WN_AXIS_FORMAT, maybe_migrate_model
 from .optim import OptState, build_optimizer
+
+# the iid sampler's stream, apart from the VQ draws' (JAX folds the same
+# constant into its base key)
+IID_SALT = 0x5A5A5A
 
 
 def _select(ok, new, old):
@@ -92,6 +100,8 @@ class Trainer:
         self.opt_state = None
         self._host_iter = 0       # completed optimizer steps
         self._dev_corpus = None
+        self._dev_batch = None
+        self.sample_gen = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------------ init
     def _flatten_parameters(self):
@@ -243,39 +253,68 @@ class Trainer:
     # ------------------------------------------------- device-resident data
     def stage_dataset(self, dataset, batch_size):
         """Upload the whole training corpus to the device once;
-        :meth:`train_steps_indices` then gathers host-chosen windows there,
-        so only indices cross to the device per step. ``batch_size`` is
-        the JAX trainer's argument (its on-device sampler needs it; windows
-        chosen on the host carry their own). Returns the staged feature
-        bytes."""
+        :meth:`train_steps_indices` then gathers host-chosen windows there
+        and :meth:`train_steps_device` draws ``batch_size`` windows a step
+        there, so at most indices cross to the device per step. Returns the
+        staged feature bytes."""
         feats, n_frames, spk_ids = dataset.padded_arrays()
         self._dev_corpus = (
             torch.as_tensor(feats, device=self.device),
             torch.as_tensor(n_frames, device=self.device),
             torch.as_tensor(spk_ids, device=self.device))
+        self._dev_batch = int(batch_size)
         self._dev_crop = dataset.crop_length
         return feats.nbytes
 
+    def _require_corpus(self):
+        if self._dev_corpus is None:
+            raise ValueError("call stage_dataset first")
+
+    def _gather(self, idx, starts):
+        """The ``(feats[B, crop, D], spks[B])`` batch of the staged
+        corpus's windows ``(idx[B], starts[B])`` (device tensors)."""
+        feats, _, spk_ids = self._dev_corpus
+        frames = torch.arange(self._dev_crop, device=self.device)
+        return feats[idx[:, None], starts[:, None] + frames], spk_ids[idx]
+
+    def _sample_iid(self, step):
+        """Step ``step``'s draws ``(idx[B], starts[B])`` (device int64):
+        utterances uniform over the corpus, then ``u ~ U[0, 1)`` per row
+        and ``start = floor(u * (max(n - crop, 0) + 1))``, from
+        :attr:`sample_gen` reseeded from ``(seed, IID_SALT, step)``."""
+        _, n_frames, _ = self._dev_corpus
+        B, crop = self._dev_batch, self._dev_crop
+        seed = (self.seed * 1_000_003 + IID_SALT) * 1_000_033 + step
+        self.sample_gen.manual_seed(seed % (1 << 63))
+        idx = torch.randint(0, n_frames.shape[0], (B,),
+                            generator=self.sample_gen, device=self.device)
+        hi = (n_frames[idx].long() - crop).clamp_min(0)
+        u = torch.rand((B,), generator=self.sample_gen, device=self.device)
+        # u * (hi + 1) may round up to hi + 1 in float32
+        starts = torch.minimum((u * (hi + 1).float()).long(), hi)
+        return idx, starts
+
     def train_steps_device(self, K):
-        raise NotImplementedError(
-            "iid on-device sampling (train_steps_device) is not ported yet "
-            "(ROADMAP Queue A, trainer rest); use train_steps_indices")
+        """K optimizer steps on windows drawn iid on the device from the
+        staged corpus (:meth:`_sample_iid` of each step's iteration);
+        returns the detail with a leading (K,) axis per key."""
+        self._require_corpus()
+        self._require_state()
+        details = [self.train_step(self._gather(
+            *self._sample_iid(self._host_iter))) for _ in range(K)]
+        return {k: torch.stack([d[k] for d in details]) for k in details[0]}
 
     def train_steps_indices(self, idx, starts):
         """K steps gathering host-chosen windows from the staged corpus.
         ``idx``/``starts`` are (K, B) int arrays from
         :func:`..data.dataset.index_iterator`."""
-        if self._dev_corpus is None:
-            raise ValueError("call stage_dataset first")
-        feats, _, spk_ids = self._dev_corpus
-        crop = self._dev_crop
+        self._require_corpus()
+        feats = self._dev_corpus[0]
         idx = torch.as_tensor(np.asarray(idx), device=self.device).long()
         starts = torch.as_tensor(np.asarray(starts), device=self.device) \
-            .long().clamp(0, feats.shape[1] - crop)
-        frames = torch.arange(crop, device=self.device)
-        batches = [(feats[ii[:, None], ss[:, None] + frames], spk_ids[ii])
-                   for ii, ss in zip(idx, starts)]
-        return self.train_steps(batches)
+            .long().clamp(0, feats.shape[1] - self._dev_crop)
+        return self.train_steps([self._gather(ii, ss)
+                                 for ii, ss in zip(idx, starts)])
 
     # ------------------------------------------------------------ validation
     def valid(self, batches):
