@@ -100,14 +100,28 @@ resumed from ``iter.8`` drawing the same windows; the host loader with the
 native C++ ark loader through ``prefetch_to_device`` for 8 steps (every
 native batch against the Python reads), the loader's frames/s; and
 ``bin/doctor --config --bundle --json`` on the stage-8 bundle, its model
-probe's K1/K2 launches. Each phase prints one JSON line; any failure exits
-non-zero. The last lines are the kernel summary, the card's
+probe's K1/K2 launches. Last, the parallel slice (``parallel``): the
+flagship's data-parallel step over NCCL at world size 1 (B = 128, bf16, 16
+steps alternating with the plain trainer's: losses bit for bit, K1/K2/K3
+and one gradient collective a step, both profiled), then two ranks sharing
+the card over gloo (collectives through host memory) against one process:
+the DP step at B = 16 in fp32 (``dp2``, candidates injected), a 1 x 2
+model-axis mesh with a checkpoint round trip (``tp``), one utterance of
+8,192 frames split over the ranks in fp32 and bf16 with K2's split
+entry points counted (``seq``), the flagship decoder stack as a two-stage
+pipeline of four microbatches with its gradients (``pp``) and the vocoder
+trainer across the adversary's start (``pwg_dp``); a data-parallel engine
+over HTTP against the plain one and two replicas on one card
+(``dp_serve``); ``bin/train`` under torchrun's environment, resumed once
+(``train_cli``); K2's split entry points timed at a rank's row. Each phase
+prints one JSON line; any failure exits non-zero. The last lines are the kernel summary, the card's
 name and power limit as ``nvidia-smi`` gives them, and ``{"ok": true,
 "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import io
 import json
 import math
@@ -175,6 +189,11 @@ BF16_OPS_PER_S = 989e12
 TF32_OPS_PER_S = 495e12
 # twice the H100's 50 MB L2: inputs cycled through this much come from HBM
 L2_COLD_BYTES = 100 * 2 ** 20
+# L2-cold timing: calls run back to back (enough that the last L2-full of
+# output write-backs, which falls after the run, is a few per cent of the
+# traffic), queued behind a spin of this many cycles (~20 ms at 1.98 GHz)
+COLD_ITERS = 128
+SPIN_CYCLES = 40_000_000
 
 K2_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 2 ** -6)}
 # the GroupNorm backward against its plain version, relative to each
@@ -328,34 +347,68 @@ def check(cond, msg):
 def timed(torch, fn, arg_sets, iters=50, warmup=3, names=None,
           by_name=None):
     """``(device_ms, events_ms)`` of one ``fn(*args)`` call, averaged over
-    ``iters`` back-to-back calls that cycle through ``arg_sets``.
+    ``iters`` calls that cycle through ``arg_sets``.
+
+    One argument set keeps the inputs hot in L2, as on the serving path:
     ``device_ms`` sums the durations of the kernels the call ran
-    (torch.profiler); ``events_ms`` is the CUDA-event time between the first
-    and last call, which also counts the gaps while the host issues launches
-    (a small kernel is host-bound there). One argument set keeps the inputs
-    hot in L2, as on the serving path; :func:`l2_cold` sets keep them cold.
+    (torch.profiler); ``events_ms`` is the CUDA-event time between the
+    first and last call, which also counts the gaps while the host issues
+    launches (a small kernel is host-bound there).
+
+    :func:`l2_cold` sets keep the inputs cold, and each call's outputs are
+    held until more than ``L2_COLD_BYTES`` have been written after them,
+    so that every call writes to memory that is not in L2 (the caching
+    allocator would otherwise hand each call the block the last one freed,
+    still in L2). At least ``COLD_ITERS`` calls are queued behind a spin
+    kernel, so that the device runs them back to back, and both times are
+    the CUDA-event time of that run per call: kernels and the device's own
+    gaps between them. Paced by the host, a small kernel leaves the device
+    idle between launches, the L2 writes its dirty lines back then, and
+    the kernels' durations miss the output writes (on an H100 80GB HBM3
+    the split apply read 0.0038 ms against its 0.0050 ms bound that
+    way). Queued, the
+    write-backs fall inside the run, all but the last L2-full of them.
+
     A list given as ``names`` receives the names of the device kernels the
     profiled calls ran, a dict given as ``by_name`` their device ms per call
-    by name. A profiling window that comes back without device events is
+    by name (kernel durations, from calls the host paces, L2-cold too). A
+    profiling window that comes back without device events is
     taken again, up to three times, and then fails."""
     from torch.profiler import ProfilerActivity, profile
 
+    cold = len(arg_sets) > 1
+    held, held_bytes = collections.deque(), [0]
+
+    def call(i):
+        out = fn(*arg_sets[i % len(arg_sets)])
+        if cold:
+            n = _out_bytes(out)
+            held.append((out, n))
+            held_bytes[0] += n
+            while held_bytes[0] - held[0][1] > L2_COLD_BYTES:
+                held_bytes[0] -= held.popleft()[1]
+
     for i in range(warmup):
-        fn(*arg_sets[i % len(arg_sets)])
+        call(i)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    torch.cuda.synchronize()
-    events_ms = start.elapsed_time(end) / iters
+    if cold:
+        events_ms = _queued_ms(torch, call, max(iters, COLD_ITERS))
+        if names is None and by_name is None:
+            return events_ms, events_ms
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            call(i)
+        end.record()
+        torch.cuda.synchronize()
+        events_ms = start.elapsed_time(end) / iters
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
-                fn(*arg_sets[i % len(arg_sets)])
+                call(i)
             torch.cuda.synchronize()
         device = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -369,14 +422,45 @@ def timed(torch, fn, arg_sets, iters=50, warmup=3, names=None,
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / iters / 1e3)
     us = sum(e.time_range.elapsed_us() for e in device)
-    return us / iters / 1e3, events_ms
+    return (events_ms if cold else us / iters / 1e3), events_ms
+
+
+def _queued_ms(torch, call, iters):
+    """CUDA-event ms per ``call(i)`` over ``iters`` calls that the host
+    queues while a spin kernel holds the stream, so that the device runs
+    them back to back. A spin that ends before the host has queued every
+    call is taken again four times longer, up to three times, and then
+    fails."""
+    cycles = SPIN_CYCLES
+    for _ in range(3):
+        torch.cuda._sleep(cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            call(i)
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    check(False, f"timed: {iters} calls were not queued within a spin of "
+          f"{cycles // 4} cycles")
+
+
+def _out_bytes(out):
+    """Bytes of the tensors in a call's output (a tensor or a tuple)."""
+    if isinstance(out, (tuple, list)):
+        return sum(_out_bytes(o) for o in out)
+    return out.numel() * out.element_size() if hasattr(out, "numel") else 0
 
 
 def l2_cold(args, iters=53):
     """Copies of the tensors in ``args``, enough that more than
     ``L2_COLD_BYTES`` pass between two uses of one copy (at least two
-    copies): each call of :func:`timed` then reads its inputs from HBM, as
-    the bound assumes."""
+    copies): each call of :func:`timed` then reads its inputs from HBM and
+    writes its outputs there, as the bound assumes."""
     nbytes = sum(a.numel() * a.element_size() for a in args
                  if hasattr(a, "numel"))
     n = min(iters, max(2, -(-L2_COLD_BYTES // nbytes)))
@@ -1641,7 +1725,7 @@ def _kernel_class(name):
                      ("::attn_bwd", "fused_attention_backward"),
                      ("::gn_bwd", "fused_group_norm_backward"),
                      ("::gn_", "fused_group_norm"), ("::vq_", "vq_fused"),
-                     ("fft", "fft"), ("memcpy", "memcpy"),
+                     ("nccl", "nccl"), ("fft", "fft"), ("memcpy", "memcpy"),
                      ("fprop", "conv"), ("dgrad", "conv"), ("wgrad", "conv"),
                      ("conv", "conv"),
                      ("nchwtonhwc", "layout"), ("nhwctonchw", "layout"),
@@ -1679,12 +1763,14 @@ def _profiled(torch, fn, by_operator=True):
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
     busy = sum(by_class.values())
     # device time by the PyTorch operator that launched the kernels
-    by_op, copies = {}, None
+    by_op, host_op, copies = {}, {}, None
     if by_operator:
         averages = prof.key_averages()
         by_op = {a.key: a.self_device_time_total / 1e3 for a in averages
                  if a.self_device_time_total > 0
                  and a.device_type != torch.autograd.DeviceType.CUDA}
+        host_op = {a.key: a.self_cpu_time_total / 1e3 for a in averages
+                   if a.device_type != torch.autograd.DeviceType.CUDA}
         copies = sum(a.count for a in averages if a.key == "aten::copy_")
 
     def top(d, k):
@@ -1695,6 +1781,7 @@ def _profiled(torch, fn, by_operator=True):
             "device_ms_by_class": top(by_class, 10),
             "top_kernels_ms": top(by_name, 8),
             "device_ms_by_operator": top(by_op, 12),
+            "host_ms_by_operator": top(host_op, 12),
             "aten_copy_calls": copies}
 
 
@@ -4016,6 +4103,50 @@ def _pwg_free_leaf(name):
     return name == "in.v"
 
 
+def _voc_state_against(got, want, what):
+    """Two vocoder states' leaves as voc_golden holds them: every leaf
+    within GOLDEN_STATE_TOL but G's RAdam moments, which are held within
+    VOC_G_MOMENT_TOL of their largest and VOC_G_MOMENT_LEAF_TOL of each
+    leaf's peak. Returns ``(largest other error, G's moment errors of the
+    largest, their relative L2, the worst leaf of each)``."""
+    check(set(got) == set(want), f"{what}: checkpoint trees differ")
+    atol, rtol = GOLDEN_STATE_TOL
+    state_err = 0.0
+    moments = {"mu": ([], []), "nu": ([], [])}
+    g_leaf = {"mu": (0.0, None), "nu": (0.0, None)}
+    for k in want:
+        a, b = got[k].astype(np.float64), want[k].astype(np.float64)
+        check(a.shape == b.shape, f"{what}: {k} shape {a.shape}")
+        kind = k.split("/")[3] if k.startswith("optimizer_G/1/0/") else None
+        if kind in moments:
+            moments[kind][0].append(a.ravel())
+            moments[kind][1].append(b.ravel())
+            leaf = k.split("/", 4)[4]
+            if not _pwg_free_leaf(leaf.replace("/", ".")):
+                err = float(np.abs(a - b).max())
+                r = err / float(np.abs(b).max()) if err else 0.0
+                if r > g_leaf[kind][0]:
+                    g_leaf[kind] = (r, leaf)
+            continue
+        if not b.size:
+            continue
+        err = np.abs(a - b)
+        state_err = max(state_err, float(err.max()))
+        check(bool(np.all(err <= atol + rtol * np.abs(b))),
+              f"{what}: {k} differs by {float(err.max())}")
+    g_moment, g_moment_l2 = {}, {}
+    for kind, (a, b) in moments.items():
+        a, b = np.concatenate(a), np.concatenate(b)
+        g_moment[kind] = float(np.abs(a - b).max() / np.abs(b).max())
+        g_moment_l2[kind] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        check(g_moment[kind] <= VOC_G_MOMENT_TOL, f"{what}: G's {kind} "
+              f"differs by {g_moment[kind]} of its largest")
+        check(g_leaf[kind][0] <= VOC_G_MOMENT_LEAF_TOL, f"{what}: G's "
+              f"{kind} of {g_leaf[kind][1]} differs by {g_leaf[kind][0]} "
+              "of the leaf's peak")
+    return state_err, g_moment, g_moment_l2, g_leaf
+
+
 def phase_voc_golden(torch):
     """The port's ``PwgTrainer`` on the card against the committed JAX
     fixture (tests/test_torch_port_pwg_train.py) in fp32: six steps across
@@ -4045,41 +4176,8 @@ def phase_voc_golden(torch):
             (Path(tmp) / "final").read_bytes()))
     want = _leaves(msgpack_io.msgpack_restore(
         (FIXTURES / "pwg_golden_final.msgpack").read_bytes()))
-    check(set(got) == set(want), "voc_golden: checkpoint trees differ")
-    atol, rtol = GOLDEN_STATE_TOL
-    state_err = 0.0
-    moments = {"mu": ([], []), "nu": ([], [])}
-    g_leaf = {"mu": (0.0, None), "nu": (0.0, None)}
-    for k in want:
-        a, b = got[k].astype(np.float64), want[k].astype(np.float64)
-        check(a.shape == b.shape, f"voc_golden: {k} shape {a.shape}")
-        kind = k.split("/")[3] if k.startswith("optimizer_G/1/0/") else None
-        if kind in moments:
-            moments[kind][0].append(a.ravel())
-            moments[kind][1].append(b.ravel())
-            leaf = k.split("/", 4)[4]
-            if not _pwg_free_leaf(leaf.replace("/", ".")):
-                err = float(np.abs(a - b).max())
-                r = err / float(np.abs(b).max()) if err else 0.0
-                if r > g_leaf[kind][0]:
-                    g_leaf[kind] = (r, leaf)
-            continue
-        if not b.size:
-            continue
-        err = np.abs(a - b)
-        state_err = max(state_err, float(err.max()))
-        check(bool(np.all(err <= atol + rtol * np.abs(b))),
-              f"voc_golden: {k} differs from JAX by {float(err.max())}")
-    g_moment, g_moment_l2 = {}, {}
-    for kind, (a, b) in moments.items():
-        a, b = np.concatenate(a), np.concatenate(b)
-        g_moment[kind] = float(np.abs(a - b).max() / np.abs(b).max())
-        g_moment_l2[kind] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
-        check(g_moment[kind] <= VOC_G_MOMENT_TOL, f"voc_golden: G's {kind} "
-              f"differs from JAX by {g_moment[kind]} of its largest")
-        check(g_leaf[kind][0] <= VOC_G_MOMENT_LEAF_TOL, f"voc_golden: G's "
-              f"{kind} of {g_leaf[kind][1]} differs from JAX by "
-              f"{g_leaf[kind][0]} of the leaf's peak")
+    state_err, g_moment, g_moment_l2, g_leaf = _voc_state_against(
+        got, want, "voc_golden")
     final = PwgTrainer(cfg, device="cuda")
     final.load_checkpoint(FIXTURES / "pwg_golden_final.msgpack")
     wav = final.synthesize(g["eval/mel"], g["eval/z"])
@@ -5747,6 +5845,765 @@ def phase_trainer_rest(torch, root, bundle, smi):
             "doctor": doctor_launches}
 
 
+# ---------------------------------------------------------------- parallel
+# The parallel slice (vae_npvc_tpu_torch/parallel) on the one card: NCCL at
+# world size 1 for the flagship's data-parallel step and bin/train, and
+# two ranks sharing cuda:0 over gloo (their collectives go through host
+# memory: correctness and the kernels under collectives, not multi-card
+# speed) for the rest.
+PAR_DP1_STEPS = 16
+PAR_B, PAR_T, PAR_STEPS, PAR_TP_STEPS = 16, 256, 4, 3
+PAR_SEQ_T = 8192
+PAR_PP_M, PAR_PP_B = 4, 8           # microbatches of B rows, T = PAR_T
+PAR_LOSS_RTOL = 2e-5                # tests/test_parallel.py:160-166
+# dp2's parameters and codebook after 4 fp32 steps, of each one's peak: the
+# sums run in another order over two ranks
+PAR_STATE_TOL = 1e-4
+PAR_SEQ_TOL = 1e-4                  # of the mel's peak, fp32
+PAR_PP_TOL, PAR_PP_GRAD_TOL = 1e-5, 1e-4
+PAR_SERVE_TOL = 1e-5
+PAR_VOC = dict(PWG, discriminator_train_start_steps=1)
+PAR_VOC_B, PAR_VOC_M, PAR_VOC_STEPS = 4, 32, 3
+PAR_CLI_STEPS = 8
+
+
+def _flat_norms():
+    """GroupNorms of the flagship flat model: one per encoder stack layer,
+    one per decoder GLU block (20)."""
+    enc, dec = FLAGSHIP["encoder"], FLAGSHIP["decoder"]
+    return sum(enc["stacks"]) * enc["stack_layers"] + sum(dec["stacks"])
+
+
+def _par_cfg(dtype="float32"):
+    return dict(FLAGSHIP, **TRAIN, compute_dtype=dtype)
+
+
+def _par_batches(n, B=PAR_B, T=PAR_T, seed=31):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(-3.0, 1.5, size=(B, T, 80)).astype(np.float32),
+             rng.integers(0, FLAGSHIP["y_num"], size=B).astype(np.int32))
+            for _ in range(n)]
+
+
+def _inject_candidates(torch):
+    """Every rank's lazy-init and restart candidates: one fixed (K, D)
+    array; a gathered pool gives its first K rows. One process on the
+    global batch then draws the same codebook (tests/test_torch_port_
+    parallel.py injects the same way). Returns the restore function."""
+    from vae_npvc_tpu_torch.ops import vq
+
+    K, D = FLAGSHIP["z_num"], FLAGSHIP["z_dim"]
+    C = torch.tensor(np.random.default_rng(5).normal(size=(K, D)),
+                     dtype=torch.float32)
+    saved = vq._tiled_candidates, vq._pick
+    vq._tiled_candidates = lambda gen, z, k: C.to(z.device)
+    vq._pick = lambda gen, n, k, device: torch.arange(k, device=device)
+
+    def restore():
+        vq._tiled_candidates, vq._pick = saved
+    return restore
+
+
+def _split_counters():
+    from vae_npvc_tpu_torch.ops.groupnorm import (group_norm_split_apply,
+                                                  group_norm_split_stats)
+
+    return {"group_norm_split_stats": group_norm_split_stats,
+            "group_norm_split_apply": group_norm_split_apply}
+
+
+def _all_counts():
+    return {k: fn.launches
+            for k, fn in {**_counters(), **_split_counters()}.items()}
+
+
+def _zero_all_counts():
+    for fn in {**_counters(), **_split_counters()}.values():
+        fn.launches = 0
+
+
+def _rel(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-12)
+
+
+def _par_dp1(torch, root):
+    """The flagship's DP step over NCCL at world size 1 (B = 128, T = 256,
+    bf16, 16 steps of the staged corpus) against the plain trainer from
+    the same state on the same windows."""
+    import torch.distributed as dist
+
+    from vae_npvc_tpu_torch.data.dataset import UttMelSpkDataset
+    from vae_npvc_tpu_torch.parallel import comm
+    from vae_npvc_tpu_torch.parallel.mesh import make_mesh
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
+    cfg = _par_cfg("bfloat16")
+    corpus = root / "dp_corpus"
+    corpus.mkdir(parents=True)
+    _synthetic_corpus(corpus, 256, seed=4)
+    dataset = UttMelSpkDataset(corpus, cfg)
+    keys = ("Total", "X like", "VQ loss", "grad_norm", "usage")
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl1",
+                            rank=0, world_size=1)
+    try:
+        # the two trainers' steps alternate (plain, DP, plain, ...), so a
+        # drift of the host's speed falls on both
+        plain_tr = Trainer(cfg, device="cuda")
+        dp_tr = Trainer(cfg, device="cuda", mesh=make_mesh())
+        for tr in (plain_tr, dp_tr):
+            tr.init_state()
+            tr.stage_dataset(dataset, cfg["batch_size"])
+        plain, dp = ({k: [] for k in keys} for _ in range(2))
+        plain_ms, dp_ms = [], []
+        counts = {k: 0 for k in _counters()}
+        comm.log = []
+        for _ in range(PAR_DP1_STEPS):
+            for tr, out, ms in ((plain_tr, plain, plain_ms),
+                                (dp_tr, dp, dp_ms)):
+                _zero_all_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                d = tr.train_steps_device(1)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                for k in keys:
+                    out[k].append(float(d[k][0]))
+                if tr is dp_tr:
+                    for k, v in _read_counts().items():
+                        counts[k] += v
+        log, comm.log = comm.log, None
+        n_params = int(dp_tr.flat.numel())
+        plain_prof = _profiled(torch, lambda: plain_tr.train_steps_device(1))
+        dp_prof = _profiled(torch, lambda: dp_tr.train_steps_device(1))
+        del plain_tr, dp_tr
+    finally:
+        dist.destroy_process_group()
+    for k in keys:
+        check(dp[k] == plain[k], f"dp1: {k} {dp[k]} differs from the plain "
+              f"trainer's {plain[k]}")
+    want = {"vq_fused": 1, "fused_group_norm": _flat_norms(),
+            "fused_group_norm_backward": _flat_norms()}
+    check(counts == {k: v * PAR_DP1_STEPS for k, v in want.items()},
+          f"dp1: launches {counts} over {PAR_DP1_STEPS} steps")
+    grad_calls = sum(1 for name, ax, n in log if n == n_params)
+    check(grad_calls == PAR_DP1_STEPS,
+          f"dp1: {grad_calls} gradient collectives in {PAR_DP1_STEPS} steps")
+    per_step = {}
+    for name, ax, n in log:
+        per_step[name] = per_step.get(name, 0) + 1 / PAR_DP1_STEPS
+    steady = slice(2, None)
+    emit({"phase": "parallel_dp1", "backend": "nccl", "world_size": 1,
+          "steps": PAR_DP1_STEPS, "B": cfg["batch_size"],
+          "T": cfg["crop_length"], "dtype": cfg["compute_dtype"],
+          "losses_bit_equal_to_plain": True, "total": dp["Total"],
+          "launches_per_step": want, "gradient_collectives_per_step": 1,
+          "collectives_per_step": per_step,
+          "ms_per_step_median": float(np.median(dp_ms[steady])),
+          "plain_ms_per_step_median": float(np.median(plain_ms[steady])),
+          "ms_per_step": dp_ms, "plain_ms_per_step": plain_ms,
+          "steps_alternate": True,
+          "one_step_profile": dp_prof, "plain_one_step_profile": plain_prof})
+    return {"ms": float(np.median(dp_ms[steady])),
+            "plain_ms": float(np.median(plain_ms[steady]))}
+
+
+def _par_references(torch, root):
+    """One process on the card for the two-rank cases: the DP/TP steps on
+    the global batch (candidates injected), the whole utterance's ids and
+    mel (fp32 and bf16), the vocoder's steps."""
+    from vae_npvc_tpu_torch.infer.convert import Converter
+    from vae_npvc_tpu_torch.train.pwg import PwgTrainer
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
+    restore = _inject_candidates(torch)
+    try:
+        tr = Trainer(_par_cfg(), device="cuda")
+        tr.init_state()
+        totals = [float(tr.train_step(b)["Total"])
+                  for b in _par_batches(PAR_STEPS)]
+        q = tr.ema["quantizer"]
+        torch.save({"totals": totals, "flat": tr.flat.cpu(),
+                    "emb": q.emb.cpu(), "emb_sum": q.emb_sum.cpu(),
+                    "emb_elem": q.emb_elem.cpu()}, root / "ref_dp.pt")
+        del tr
+    finally:
+        restore()
+    ckpt = root / "flagship.msgpack"
+    _random_checkpoint(torch, ckpt, seed=3)
+    x = _seq_utterance()
+    seq = {}
+    for dtype in ("float32", "bfloat16"):
+        conv = Converter(dict(FLAGSHIP, compute_dtype=dtype), device="cuda")
+        conv.load_checkpoint(ckpt)
+        with torch.inference_mode():
+            xt = torch.tensor(x, device="cuda")
+            seq[f"{dtype}_ids"] = conv.model.encode(xt).cpu().numpy()
+            seq[f"{dtype}_mel"] = conv.model.infer(
+                xt, torch.tensor([5], device="cuda")).cpu().numpy()
+        del conv
+    np.savez(root / "ref_seq.npz", **seq)
+    voc = PwgTrainer(PAR_VOC, device="cuda")
+    voc.init_state()
+    voc.save_checkpoint(root / "voc_seed.ckpt")
+    wavs, mels, zs = _par_voc_batches()
+    details = [{k: float(v) for k, v in voc.train_step((w, m), z).items()}
+               for w, m, z in zip(wavs, mels, zs)]
+    voc.save_checkpoint(root / "voc_one.ckpt")
+    (root / "voc_one.json").write_text(json.dumps(details))
+    return ckpt
+
+
+def _seq_utterance():
+    rng = np.random.default_rng(8)
+    t = np.arange(PAR_SEQ_T)[:, None] / 100.0
+    band = np.linspace(0, 1, 80)[None, :]
+    mel = sum(np.sin(2 * np.pi * (rng.uniform(0.5, 4.0) * t
+                                  + rng.uniform(0.5, 3.0) * band))
+              for _ in range(4))
+    return (mel - 3.0 + 0.1 * rng.normal(size=mel.shape))[None] \
+        .astype(np.float32)
+
+
+def _par_voc_batches():
+    rng = np.random.default_rng(12)
+    S = PAR_VOC_M * PAR_VOC["n_shift"]
+    return ([(0.3 * rng.normal(size=(PAR_VOC_B, S))).astype(np.float32)
+             for _ in range(PAR_VOC_STEPS)],
+            [rng.normal(-3.0, 1.0, size=(PAR_VOC_B, PAR_VOC_M, 80))
+             .astype(np.float32) for _ in range(PAR_VOC_STEPS)],
+            [rng.normal(size=(PAR_VOC_B, S, 1)).astype(np.float32)
+             for _ in range(PAR_VOC_STEPS)])
+
+
+def _rank_dp2(torch, root, res):
+    from vae_npvc_tpu_torch.parallel.mesh import make_mesh
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
+    ref = torch.load(root / "ref_dp.pt")
+    tr = Trainer(_par_cfg(), device="cuda", mesh=make_mesh())
+    tr.init_state()
+    totals, ms = [], []
+    for b in _par_batches(PAR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        totals.append(float(tr.train_step(b)["Total"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    q = tr.ema["quantizer"]
+    flat = tr.flat.cpu()
+    res["dp2"] = {
+        "totals": totals, "ref_totals": ref["totals"],
+        "loss_rel_err": max(_rel(a, b) for a, b in zip(totals,
+                                                       ref["totals"])),
+        "params_err_of_peak": float((flat - ref["flat"]).abs().max()
+                                    / ref["flat"].abs().max()),
+        "ema_err_of_peak": {k: float((getattr(q, k).cpu() - ref[k]).abs()
+                                     .max() / ref[k].abs().max())
+                            for k in ("emb", "emb_sum", "emb_elem")},
+        "ms_per_step_host_transport": ms, "params": int(flat.numel())}
+
+
+def _rank_tp(torch, root, rank, res):
+    from vae_npvc_tpu_torch.parallel.mesh import make_mesh
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
+    ref = torch.load(root / "ref_dp.pt")
+    mesh = make_mesh(1, 2)
+    tr = Trainer(_par_cfg(), device="cuda", mesh=mesh)
+    tr.init_state()
+    totals = [float(tr.train_step(b)["Total"])
+              for b in _par_batches(PAR_STEPS)[:PAR_TP_STEPS]]
+    tr.save_checkpoint(root / "tp.ckpt")
+    back = Trainer(_par_cfg(), device="cuda", mesh=mesh)
+    back.load_checkpoint(root / "tp.ckpt")
+    back.save_checkpoint(root / "tp_again.ckpt")
+    same = (rank != 0 or (root / "tp.ckpt").read_bytes()
+            == (root / "tp_again.ckpt").read_bytes())
+    res["tp"] = {
+        "totals": totals,
+        "loss_rel_err": max(_rel(a, b) for a, b in zip(
+            totals, ref["totals"][:PAR_TP_STEPS])),
+        "split_parameters": sum(1 for s in tr._tp.specs.values() if s),
+        "parameters": len(tr._tp.specs),
+        "local_floats": int(tr._opt_vector().numel()),
+        "whole_floats": int(tr.flat.numel()),
+        "checkpoint_round_trip_bit_equal": bool(same),
+        "reloaded_flat_equal": bool(torch.equal(back.flat, tr.flat))}
+
+
+def _rank_seq(torch, root, res):
+    from vae_npvc_tpu_torch.infer.convert import Converter
+    from vae_npvc_tpu_torch.parallel import comm
+    from vae_npvc_tpu_torch.parallel.mesh import make_mesh
+    from vae_npvc_tpu_torch.parallel.seq_infer import (
+        sequence_parallel_infer, sequence_parallel_model)
+
+    ref = np.load(root / "ref_seq.npz")
+    mesh = make_mesh()
+    ax = mesh.axis("data")
+    x = _seq_utterance()
+    T = x.shape[1] // ax.size
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dict(FLAGSHIP, compute_dtype=dtype)
+        conv = Converter(cfg, device="cuda")
+        conv.load_checkpoint(root / "flagship.msgpack")
+        model = sequence_parallel_model(cfg, conv.model.state_dict(), "cuda")
+        y = np.array([5], np.int32)
+        sequence_parallel_infer(cfg, None, x, y, mesh, model=model)  # warm
+        torch.cuda.synchronize()
+        _zero_all_counts()
+        t0 = time.perf_counter()
+        mel = sequence_parallel_infer(cfg, None, x, y, mesh, model=model)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _all_counts()
+        with comm.bind(mesh), torch.inference_mode():
+            ids = model.encode(torch.tensor(
+                x[:, ax.index * T:(ax.index + 1) * T], device="cuda"))
+            ids = torch.cat(list(comm.all_gather(ids, "data")), dim=1)
+        ids = ids.cpu().numpy()
+        mel = mel.cpu().numpy()
+        want = ref[f"{dtype}_mel"]
+        out[dtype] = {
+            "ms": ms, "launches": counts,
+            "ids_equal_share": float((ids == ref[f"{dtype}_ids"]).mean()),
+            "mel_err_of_peak": float(np.abs(mel - want).max()
+                                     / np.abs(want).max()),
+            "finite": bool(np.isfinite(mel).all()),
+            "shape_ok": mel.shape == want.shape}
+        del conv, model
+    res["seq"] = out
+
+
+def _rank_pp(torch, root, rank, res):
+    from vae_npvc_tpu_torch.infer.convert import Converter
+    from vae_npvc_tpu_torch.parallel import pp
+    from vae_npvc_tpu_torch.parallel.mesh import Mesh
+
+    conv = Converter(dict(FLAGSHIP, compute_dtype="float32"), device="cuda")
+    conv.load_checkpoint(root / "flagship.msgpack")
+    dec = conv.model.decoder
+    arch = FLAGSHIP["decoder"]
+    names = pp.decoder_stack_names(arch)
+    stacked = {k: v.detach().clone().requires_grad_() for k, v in
+               pp.stack_layer_params(pp.decoder_layer_params(dec, names),
+                                     names).items()}
+    rng = np.random.default_rng(21)
+    B = PAR_PP_M * PAR_PP_B
+    W, S, Cc = arch["out_channels"][0], arch["skip_channels"], \
+        arch["cond_channels"]
+    h = torch.tensor(rng.normal(size=(B, PAR_T, W)), dtype=torch.float32,
+                     device="cuda")
+    c = torch.tensor(rng.normal(size=(B, 1, Cc)), dtype=torch.float32,
+                     device="cuda")
+    tgt = torch.tensor(rng.normal(size=(B, PAR_T, S)), dtype=torch.float32,
+                       device="cuda")
+
+    def loss(hh, ss):
+        return ((ss - tgt) ** 2).mean() + 0.5 * (hh ** 2).mean()
+
+    mesh = Mesh({"pipe": 2})
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    hp, sp = pp.pipeline_decoder_stack(FLAGSHIP, stacked, h, c, mesh,
+                                       microbatches=PAR_PP_M)
+    fwd = _read_counts()
+    grads = torch.autograd.grad(loss(hp, sp), list(stacked.values()))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    bwd = _read_counts()
+    hs, ss = h, torch.zeros(h.shape[:2] + (S,), device="cuda")
+    for n in names:
+        hs, s = getattr(dec, n)(hs, c)
+        ss = ss + s
+    params = [p for n in names for p in getattr(dec, n).parameters()]
+    gs = torch.autograd.grad(loss(hs, ss), params)
+    per = len(gs) // len(names)
+    k = len(names) // 2
+    grad_err = 0.0
+    for i, key in enumerate(stacked):
+        for j in range(rank * k, (rank + 1) * k):
+            ref = gs[j * per + i]
+            grad_err = max(grad_err, float((grads[i][j] - ref).abs().max()
+                                           / ref.abs().max().clamp_min(
+                                               1e-30)))
+    res["pp"] = {
+        "stages": 2, "microbatches": PAR_PP_M, "B_per_microbatch": PAR_PP_B,
+        "T": PAR_T, "layers": len(names), "ms_forward_backward": ms,
+        "h_err_of_peak": float((hp - hs).abs().max().detach()
+                               / hs.abs().max()),
+        "skip_err_of_peak": float((sp - ss).abs().max().detach()
+                                  / ss.abs().max()),
+        "grad_err_of_leaf_peak": grad_err,
+        "k2_launches_forward": fwd["fused_group_norm"],
+        "k3_launches_backward": bwd["fused_group_norm_backward"],
+        "own_layers": [rank * k, (rank + 1) * k]}
+
+
+def _rank_voc(torch, root, rank, res):
+    from vae_npvc_tpu_torch.parallel.mesh import make_mesh
+    from vae_npvc_tpu_torch.train.pwg import PwgTrainer
+
+    tr = PwgTrainer(PAR_VOC, device="cuda", mesh=make_mesh())
+    tr.init_state()
+    tr.load_checkpoint(root / "voc_seed.ckpt")
+    wavs, mels, zs = _par_voc_batches()
+    details, ms = [], []
+    for w, m, z in zip(wavs, mels, zs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        details.append({k: float(v) for k, v in
+                        tr.train_step((w, m), z).items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    tr.save_checkpoint(root / "voc_dp.ckpt")
+    res["pwg_dp"] = {"details": details, "ms_per_step_host_transport": ms}
+
+
+def _parallel_ranks(rank, world, root):
+    """Two ranks on cuda:0 over gloo: dp2, tp, seq, pp, pwg_dp, each
+    checked in the parent against its one-process reference."""
+    import torch
+
+    torch.cuda.set_device(0)
+    root = Path(root)
+    res = {}
+    restore = _inject_candidates(torch)
+    try:
+        _rank_dp2(torch, root, res)
+        _rank_tp(torch, root, rank, res)
+    finally:
+        restore()
+    _rank_seq(torch, root, res)
+    _rank_pp(torch, root, rank, res)
+    _rank_voc(torch, root, rank, res)
+    (root / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def _par_two_ranks(torch, root):
+    from vae_npvc_tpu_torch.parallel.launch import spawn
+    from vae_npvc_tpu_torch.utils import msgpack_io
+
+    t0 = time.perf_counter()
+    spawn(_parallel_ranks, 2, args=(str(root),), backend="gloo",
+          timeout=600, threads=None)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in (0, 1)]
+    for r, res in enumerate(ranks):
+        dp2, tp, seq, pp_, voc = (res[k] for k in ("dp2", "tp", "seq", "pp",
+                                                   "pwg_dp"))
+        check(dp2["loss_rel_err"] <= PAR_LOSS_RTOL,
+              f"dp2 rank {r}: loss {dp2['totals']} vs one process "
+              f"{dp2['ref_totals']}")
+        check(dp2["params_err_of_peak"] <= PAR_STATE_TOL
+              and max(dp2["ema_err_of_peak"].values()) <= PAR_STATE_TOL,
+              f"dp2 rank {r}: parameters or codebook {dp2}")
+        check(tp["loss_rel_err"] <= PAR_LOSS_RTOL,
+              f"tp rank {r}: loss {tp['totals']} vs the DP-only run")
+        check(tp["split_parameters"] > 0 and tp["local_floats"]
+              < tp["whole_floats"], f"tp rank {r}: nothing split: {tp}")
+        check(tp["checkpoint_round_trip_bit_equal"]
+              and tp["reloaded_flat_equal"], f"tp rank {r}: round trip")
+        s32 = seq["float32"]
+        check(s32["ids_equal_share"] == 1.0,
+              f"seq rank {r}: ids differ ({s32['ids_equal_share']})")
+        check(s32["mel_err_of_peak"] <= PAR_SEQ_TOL,
+              f"seq rank {r}: mel {s32['mel_err_of_peak']} of the peak")
+        for dtype, case in seq.items():
+            check(case["finite"] and case["shape_ok"],
+                  f"seq rank {r} {dtype}: {case}")
+            n = case["launches"]
+            check(n["group_norm_split_stats"] == _flat_norms()
+                  and n["group_norm_split_apply"] == _flat_norms()
+                  and n["fused_group_norm"] == 0 and n["vq_fused"] == 1,
+                  f"seq rank {r} {dtype}: launches {n}")
+        check(pp_["h_err_of_peak"] <= PAR_PP_TOL
+              and pp_["skip_err_of_peak"] <= PAR_PP_TOL,
+              f"pp rank {r}: output {pp_}")
+        check(pp_["grad_err_of_leaf_peak"] <= PAR_PP_GRAD_TOL,
+              f"pp rank {r}: gradients {pp_['grad_err_of_leaf_peak']}")
+        per_stage = pp_["layers"] // 2 * PAR_PP_M
+        check(pp_["k2_launches_forward"] == per_stage
+              and pp_["k3_launches_backward"] == per_stage,
+              f"pp rank {r}: launches {pp_}")
+    check(ranks[0]["dp2"]["totals"] == ranks[1]["dp2"]["totals"],
+          "dp2: the ranks' losses differ")
+    one = json.loads((root / "voc_one.json").read_text())
+    worst = {}
+    for i, (got, want) in enumerate(zip(ranks[0]["pwg_dp"]["details"], one)):
+        for k, v in want.items():
+            worst[k] = max(worst.get(k, 0.0), _rel(got[k], v))
+            check(_rel(got[k], v) <= GOLDEN_LOSS_RTOL,
+                  f"pwg_dp: step {i + 1} {k} {got[k]}, one process {v}")
+    got = _leaves(msgpack_io.msgpack_restore(
+        (root / "voc_dp.ckpt").read_bytes()))
+    want = _leaves(msgpack_io.msgpack_restore(
+        (root / "voc_one.ckpt").read_bytes()))
+    voc_state = _voc_state_against(got, want, "pwg_dp")
+    r0 = ranks[0]
+    emit({"phase": "parallel_two_ranks", "backend": "gloo", "ranks": 2,
+          "card": "one (cuda:0), collectives through host memory",
+          "spawn_s": spawn_s,
+          "dp2": {k: r0["dp2"][k] for k in (
+              "totals", "loss_rel_err", "params_err_of_peak",
+              "ema_err_of_peak", "ms_per_step_host_transport", "params")},
+          "tp": r0["tp"], "seq": {r: res["seq"] for r, res in
+                                  enumerate(ranks)},
+          "pp": [res["pp"] for res in ranks],
+          "pwg_dp": {"worst_rel_err": worst,
+                     "state_max_abs_err": voc_state[0],
+                     "g_moment_err_of_largest": voc_state[1],
+                     "g_moment_rel_l2": voc_state[2],
+                     "ms_per_step_host_transport":
+                         r0["pwg_dp"]["ms_per_step_host_transport"]}})
+    return ranks
+
+
+def _par_dp_serve(torch, root, ckpt):
+    """``ConversionEngine(data_parallel=True)`` (one replica per visible
+    card: one here) against the plain engine over HTTP, then a local mesh
+    of two replicas on cuda:0 against one replica on an fp32 batch."""
+    from vae_npvc_tpu_torch.infer.convert import Converter
+    from vae_npvc_tpu_torch.parallel.mesh import LocalMesh
+    from vae_npvc_tpu_torch.serve import ConversionEngine
+
+    fs = 24000
+    stats = _cmvn_stats()
+    wavs = [_speechlike(int(s * fs), fs, 40 + i)
+            for i, s in enumerate(np.linspace(1.0, 4.0, 8))]
+    served = {}
+    for dp in (False, True):
+        eng = ConversionEngine(FLAGSHIP, ckpt, stats, vocoder="none",
+                               device="cuda", data_parallel=dp)
+        httpd = None
+        try:
+            httpd, thread, port = _serving(eng)
+            _zero_all_counts()
+            bodies, ids = _k1_ids(lambda: [
+                _post_convert(port, f"target={(5 * i) % 117}&mel=1", w, fs)
+                for i, w in enumerate(wavs)])
+            served[dp] = (bodies, [t.cpu() for t in ids], _read_counts(),
+                          eng.batcher.pad_multiple, eng.batcher.max_batch)
+        finally:
+            if httpd is not None:
+                _stop(httpd, thread)
+            eng.close()
+    (b0, i0, _, _, _), (b1, i1, n1, pad, mb) = served[False], served[True]
+    check(len(b1) == 8 and b1 == b0, "dp_serve: the data-parallel engine's "
+          "mel differs from the plain engine's")
+    check(len(i1) == len(i0) and all(torch.equal(a, b)
+                                     for a, b in zip(i0, i1)),
+          "dp_serve: the data-parallel engine's ids differ")
+    check(n1["vq_fused"] == 8
+          and n1["fused_group_norm"] == 8 * _flat_norms(),
+          f"dp_serve: launches {n1} for 8 requests")
+    cfg = dict(FLAGSHIP, compute_dtype="float32")
+    one = Converter(cfg, device="cuda")
+    two = Converter(cfg, mesh=LocalMesh(["cuda:0", "cuda:0"]))
+    one.load_checkpoint(ckpt)
+    two.load_checkpoint(ckpt)
+    rng = np.random.default_rng(9)
+    feats = rng.normal(-3.0, 1.5, size=(8, 512, 80)).astype(np.float32)
+    lengths = np.linspace(512, 100, 8).astype(np.int32)
+    tgts = np.arange(8, dtype=np.int32) * 7
+    want = one.infer(feats, tgts, lengths)
+    got = two.infer(feats, tgts, lengths)
+    peak = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    check(err <= PAR_SERVE_TOL * peak,
+          f"dp_serve: two replicas' mel {err} from one's (peak {peak})")
+    with torch.inference_mode():
+        x = torch.tensor(feats, device="cuda")
+        n = torch.tensor(lengths, device="cuda")
+        ids_one = one.model.encode(x, n)
+        ids_two = torch.cat([r.encode(x[i * 4:(i + 1) * 4],
+                                      n[i * 4:(i + 1) * 4])
+                             for i, r in enumerate(two.replicas)])
+    valid = torch.arange(512, device="cuda")[None] < n[:, None]
+    check(torch.equal(ids_one[valid], ids_two[valid]),
+          "dp_serve: two replicas' ids differ from one's")
+    emit({"phase": "parallel_dp_serve", "requests": 8,
+          "engine_pad_multiple": pad, "engine_max_batch": mb,
+          "bodies_equal_to_plain_engine": True, "ids_equal": True,
+          "launches": n1, "replicas": 2, "batch": 8,
+          "mel_err_of_peak_two_replicas": err / peak})
+
+
+def _par_train_cli(torch, root, corpus):
+    """``bin/train`` joining an NCCL group of one from torchrun's
+    environment (RANK=0, WORLD_SIZE=1): 4 steps, then resumed to 8."""
+    import socket
+
+    from vae_npvc_tpu_torch.bin import train as train_cli
+
+    cfg = dict(_par_cfg("bfloat16"), max_iter=PAR_CLI_STEPS // 2,
+               iters_per_log=2, iters_per_checkpoint=PAR_CLI_STEPS // 2,
+               num_jobs=2)
+    conf = root / "cli.json"
+    conf.write_text(json.dumps(cfg))
+    out = root / "cli_exp"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    counts = []
+    try:
+        for max_iter, ck in ((PAR_CLI_STEPS // 2, []),
+                             (PAR_CLI_STEPS, ["--checkpoint", "auto"])):
+            conf.write_text(json.dumps(dict(cfg, max_iter=max_iter)))
+            _zero_all_counts()
+            train_cli.main(["-c", str(conf), "--train_dir", str(corpus),
+                            "--output_dir", str(out), *ck])
+            counts.append(_read_counts())
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    log = (out / "train.log").read_text()
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text()
+            .splitlines() if x.strip()]
+    check("Rank 0 of 1" in log and "Resumed from" in log,
+          "train_cli: the log does not show the group and the resume")
+    check((out / f"iter.{PAR_CLI_STEPS}").exists()
+          and (out / "model.loss.best").exists(), "train_cli: checkpoints")
+    check([r["iter"] for r in rows] == list(range(2, PAR_CLI_STEPS + 1, 2)),
+          f"train_cli: metrics rows {[r['iter'] for r in rows]}")
+    per_run = PAR_CLI_STEPS // 2
+    want = {"vq_fused": per_run,
+            "fused_group_norm": _flat_norms() * per_run,
+            "fused_group_norm_backward": _flat_norms() * per_run}
+    check(all(c == want for c in counts), f"train_cli: launches {counts}")
+    emit({"phase": "parallel_train_cli", "backend": "nccl",
+          "env": {k: v for k, v in env.items() if k != "MASTER_PORT"},
+          "steps": PAR_CLI_STEPS, "resumed_at": per_run,
+          "launches_per_run": counts,
+          "x_like": [r["X like"] for r in rows]})
+
+
+def _gn_split_case(torch, C, G, glu, dtype, rng):
+    """K2's split entry points at a sequence-parallel rank's shape (one
+    utterance, T_local = PAR_SEQ_T / 2): two ranks' partials merged, each
+    half applied, against the plain GroupNorm of the whole row; times of
+    each entry point beside its plain version, its bound and one PyTorch
+    call of the same function (``torch.var_mean`` over the group's
+    elements for the statistics, ``F.group_norm`` for the apply)."""
+    import torch.nn.functional as F
+
+    from vae_npvc_tpu_torch.ops.groupnorm import (
+        group_norm_plain, group_norm_split_apply,
+        group_norm_split_apply_plain, group_norm_split_stats,
+        group_norm_split_stats_plain)
+
+    dev = torch.device("cuda")
+    T = PAR_SEQ_T
+    Th = T // 2
+    x = _channels_first(torch.tensor(rng.normal(0.5, 2.0, size=(1, T, C)),
+                                     device=dev).to(dtype))
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                        device=dev)
+    halves = [x[:, :Th], x[:, Th:]]
+    parts = [group_norm_split_stats(h, G) for h in halves]
+
+    def mean_var(p):
+        return torch.stack([p[..., 1], p[..., 2] / p[..., 0]])
+
+    # the count is exact; the mean and the variance (M2 / count) are the
+    # values the apply uses
+    stats_err = max(float((mean_var(p) - mean_var(
+        group_norm_split_stats_plain(h, G))).abs().max())
+        for p, h in zip(parts, halves))
+    check(all(torch.equal(p[..., 0], group_norm_split_stats_plain(h, G)[
+        ..., 0]) for p, h in zip(parts, halves)),
+        "group_norm_split_stats: counts differ from the plain version")
+    gathered = torch.stack(parts, dim=2)
+    got = torch.cat([group_norm_split_apply(h, scale, bias, gathered, G,
+                                            glu=glu) for h in halves], dim=1)
+    ref = group_norm_plain(x, scale, bias, G, glu=glu)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    atol, rtol = K2_TOL[name]
+    err = (got.float() - ref.float()).abs()
+    what = f"group_norm_split 1x{T}x{C} G={G} glu={glu} {name}"
+    check(bool((err <= atol + rtol * ref.float().abs()).all()),
+          f"{what}: max err {float(err.max())}")
+    h = halves[0]
+    case = {"T_local": Th, "C": C, "G": G, "glu": glu, "dtype": name,
+            "ranks": 2, "stats_max_abs_err": stats_err,
+            "apply_max_abs_err": float(err.max())}
+    n = Th * C
+    item = h.element_size()
+    # L2-hot (one input) and L2-cold (inputs cycled through 100 MiB of
+    # copies, outputs held as long, calls run back to back: a rank's 8 MB
+    # row and the apply's output otherwise stay in the 50 MB L2 or are
+    # written back between launches, and the apply then runs faster than
+    # the HBM bound)
+    case["stats_ms"], _ = timed(torch, lambda a: group_norm_split_stats(a, G),
+                                [(h,)])
+    case["stats_ms_l2_cold"], _ = timed(
+        torch, lambda a: group_norm_split_stats(a, G), l2_cold((h,)))
+    case["stats_plain_ms"], _ = timed(
+        torch, lambda a: group_norm_split_stats_plain(a, G), [(h,)])
+    xg = h.transpose(1, 2).reshape(1, G, -1)
+    case["stats_library_ms"], _ = timed(
+        torch, lambda a: torch.var_mean(a, dim=-1, correction=0), [(xg,)])
+    case["stats_bound_ms"], case["stats_bound_by"] = _bound(
+        n * item + 12 * G, 3 * n)
+    case["apply_ms"], _ = timed(
+        torch, lambda a: group_norm_split_apply(a, scale, bias, gathered, G,
+                                                glu=glu), [(h,)])
+    case["apply_ms_l2_cold"], _ = timed(
+        torch, lambda a: group_norm_split_apply(a, scale, bias, gathered, G,
+                                                glu=glu), l2_cold((h,)))
+    case["apply_plain_ms"], _ = timed(
+        torch, lambda a: group_norm_split_apply_plain(
+            a, scale, bias, gathered, G, glu=glu), [(h,)])
+    case["apply_library_ms"] = None
+    if not glu:
+        s, b = scale.to(dtype), bias.to(dtype)
+        case["apply_library_ms"], _ = timed(
+            torch, lambda a: F.group_norm(a, G, s, b, 1e-5),
+            [(h.transpose(1, 2),)])
+    out_c = C // 2 if glu else C
+    case["apply_bound_ms"], case["apply_bound_by"] = _bound(
+        n * item + Th * out_c * item + 8 * C + 24 * G,
+        4 * n + (4 * n // 2 if glu else 0))
+    for part in ("stats", "apply"):
+        check(case[f"{part}_ms_l2_cold"] >= case[f"{part}_bound_ms"],
+              f"{what}: the {part} L2-cold time "
+              f"{case[f'{part}_ms_l2_cold']} ms is below its bound "
+              f"{case[f'{part}_bound_ms']} ms: the timing misses traffic")
+    return case
+
+
+def phase_parallel(torch, root):
+    """The parallel slice on the one card: ``dp1`` (NCCL, world size 1),
+    then dp2/tp/seq/pp/pwg_dp on two gloo ranks sharing cuda:0 against one
+    process, ``dp_serve`` and ``train_cli`` (bin/train under torchrun's
+    environment). Returns the split entry points' launches per GroupNorm
+    of the sequence-parallel run and their timed cases."""
+    root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    dp1 = _par_dp1(torch, root)
+    ckpt = _par_references(torch, root)
+    ranks = _par_two_ranks(torch, root)
+    _par_dp_serve(torch, root, ckpt)
+    _par_train_cli(torch, root, root / "dp_corpus")
+    rng = np.random.default_rng(61)
+    split = [_gn_split_case(torch, 512, 1, False, torch.float32, rng),
+             _gn_split_case(torch, 1024, 2, True, torch.float32, rng),
+             _gn_split_case(torch, 1024, 2, True, torch.bfloat16, rng)]
+    seq = ranks[0]["seq"]["float32"]
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t0,
+          "dp1_ms_per_step": dp1["ms"],
+          "dp1_plain_ms_per_step": dp1["plain_ms"],
+          "seq_fp32_ms": seq["ms"], "split_cases": split})
+    return {"launches": seq["launches"], "split": split, "seq_ms": seq["ms"]}
+
+
 def _stream_launches(kernel, stream, vs_launches, vs_calls,
                      bridge_launches, bridge_calls):
     """The ``kernels`` line's keys of the stream, voc_stream and
@@ -5772,6 +6629,41 @@ def _rest_launches(kernel, rest):
            "launches_per_host_loader_step": rest["host"][kernel]}
     if kernel in rest["doctor"]:
         out["launches_doctor_infer"] = rest["doctor"][kernel]
+    return out
+
+
+def _split_kernel_lines(par):
+    """The ``kernels`` line's entries of K2's split entry points: the
+    sequence-parallel run's launches (rank 0, per utterance: one of each
+    per GroupNorm), times at the encoder's fp32 row (C = 512, G = 1, the
+    shape with a library call), the other shapes beside."""
+    main = par["split"][0]
+    keys = ("T_local", "C", "G", "glu", "dtype")
+    out = []
+    for name, part in (("group_norm_split_stats", "stats"),
+                       ("group_norm_split_apply", "apply")):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
+            "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",
+            "launches": par["launches"][name],
+            "max_abs_err": main[f"{part}_max_abs_err"],
+            "ms": main[f"{part}_ms"],
+            "ms_l2_cold": main[f"{part}_ms_l2_cold"],
+            "plain_ms": main[f"{part}_plain_ms"],
+            "bound_ms": main[f"{part}_bound_ms"],
+            "bound_by": main[f"{part}_bound_by"],
+            "library_ms": main[f"{part}_library_ms"],
+            "shape": {k: main[k] for k in keys},
+            "seq_infer_ms_per_rank": par["seq_ms"],
+            "other_shapes": [dict({k: c[k] for k in keys},
+                                  ms=c[f"{part}_ms"],
+                                  ms_l2_cold=c[f"{part}_ms_l2_cold"],
+                                  plain_ms=c[f"{part}_plain_ms"],
+                                  bound_ms=c[f"{part}_bound_ms"],
+                                  library_ms=c[f"{part}_library_ms"],
+                                  max_abs_err=c[f"{part}_max_abs_err"])
+                             for c in par["split"][1:]]})
     return out
 
 
@@ -5818,6 +6710,7 @@ def main():
         gan_launches = phase_gan(torch, tmp / "gan")
         phase_vae_golden(torch)
         vae_launches = phase_vae(torch, tmp / "vae")
+        par = phase_parallel(torch, tmp / "parallel")
 
     vq_main = vq[0]
     # K2 and K3 in the layout the model hands them (channels-first x)
@@ -6021,7 +6914,7 @@ def main():
          "recognizer_step_shape": {k: attn_rec[k] for k in bwd_keys},
          "long_fp32_vs_f64": [{k: c[k] for k in ("T", "d", "dq", "dk", "dv")}
                               for c in attn_long]},
-    ]})
+    ] + _split_kernel_lines(par)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

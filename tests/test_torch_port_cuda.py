@@ -18,7 +18,11 @@ from vae_npvc_tpu_torch.ops.attention import (attention_backward_plain,
 from vae_npvc_tpu_torch.ops.groupnorm import (fused_group_norm,
                                               fused_group_norm_backward,
                                               group_norm_backward_plain,
-                                              group_norm_plain, plan)
+                                              group_norm_plain,
+                                              group_norm_split_apply,
+                                              group_norm_split_stats,
+                                              group_norm_split_stats_plain,
+                                              plan)
 from vae_npvc_tpu_torch.ops.vq_fused import vq_fused, vq_fused_plain
 
 pytestmark = pytest.mark.cuda
@@ -357,6 +361,86 @@ def test_wrappers_count_launches(dev):
     vq_fused(torch.ones((4, 8), device=dev), torch.ones((3, 8), device=dev),
              stats=False)
     assert vq_fused.launches == v0 + 1
+
+
+# ------------------------------------------- K2's split statistics
+def _split_row(x, lengths, R):
+    """The (B, T, C) row cut into R pieces along T, each with its local
+    valid lengths."""
+    T = x.shape[1]
+    edges = [T * r // R for r in range(R + 1)]
+    out = []
+    for a, b in zip(edges[:-1], edges[1:]):
+        n = None if lengths is None else (lengths - a).clamp(0, b - a) \
+            .to(torch.int32)
+        out.append((x[:, a:b], n))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("C,G,glu", [(512, 1, False), (1024, 2, True),
+                                     (1024, 2, False)])
+@pytest.mark.parametrize("R,cf", [(2, False), (3, True)])
+def test_groupnorm_split_matches_the_whole_row(dev, dtype, masked, C, G, glu,
+                                               R, cf):
+    """Partials of R pieces of a row, merged in order by the apply
+    kernel, against the plain two-pass GroupNorm of the whole row."""
+    rng = np.random.default_rng(C + G + R)
+    B, T = 2, 1536
+    x = torch.tensor(rng.normal(2.0, 3.0, size=(B, T, C)), device=dev) \
+        .to(dtype)
+    if cf:
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                        device=dev)
+    lengths = (torch.tensor([T, 700], dtype=torch.int32, device=dev)
+               if masked else None)
+    pieces = _split_row(x, lengths, R)
+    parts = [group_norm_split_stats(xp, G, n) for xp, n in pieces]
+    for (xp, n), p in zip(pieces, parts):
+        ref_p = group_norm_split_stats_plain(xp, G, n)
+        torch.testing.assert_close(p[..., 0], ref_p[..., 0], atol=0, rtol=0)
+        torch.testing.assert_close(p[..., 1:], ref_p[..., 1:], atol=1e-4,
+                                   rtol=1e-5)
+    gathered = torch.stack(parts, dim=2)                 # (B, G, R, 3)
+    got = torch.cat([group_norm_split_apply(xp, scale, bias, gathered, G,
+                                            lengths=n, glu=glu)
+                     for xp, n in pieces], dim=1)
+    ref = group_norm_plain(x, scale, bias, G, lengths=lengths, glu=glu)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=2 ** -7,
+                                   rtol=2 ** -6)
+
+
+def test_groupnorm_split_counts_and_refuses_gradients(dev):
+    x = torch.ones((1, 16, 8), device=dev)
+    s = torch.ones(8, device=dev)
+    n0, a0 = group_norm_split_stats.launches, group_norm_split_apply.launches
+    p = group_norm_split_stats(x, 1)
+    group_norm_split_apply(x, s, s * 0, p[:, :, None], 1)
+    assert group_norm_split_stats.launches == n0 + 1
+    assert group_norm_split_apply.launches == a0 + 1
+    with pytest.raises(ValueError, match="forward only"):
+        group_norm_split_stats(x.requires_grad_(), 1)
+
+
+def test_psum_group_norm_refuses_a_mask_on_the_card(dev):
+    from vae_npvc_tpu_torch.parallel.halo import psum_group_norm
+
+    x = torch.ones((1, 16, 8), device=dev)
+    s = torch.ones(8, device=dev)
+    n0 = group_norm_split_stats.launches
+    with pytest.raises(ValueError, match="valid_mask"):
+        psum_group_norm(x, s, s * 0, 1, "data",
+                        valid_mask=torch.ones((1, 16, 1), device=dev))
+    assert group_norm_split_stats.launches == n0
 
 
 # ----------------------------------------------------- GroupNorm layouts

@@ -106,8 +106,15 @@ def test_engine_targets_batching_and_unported_options(parts):
         assert eng.stats_snapshot()["requests"] == 8
     finally:
         eng.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine(parts, data_parallel=True)
+    # data_parallel serves (a mesh of the engine's one device here)
+    dp = _port_engine(parts, data_parallel=True)
+    try:
+        assert dp.batcher.pad_multiple == 1
+        np.testing.assert_allclose(
+            dp.convert(wavs[0], 8000, 0, return_mel=True)[0], serial[0],
+            rtol=1e-5, atol=1e-5)
+    finally:
+        dp.close()
     # bundles are served (tests/test_torch_port_export_serving.py); a
     # directory without bundle.json is refused
     with pytest.raises(FileNotFoundError, match="bundle.json"):

@@ -127,9 +127,15 @@ def test_model_valid_forward_and_remat_and_parallel_keys():
         outs.append(torch.autograd.grad(loss, list(m.parameters())))
     for a, b in zip(*outs):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+    # the parallel keys build; the model carries the axis name, and a
+    # training forward outside a bound axis raises naming it
     for key in ("seq_axis", "dp_axis"):
-        with pytest.raises(NotImplementedError, match="parallel"):
-            build_model(dict(cfg, **{key: "data"}), device="cpu")
+        m = build_model(dict(cfg, **{key: "data"}), device="cpu")
+        assert getattr(m, key) == "data"
+        m.load_state_dict(pm.state_dict())
+    with pytest.raises(ValueError, match="'data' is not bound"):
+        m(torch.from_numpy(x), torch.from_numpy(y), True,
+          gen=torch.Generator().manual_seed(0))
 
 
 def test_codebook_renorm_matches_jax():

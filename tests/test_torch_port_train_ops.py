@@ -202,7 +202,8 @@ def test_ema_vq_forward_legacy_and_parallel_axis():
     p = pvq.ema_vq_forward(pstate, torch.from_numpy(z), training=False,
                            update=False, legacy_no_ste=True)
     np.testing.assert_array_equal(p[0].numpy(), np.asarray(j[0]))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # a data axis must be bound (parallel.comm.bind) to be used
+    with pytest.raises(ValueError, match="'data' is not bound"):
         pvq.ema_vq_forward(pstate, torch.from_numpy(z), axis_name="data")
 
 

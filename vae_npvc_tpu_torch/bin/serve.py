@@ -334,7 +334,9 @@ def main(argv=None):
     p.add_argument("--max_batch", type=int, default=8)
     p.add_argument("--batch_window_ms", type=float, default=5.0)
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported yet")
+                   help="one model replica on every visible card; each "
+                        "batch padded to a multiple of the card count and "
+                        "split over them (not with --bundle)")
     p.add_argument("--warmup_buckets", type=int, default=2,
                    help="bucket shapes to run before listening")
     p.add_argument("--device", default="cuda")

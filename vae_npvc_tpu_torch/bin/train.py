@@ -15,6 +15,18 @@ sampling gathers the host loader's windows there, ``iid`` draws them there
 interval with ``torch.profiler`` once two steps are done and writes a
 Chrome trace into the directory.
 
+Under torchrun (``WORLD_SIZE`` in the environment, even 1) every process
+joins the default group (NCCL on the GPU, gloo with ``--device cpu``,
+``parallel/mesh.initialize_multihost``), takes the card ``LOCAL_RANK``
+names, and trains data-parallel over a ``data`` mesh of all ranks: every
+rank reads the same global batches and keeps its rows, and validation
+gives each rank every ``WORLD_SIZE``-th batch. Only rank 0 writes the log,
+``metrics.jsonl``, ``best.json`` and the checkpoints. The device-resident
+corpus is single-process only (as the JAX CLI's is single-host only).
+
+    torchrun --nproc_per_node 8 -m vae_npvc_tpu_torch.bin.train -c conf.yaml \
+        --train_dir dump/train --output_dir exp/vqvae
+
 Usage:
     python -m vae_npvc_tpu_torch.bin.train -c conf/train_vqvae.yaml \
         --train_dir dump/train --valid_dir dump/dev --output_dir exp/vqvae
@@ -23,8 +35,10 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import logging
+import os
 import time
 from pathlib import Path
 from shutil import copyfile
@@ -105,14 +119,19 @@ def stop_profiler(prof, device, profile_dir, iteration):
     return path
 
 
-def get_logger(output_dir):
+def get_logger(output_dir, writes=True):
+    """The run's logger: to the console and ``train.log``, or, on a rank
+    that does not write, warnings to the console only."""
     logger = logging.getLogger("vae_npvc_tpu_torch.train")
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if writes else logging.WARNING)
     logger.handlers.clear()
     fmt = logging.Formatter("%(asctime)s %(message)s",
                             datefmt="%m-%d %H:%M:%S")
-    for h in (logging.StreamHandler(),
-              logging.FileHandler(str(Path(output_dir) / "train.log"))):
+    handlers = [logging.StreamHandler()]
+    if writes:
+        handlers.append(
+            logging.FileHandler(str(Path(output_dir) / "train.log")))
+    for h in handlers:
         h.setFormatter(fmt)
         logger.addHandler(h)
     return logger
@@ -135,9 +154,26 @@ def train(args):
 
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    logger = get_logger(output_dir)
 
-    trainer = build_trainer(config, device=args.device)
+    device, mesh, rank, world = args.device, None, 0, 1
+    if "WORLD_SIZE" in os.environ:
+        from ..parallel import mesh as mesh_mod
+
+        cuda = not str(args.device).startswith("cpu")
+        if cuda:
+            device = mesh_mod.local_cuda_device()
+            import torch
+
+            torch.cuda.set_device(device)
+        rank, world = mesh_mod.initialize_multihost(
+            backend="nccl" if cuda else "gloo")
+        mesh = mesh_mod.make_mesh()
+    writes = rank == 0
+    logger = get_logger(output_dir, writes)
+    if mesh is not None:
+        logger.info(f"Rank {rank} of {world}: data-parallel over {mesh}")
+    trainer = (build_trainer(config, device=device, mesh=mesh)
+               if mesh is not None else build_trainer(config, device=device))
 
     train_batch = config.get("train_batch_size", config.get("batch_size", 32))
     valid_batch = config.get("valid_batch_size", config.get("batch_size", 1))
@@ -159,6 +195,10 @@ def train(args):
     sequential = not getattr(trainer, "supports_steps_per_call", False)
     if use_dev and sequential:
         logger.warning("device_resident is not supported by this trainer; "
+                       "using the host loader")
+        use_dev = False
+    if use_dev and world > 1:
+        logger.warning("device_resident is single-process only; "
                        "using the host loader")
         use_dev = False
     if use_dev:
@@ -183,8 +223,11 @@ def train(args):
             valid_set = None
 
     def valid_batches():
-        return batch_iterator(valid_set, valid_batch, shuffle=False,
-                              drop_last=False, num_workers=num_jobs, epochs=1)
+        it = batch_iterator(valid_set, valid_batch, shuffle=False,
+                            drop_last=False, num_workers=num_jobs, epochs=1)
+        # several ranks: each takes every world-th batch as its own stream
+        # (Trainer.valid assembles the global batches)
+        return itertools.islice(it, rank, None, world) if world > 1 else it
 
     # initialize / resume
     trainer.init_state()
@@ -202,7 +245,7 @@ def train(args):
         # replay with different values, and the machine-readable file must
         # not carry conflicting duplicate iters
         mfile = output_dir / "metrics.jsonl"
-        if mfile.exists():
+        if writes and mfile.exists():
             kept = [ln for ln in mfile.read_text().splitlines()
                     if ln.strip()
                     and json.loads(ln).get("iter", 0) < iteration]
@@ -310,7 +353,8 @@ def train(args):
                 mseg += f"  {k}: {v:.6f}"
             mseg += f"  |  {fps:,.0f} frames/s"
             logger.info(mseg)
-            with open(output_dir / "metrics.jsonl", "a") as mf:
+            with open(output_dir / "metrics.jsonl" if writes
+                      else os.devnull, "a") as mf:
                 mf.write(json.dumps(
                     {"iter": int(iteration), "split": "train",
                      "frames_per_sec": round(float(fps), 1),
@@ -330,17 +374,19 @@ def train(args):
                     best_loss = {k: float(np.mean(v))
                                  for k, v in loss_detail.items()}
                     best_iter = iteration
-                    best_file.write_text(json.dumps(
-                        {"iteration": best_iter,
-                         "check_loss_kind": check_loss_kind,
-                         "loss": best_loss}, indent=1))
+                    if writes:
+                        best_file.write_text(json.dumps(
+                            {"iteration": best_iter,
+                             "check_loss_kind": check_loss_kind,
+                             "loss": best_loss}, indent=1))
                 mseg = f"Valid {iteration}:"
                 for k, v in loss_detail.items():
                     mseg += f"  {k}: {np.mean(v):.6f}"
                 mseg += (f"  |  Best {best_iter}:  {check_loss_kind}: "
                          f"{np.mean(best_loss[check_loss_kind]):.6f}")
                 logger.info(mseg)
-                with open(output_dir / "metrics.jsonl", "a") as mf:
+                with open(output_dir / "metrics.jsonl" if writes
+                          else os.devnull, "a") as mf:
                     mf.write(json.dumps(
                         {"iter": int(iteration), "split": "valid",
                          "best_iter": int(best_iter),
@@ -354,8 +400,9 @@ def train(args):
     if hasattr(train_it, "close"):
         train_it.close()      # stops the prefetch thread
     if best_iter > 0:
-        copyfile(str(output_dir / f"iter.{best_iter}"),
-                 str(output_dir / "model.loss.best"))
+        if writes:
+            copyfile(str(output_dir / f"iter.{best_iter}"),
+                     str(output_dir / "model.loss.best"))
         logger.info(f"Best model: iteration {best_iter} "
                     f"({check_loss_kind}: "
                     f"{np.mean(best_loss[check_loss_kind]):.6f})")
@@ -363,12 +410,23 @@ def train(args):
         # no validation set: the final state is the best we know of (a
         # no-op rerun must point at the existing final checkpoint)
         final = output_dir / f"iter.{trainer.iteration}"
-        if not final.exists():
+        need = not final.exists()
+        if mesh is not None:
+            # every rank decides before rank 0 may write it
+            from ..parallel import comm
+
+            comm.barrier()
+        if need:
             trainer.save_checkpoint(final)
-        copyfile(str(final), str(output_dir / "model.loss.best"))
+        if writes:
+            copyfile(str(final), str(output_dir / "model.loss.best"))
         logger.info(f"No validation set; model.loss.best = iteration "
                     f"{trainer.iteration}")
     logger.info("Finished")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def main(argv=None):

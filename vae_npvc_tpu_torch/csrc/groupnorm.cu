@@ -62,12 +62,27 @@
 // The choice is made by shape at launch (gn_plan) and both paths are
 // tested; no plain version runs on the card.
 //
+// Split statistics (sequence-parallel inference, where one row's frames
+// lie on several ranks; vae_npvc_tpu/nn/blocks.py `group_norm(seq_axis=)`
+// psums the statistics there). The cluster kernels divide by the row's
+// own count, so a split row takes the streaming route's two halves as
+// entry points of their own: gn_split_stats writes this rank's per-(row,
+// group) (count, mean, centred M2) over its valid frames (gn_stream_stats,
+// then gn_stats_merge, one thread per (row, group), Chan's merge of the
+// chunks in order); the caller gathers every rank's triples and
+// gn_split_apply merges them in rank order with the same Chan merge
+// (merge_stats) in every block before it writes its chunk as
+// gn_fwd_stream_apply does. Never E[x^2] - mean^2. Bound: bytes, one read
+// of x for the statistics and one read plus one write for the apply.
+//
 // Every sum has a fixed order and no atomics, so two runs give the same
 // bits.
 //
-// C interface (loaded with ctypes): gn_forward and gn_backward return
-// cudaGetLastError(); gn_plan returns the cluster size a launch takes (0:
-// streaming); gn_scratch_floats the fp32 scratch a launch needs.
+// C interface (loaded with ctypes): gn_forward, gn_backward,
+// gn_split_stats and gn_split_apply return cudaGetLastError(); gn_plan
+// returns the cluster size a launch takes (0: streaming);
+// gn_scratch_floats and gn_split_scratch_floats the fp32 scratch a launch
+// needs.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -802,23 +817,34 @@ gn_stream_stats(const T* __restrict__ x, View xv,
   }
 }
 
-// Fixed-order (Chan) merge of one batch row's chunk statistics into
-// per-group mean and 1/sqrt(var + eps); ends with a block barrier.
+// Chan's merge, in order, of n_part (count, mean, centred M2) triples.
+__device__ __forceinline__ void chan_merge(const float* __restrict__ p,
+                                           int n_part, float* n_out,
+                                           float* mean_out, float* m2_out) {
+  float n = 0.f, mean = 0.f, m2 = 0.f;
+  for (int k = 0; k < n_part; ++k) {
+    const float nb = p[3 * k];
+    if (nb == 0.f) continue;
+    const float nt = n + nb;
+    const float delta = p[3 * k + 1] - mean;
+    mean += delta * (nb / nt);
+    m2 += p[3 * k + 2] + delta * delta * (n * nb / nt);
+    n = nt;
+  }
+  *n_out = n;
+  *mean_out = mean;
+  *m2_out = m2;
+}
+
+// Fixed-order (Chan) merge of one batch row's n_part partial statistics
+// into per-group mean and 1/sqrt(var + eps); ends with a block barrier.
 __device__ void merge_stats(const float* __restrict__ part, int b, int G,
-                            int n_chunks, float eps, float* s_mean,
+                            int n_part, float eps, float* s_mean,
                             float* s_rstd) {
   if (threadIdx.x < G) {
-    const float* p = part + ((long long)b * G + threadIdx.x) * n_chunks * 3;
-    float n = 0.f, mean = 0.f, m2 = 0.f;
-    for (int k = 0; k < n_chunks; ++k) {
-      const float nb = p[3 * k];
-      if (nb == 0.f) continue;
-      const float nt = n + nb;
-      const float delta = p[3 * k + 1] - mean;
-      mean += delta * (nb / nt);
-      m2 += p[3 * k + 2] + delta * delta * (n * nb / nt);
-      n = nt;
-    }
+    float n, mean, m2;
+    chan_merge(part + ((long long)b * G + threadIdx.x) * n_part * 3, n_part,
+               &n, &mean, &m2);
     const float var = fmaxf(m2 / fmaxf(n, 1.f), 0.f);
     s_mean[threadIdx.x] = mean;
     s_rstd[threadIdx.x] = 1.f / sqrtf(var + eps);
@@ -832,8 +858,9 @@ gn_fwd_stream_apply(const T* __restrict__ x, View xv,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias,
                     const int* __restrict__ lengths,
-                    const float* __restrict__ part, T* __restrict__ out,
-                    View ov, int T_, int C, int G, int Tc, float eps) {
+                    const float* __restrict__ part, int n_part,
+                    T* __restrict__ out, View ov, int T_, int C, int G,
+                    int Tc, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_mean[kMaxGroups], s_rstd[kMaxGroups];
   T* tile = reinterpret_cast<T*>(smem);
@@ -843,11 +870,25 @@ gn_fwd_stream_apply(const T* __restrict__ x, View xv,
   const int nv = max(min(Tc, valid_len(lengths, b, T_) - t0), 0);
   const bool cf = xv.cf;
   load_tile<T, V>(tile, cf, Tc, x, xv, b, t0, nv, C);
-  merge_stats(part, b, G, gridDim.x, eps, s_mean, s_rstd);
+  merge_stats(part, b, G, n_part, eps, s_mean, s_rstd);
   cp_async_wait_all();
   __syncthreads();
   write_fwd<T, V, GLU>(tile, cf, Tc, C, G, nfr, nv, s_mean, s_rstd, scale,
                        bias, out, ov, b, t0);
+}
+
+// Split statistics: one thread per (row, group) merges the row's chunk
+// triples of gn_stream_stats in order into one (count, mean, centred M2)
+// triple, out[(b*G + g)*3 ...], the partials a rank contributes.
+__global__ void gn_stats_merge(const float* __restrict__ part, int B, int G,
+                               int n_chunks, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * G) return;
+  float n, mean, m2;
+  chan_merge(part + (long long)i * n_chunks * 3, n_chunks, &n, &mean, &m2);
+  out[3 * i] = n;
+  out[3 * i + 1] = mean;
+  out[3 * i + 2] = m2;
 }
 
 // Per-chunk channel partials (scratch rows b*n_chunks + chunk) and the
@@ -1057,6 +1098,17 @@ long long bwd_param_bytes(int C, int glu, int backward) {
   return backward ? (glu ? 2LL : 3LL) * C * sizeof(float) : 0;
 }
 
+// Frames of a streaming chunk whose tile (row_bytes a frame, plus extra)
+// fits kStreamSmem, a multiple of kFrameAlign up to kStreamMaxFrames; -1
+// when not even kFrameAlign frames fit a block.
+int stream_frames(long long row_bytes, long long extra) {
+  long long fit = (kStreamSmem - extra) / row_bytes / kFrameAlign * kFrameAlign;
+  if (fit < kFrameAlign) fit = kFrameAlign;
+  const int frames = (int)(fit < kStreamMaxFrames ? fit : kStreamMaxFrames);
+  if (frames * row_bytes + extra > kClusterSmem) return -1;
+  return frames;
+}
+
 // How a launch runs: nb > 0 a cluster of nb blocks per batch row, each
 // holding `frames` frames; nb == 0 streaming chunks of `frames` frames;
 // nb < 0 a row too wide for either.
@@ -1084,10 +1136,8 @@ Plan make_plan(int B, int T_, int C, int glu, int backward, int dev) {
       if (frames * row_bytes + extra <= budget && cluster_fits(fn, nb, dev))
         return {nb, frames, nb, dev};
     }
-  long long fit = (kStreamSmem - extra) / row_bytes / kFrameAlign * kFrameAlign;
-  if (fit < kFrameAlign) fit = kFrameAlign;
-  const int frames = (int)(fit < kStreamMaxFrames ? fit : kStreamMaxFrames);
-  if (frames * row_bytes + extra > kClusterSmem) return {-1, 0, 0, dev};
+  const int frames = stream_frames(row_bytes, extra);
+  if (frames < 0) return {-1, 0, 0, dev};
   return {0, frames, (T_ + frames - 1) / frames, dev};
 }
 
@@ -1149,7 +1199,8 @@ cudaError_t run_fwd(const Plan& p, const T* x, View xv, const float* scale,
   gn_stream_stats<T, V><<<grid, kThreads, tile, s>>>(x, xv, lengths, T_, C, G,
                                                       p.frames, scratch);
   gn_fwd_stream_apply<T, V, GLU><<<grid, kThreads, tile, s>>>(
-      x, xv, scale, bias, lengths, scratch, out, ov, T_, C, G, p.frames, eps);
+      x, xv, scale, bias, lengths, scratch, p.rows, out, ov, T_, C, G,
+      p.frames, eps);
   return cudaSuccess;
 }
 
@@ -1251,6 +1302,87 @@ cudaError_t backward(const void* x, View xv, const float* scale,
                               dscale, dbias, scratch, B, T_, C, G, eps, s);
 }
 
+// Split statistics (a row whose frames lie on several ranks): chunks of
+// the streaming path's size; gn_stream_stats then gn_stats_merge write
+// this rank's (B, G, 3) partials.
+template <typename T>
+cudaError_t split_stats(const void* x, View xv, const int* lengths,
+                        float* part, float* scratch, int B, int T_, int C,
+                        int G, int dev, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const int frames = stream_frames((long long)C * sizeof(T), 0);
+  if (frames < 0) return cudaErrorInvalidValue;
+  const int chunks = (T_ + frames - 1) / frames;
+  const bool vec = vec_ok(x, xv, T_, C, V) && (xv.cf || (C / G) % V == 0);
+  const T* xt = static_cast<const T*>(x);
+  const size_t tile = (size_t)frames * C * sizeof(T);
+  const dim3 grid(chunks, B);
+  cudaError_t e;
+  if (vec) {
+    if ((e = prepare((const void*)gn_stream_stats<T, V>, dev)) != cudaSuccess)
+      return e;
+    gn_stream_stats<T, V><<<grid, kThreads, tile, s>>>(xt, xv, lengths, T_, C,
+                                                        G, frames, scratch);
+  } else {
+    if ((e = prepare((const void*)gn_stream_stats<T, 1>, dev)) != cudaSuccess)
+      return e;
+    gn_stream_stats<T, 1><<<grid, kThreads, tile, s>>>(xt, xv, lengths, T_, C,
+                                                        G, frames, scratch);
+  }
+  gn_stats_merge<<<(B * G + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      scratch, B, G, chunks, part);
+  return cudaSuccess;
+}
+
+// Apply with the gathered (B, G, R, 3) partials of R ranks: each block
+// merges a row's R triples in rank order (merge_stats), then writes its
+// chunk as the streaming forward does.
+template <typename T, int V, bool GLU>
+cudaError_t run_split_apply(const T* x, View xv, const float* scale,
+                            const float* bias, const int* lengths,
+                            const float* part, int R, T* out, View ov, int B,
+                            int T_, int C, int G, float eps, int frames,
+                            int dev, cudaStream_t s) {
+  cudaError_t e = prepare((const void*)gn_fwd_stream_apply<T, V, GLU>, dev);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T_ + frames - 1) / frames, B);
+  gn_fwd_stream_apply<T, V, GLU><<<grid, kThreads,
+                                   (size_t)frames * C * sizeof(T), s>>>(
+      x, xv, scale, bias, lengths, part, R, out, ov, T_, C, G, frames, eps);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t split_apply(const void* x, View xv, const float* scale,
+                        const float* bias, const int* lengths,
+                        const float* part, int R, void* out, View ov, int B,
+                        int T_, int C, int G, int glu, float eps, int dev,
+                        cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const int frames = stream_frames((long long)C * sizeof(T), 0);
+  if (frames < 0) return cudaErrorInvalidValue;
+  const int Cout = glu ? C / 2 : C;
+  const bool vec = vec_ok(x, xv, T_, C, V) && vec_ok(out, ov, T_, Cout, V)
+      && (xv.cf || ((C / G) % V == 0 && Cout % V == 0));
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (vec && glu)
+    return run_split_apply<T, V, true>(xt, xv, scale, bias, lengths, part, R,
+                                       ot, ov, B, T_, C, G, eps, frames, dev,
+                                       s);
+  if (vec)
+    return run_split_apply<T, V, false>(xt, xv, scale, bias, lengths, part,
+                                        R, ot, ov, B, T_, C, G, eps, frames,
+                                        dev, s);
+  if (glu)
+    return run_split_apply<T, 1, true>(xt, xv, scale, bias, lengths, part, R,
+                                       ot, ov, B, T_, C, G, eps, frames, dev,
+                                       s);
+  return run_split_apply<T, 1, false>(xt, xv, scale, bias, lengths, part, R,
+                                      ot, ov, B, T_, C, G, eps, frames, dev,
+                                      s);
+}
+
 View view_of(const long long* strides) {
   // strides (sb, st, sc) in elements; channels-first when C is not the
   // unit stride (the wrapper has checked one of st, sc is 1)
@@ -1324,6 +1456,55 @@ int gn_backward(const void* x, const long long* x_strides, const float* scale,
                                 device, s)
       : backward<float>(x, xv, scale, bias, g, gv, lengths, dx, ov, dscale,
                         dbias, scratch, B, T_, C, G, glu, eps, device, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Split statistics, the entry points of a GroupNorm whose rows are spread
+// over ranks (sequence-parallel inference). gn_split_scratch_floats: the
+// fp32 scratch of gn_split_stats (-1: a row too wide). gn_split_stats:
+// this rank's per-(row, group) (count, mean, centred M2) over its valid
+// frames into part (B, G, 3) fp32. gn_split_apply: normalize x with the
+// gathered partials (B, G, R, 3) of R ranks, merged in rank order, then
+// the affine, the mask and the GLU as gn_forward.
+long long gn_split_scratch_floats(int B, int T_, int C, int G, int is_bf16) {
+  const int frames = stream_frames((long long)C * (is_bf16 ? 2 : 4), 0);
+  if (frames < 0) return -1;
+  return 3LL * B * G * ((T_ + frames - 1) / frames);
+}
+
+int gn_split_stats(const void* x, const long long* x_strides,
+                   const int* lengths, float* part, float* scratch, int B,
+                   int T_, int C, int G, int is_bf16, int device,
+                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const View xv = view_of(x_strides);
+  err = is_bf16 ? split_stats<__nv_bfloat16>(x, xv, lengths, part, scratch, B,
+                                             T_, C, G, device, s)
+                : split_stats<float>(x, xv, lengths, part, scratch, B, T_, C,
+                                     G, device, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int gn_split_apply(const void* x, const long long* x_strides,
+                   const float* scale, const float* bias, const int* lengths,
+                   const float* part, int R, void* out,
+                   const long long* out_strides, int B, int T_, int C, int G,
+                   int glu, int is_bf16, float eps, int device,
+                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const View xv = view_of(x_strides), ov = view_of(out_strides);
+  err = is_bf16 ? split_apply<__nv_bfloat16>(x, xv, scale, bias, lengths,
+                                             part, R, out, ov, B, T_, C, G,
+                                             glu, eps, device, s)
+                : split_apply<float>(x, xv, scale, bias, lengths, part, R,
+                                     out, ov, B, T_, C, G, glu, eps, device,
+                                     s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -154,12 +154,29 @@ def _speaker_map(decode_dir):
 
 class Converter:
     """Builds the model once on ``device`` in the config's
-    ``compute_dtype``; runs bucketed masked batches."""
+    ``compute_dtype``; runs bucketed masked batches.
 
-    def __init__(self, config, device="cuda"):
+    ``mesh`` (``parallel/mesh.data_mesh``, a ``LocalMesh``) holds one
+    replica per device: :meth:`infer` splits a batch along B, runs each
+    share on its replica in a thread of its own, and returns the outputs
+    in order (the JAX ``Converter(mesh=...)``'s batch-sharded ``infer``).
+    The batch must divide by the mesh size (the serving engine pads to a
+    multiple). Everything else runs on the first replica.
+    """
+
+    def __init__(self, config, device="cuda", mesh=None):
         self.config = config
-        self.model = build_model(config, device).eval()
+        self.mesh = mesh
+        devices = [device] if mesh is None else list(mesh.devices)
+        self.replicas = [build_model(config, d).eval() for d in devices]
+        self.model = self.replicas[0]
         self.device = next(self.model.parameters()).device
+        self._pool = None
+        if len(self.replicas) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(len(self.replicas),
+                                            thread_name_prefix="replica")
         self.bucket_size = config.get("decode_bucket_size", 256)
         self.batch_size = config.get("decode_batch_size", 8)
         self.auto_buckets = bool(config.get("decode_bucket_auto", False))
@@ -177,22 +194,45 @@ class Converter:
         _migrate_codebook(self.model, payload.get("model", {}))
         template = to_jax_variables(self.model.state_dict())["params"]
         model, _ = maybe_migrate_model(payload, template)
-        self.model.load_state_dict(
-            from_jax_variables(checkpoint_variables(payload, model)),
-            strict=True)
+        state = from_jax_variables(checkpoint_variables(payload, model))
+        for i, m in enumerate(self.replicas):
+            if i:
+                _migrate_codebook(m, payload.get("model", {}))
+            m.load_state_dict(state, strict=True)
         self.iteration = int(payload.get("iteration", 0))
         return self.iteration
 
     def _dev(self, a, dtype=np.int32):
         return torch.as_tensor(np.asarray(a, dtype), device=self.device)
 
+    def _infer_on(self, model, feats, tgts, lengths):
+        dev = next(model.parameters()).device
+
+        def put(a, dtype):
+            return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+        with torch.inference_mode():
+            return model.infer(put(feats, np.float32), put(tgts, np.int32),
+                               put(lengths, np.int32)).cpu().numpy()
+
     def infer(self, feats, tgts, lengths):
         """(B, T_pad, D) feats, (B,) or (B, K) target ids, (B,) lengths ->
-        (B, T_pad, D') float32 numpy mel, computed on the device."""
-        with torch.inference_mode():
-            return self.model.infer(self._dev(feats, np.float32),
-                                    self._dev(tgts), self._dev(lengths)) \
-                .cpu().numpy()
+        (B, T_pad, D') float32 numpy mel, computed on the device (with a
+        mesh, B split over the replicas)."""
+        if self._pool is None:
+            return self._infer_on(self.model, feats, tgts, lengths)
+        n = len(self.replicas)
+        B = np.shape(feats)[0]
+        if B % n:
+            raise ValueError(f"batch of {B} does not divide over the mesh's "
+                             f"{n} replicas (pad it to a multiple)")
+        per = B // n
+        futs = [self._pool.submit(
+            self._infer_on, m, np.asarray(feats)[i * per:(i + 1) * per],
+            np.asarray(tgts)[i * per:(i + 1) * per],
+            np.asarray(lengths)[i * per:(i + 1) * per])
+            for i, m in enumerate(self.replicas)]
+        return np.concatenate([f.result() for f in futs])
 
     # ----------------------------------------------------------- batching
     def _bucket_fn(self, lengths):

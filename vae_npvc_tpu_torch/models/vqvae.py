@@ -27,7 +27,8 @@ class Encoder(nn.Module):
     features, which the next level of a hierarchy reads.
     """
 
-    def __init__(self, arch, dtype=torch.float32, return_hidden=False):
+    def __init__(self, arch, dtype=torch.float32, return_hidden=False,
+                 seq_axis=None):
         super().__init__()
         a = dict(arch)
         in_channels = a.get("in_channels", [513, 1024, 512, 256])
@@ -47,8 +48,12 @@ class Encoder(nn.Module):
                                                       stacks)):
             if ds == 1:
                 conv = WNConv1d(ch, out_ch, kernel_size,
-                                use_weight_norm=use_wn, dtype=dtype)
+                                use_weight_norm=use_wn, dtype=dtype,
+                                seq_axis=seq_axis)
             else:
+                if seq_axis is not None:
+                    raise ValueError(
+                        "time sharding supports stride-1 encoders only")
                 p = ds // 2 + ds % 2
                 conv = WNConv1d(ch, out_ch, 2 * ds, stride=ds, padding=(p, p),
                                 use_weight_norm=use_wn, dtype=dtype)
@@ -57,7 +62,7 @@ class Encoder(nn.Module):
                 setattr(self, f"stack_{i}_{j}", ConvResStack(
                     out_ch, stack_kernel, stack_layers,
                     dilation=2 ** j if dilation else 1,
-                    use_weight_norm=use_wn, dtype=dtype))
+                    use_weight_norm=use_wn, dtype=dtype, seq_axis=seq_axis))
             ch = out_ch
         self.proj = WNConv1d(ch, a.get("z_channels", 128), 1,
                              use_weight_norm=use_wn, dtype=dtype)
@@ -132,7 +137,7 @@ class Decoder(nn.Module):
     ``us != 1`` upsamples x``us`` with a transposed conv (``lengths`` too).
     """
 
-    def __init__(self, arch, dtype=torch.float32):
+    def __init__(self, arch, dtype=torch.float32, seq_axis=None):
         super().__init__()
         a = dict(arch)
         in_channels = a.get("in_channels", [128, 256, 512, 1024])
@@ -155,8 +160,11 @@ class Decoder(nn.Module):
                 # the reference's stride-1 ConvTranspose1d: a forward conv
                 # with the input-side weight-norm scale
                 up = WNConv1d(ch, out_ch, kernel_size, use_weight_norm=use_wn,
-                              wn_dim="in", dtype=dtype)
+                              wn_dim="in", dtype=dtype, seq_axis=seq_axis)
             else:
+                if seq_axis is not None:
+                    raise ValueError(
+                        "time sharding supports stride-1 decoders only")
                 up = WNConvTranspose1d(ch, out_ch, us, use_weight_norm=use_wn,
                                        dtype=dtype)
             setattr(self, f"up_{i}", up)
@@ -164,7 +172,7 @@ class Decoder(nn.Module):
                 setattr(self, f"stack_{i}_{j}", GLUResSkip(
                     out_ch, cond, skip, stack_kernel,
                     dilation=2 ** j if dilation else 1,
-                    use_weight_norm=use_wn, dtype=dtype))
+                    use_weight_norm=use_wn, dtype=dtype, seq_axis=seq_axis))
             ch = out_ch
         self.final_0 = WNConv1d(skip, skip, 1, use_weight_norm=use_wn,
                                 dtype=dtype)
@@ -246,8 +254,15 @@ class Model(nn.Module):
         a = dict(arch)
         self.arch = a
         self.dtype = dtype
-        self.encoder = Encoder(a.get("encoder", {}), dtype=dtype)
-        self.decoder = Decoder(a.get("decoder", {}), dtype=dtype)
+        # sequence-parallel inference splits time over this axis; the
+        # data-parallel step sums the EMA statistics over dp_axis. Both are
+        # mesh axis names, bound by the caller (parallel/comm.bind)
+        self.seq_axis = a.get("seq_axis")
+        self.dp_axis = a.get("dp_axis")
+        self.encoder = Encoder(a.get("encoder", {}), dtype=dtype,
+                               seq_axis=self.seq_axis)
+        self.decoder = Decoder(a.get("decoder", {}), dtype=dtype,
+                               seq_axis=self.seq_axis)
         self.embeds = Conditions(a.get("y_num", 10), a.get("y_dim", 128),
                                  normalize=False, dtype=dtype)
         self.use_ema = a.get("use_ema", False)
@@ -257,11 +272,6 @@ class Model(nn.Module):
         self.jitter_p = a.get("jitter_p", 0.0)
         self.legacy_no_ste = a.get("legacy_no_ste", False)
         self.remat = a.get("remat", False)
-        for key in ("seq_axis", "dp_axis"):
-            if a.get(key) is not None:
-                raise NotImplementedError(
-                    f"{key} belongs to the parallel slice (ROADMAP Queue A, "
-                    "parallel)")
         self.pending_ema = None
         z_num, z_dim = a.get("z_num", 512), a.get("z_dim", 128)
         if self.use_ema:
@@ -287,7 +297,7 @@ class Model(nn.Module):
             z_vq, qut, enc, new_state, detail = vq_ops.ema_vq_forward(
                 state, z, gen if train else None, mu=self.mu,
                 reduction="frame_mean", training=train, update=train,
-                legacy_no_ste=self.legacy_no_ste)
+                legacy_no_ste=self.legacy_no_ste, axis_name=self.dp_axis)
             return z_vq, qut, enc, detail, new_state if train else None
         return vq_ops.vq_forward(self.quantizer_embedding, z,
                                  normalize=self.embed_norm,

@@ -14,6 +14,13 @@ and the GLU. The stride-1 "ConvTranspose" layers of the reference are
 forward convs with the input-side weight-norm scale (``wn_dim="in"``),
 as in the JAX package; the strided upsampling layer is a real transposed
 conv (``WNConvTranspose1d``).
+
+``seq_axis`` (sequence-parallel inference, the JAX blocks' argument of that
+name) names a bound mesh axis over which the time axis is split: a stride-1
+conv with ``k > 1`` pulls its receptive-field halo from the neighbouring
+ranks (``parallel/halo.py``) and convolves without padding, and a GroupNorm
+takes its statistics over every rank's frames through K2's split entry
+points (``parallel/halo.psum_group_norm``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.groupnorm import fused_group_norm
+from ..parallel.halo import halo_exchange, psum_group_norm
 
 
 def length_mask(lengths, T, dtype=torch.float32):
@@ -63,9 +71,11 @@ class GroupNorm(nn.Module):
     """Affine GroupNorm (optionally masked; ``glu=True`` appends the
     channel-halves tanh*sigmoid gate)."""
 
-    def __init__(self, num_groups, num_channels, eps=1e-5, glu=False):
+    def __init__(self, num_groups, num_channels, eps=1e-5, glu=False,
+                 seq_axis=None):
         super().__init__()
         self.num_groups, self.eps, self.glu = num_groups, eps, glu
+        self.seq_axis = seq_axis
         self.scale = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
@@ -75,6 +85,11 @@ class GroupNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x, lengths=None):
+        if self.seq_axis is not None:
+            return psum_group_norm(x, self.scale, self.bias,
+                                   self.num_groups, self.seq_axis,
+                                   eps=self.eps, lengths=lengths,
+                                   glu=self.glu)
         return group_norm(x, self.scale, self.bias, self.num_groups, self.eps,
                           lengths, glu=self.glu)
 
@@ -91,10 +106,13 @@ class WNConv1d(nn.Module):
 
     def __init__(self, in_channels, features, kernel_size, stride=1,
                  dilation=1, padding="SAME_TORCH", use_weight_norm=True,
-                 wn_dim="out", dtype=torch.float32):
+                 wn_dim="out", dtype=torch.float32, seq_axis=None):
         super().__init__()
         if wn_dim not in ("out", "in"):
             raise ValueError(f"wn_dim must be 'out' or 'in', got {wn_dim!r}")
+        if seq_axis is not None and kernel_size > 1 and stride != 1:
+            raise ValueError("time sharding needs stride-1 convs")
+        self.seq_axis = seq_axis if kernel_size > 1 else None
         self.kernel_size, self.stride, self.dilation = (kernel_size, stride,
                                                         dilation)
         self.padding, self.wn_dim, self.dtype = padding, wn_dim, dtype
@@ -124,6 +142,11 @@ class WNConv1d(nn.Module):
         return torch.sqrt(torch.sum(v * v, dim=dims))
 
     def forward(self, x):
+        if self.seq_axis is not None:
+            # sequence-parallel: the neighbours' receptive-field halo
+            # (zeros at the true ends), then a convolution without padding
+            x = halo_exchange(x, (self.kernel_size - 1) // 2 * self.dilation,
+                              self.seq_axis)
         scale = None
         if self.g is not None:
             scale = self.g / self._norm(self.v)
@@ -132,7 +155,9 @@ class WNConv1d(nn.Module):
                 scale = None
         w = self.v.to(self.dtype).permute(2, 1, 0)          # (out, in, K)
         xc = x.to(self.dtype).transpose(1, 2)               # (B, C, T)
-        if self.padding == "SAME_TORCH":
+        if self.seq_axis is not None:
+            pad = 0
+        elif self.padding == "SAME_TORCH":
             pad = (self.kernel_size - 1) // 2 * self.dilation
         elif self.padding[0] == self.padding[1]:
             pad = self.padding[0]       # symmetric: the conv pads, no copy
@@ -197,15 +222,17 @@ class ConvResStack(nn.Module):
     """LReLU -> dilated conv -> GN(1) (x layers) + 1x1 skip."""
 
     def __init__(self, channels, kernel_size=3, layers=2, dilation=1,
-                 use_weight_norm=True, dtype=torch.float32):
+                 use_weight_norm=True, dtype=torch.float32, seq_axis=None):
         super().__init__()
         self.layers = layers
         for i in range(layers):
             setattr(self, f"conv_{i}", WNConv1d(
                 channels, channels, kernel_size,
                 dilation=dilation if i == 0 else 1,
-                use_weight_norm=use_weight_norm, dtype=dtype))
-            setattr(self, f"norm_{i}", GroupNorm(1, channels))
+                use_weight_norm=use_weight_norm, dtype=dtype,
+                seq_axis=seq_axis))
+            setattr(self, f"norm_{i}", GroupNorm(1, channels,
+                                                 seq_axis=seq_axis))
         self.skip = WNConv1d(channels, channels, 1,
                              use_weight_norm=use_weight_norm, dtype=dtype)
 
@@ -227,20 +254,21 @@ class GLUResSkip(nn.Module):
     (B, T, cond)."""
 
     def __init__(self, channels, cond_channels, skip_channels, kernel_size=3,
-                 dilation=1, use_weight_norm=True, dtype=torch.float32):
+                 dilation=1, use_weight_norm=True, dtype=torch.float32,
+                 seq_axis=None):
         super().__init__()
         C = channels
         self.channels = C
         self.conv_in = WNConv1d(C, 2 * C, kernel_size, dilation=dilation,
                                 use_weight_norm=use_weight_norm, wn_dim="in",
-                                dtype=dtype)
+                                dtype=dtype, seq_axis=seq_axis)
         if cond_channels and cond_channels > 0:
             self.conv_cond = WNConv1d(cond_channels, 2 * C, 1,
                                       use_weight_norm=use_weight_norm,
                                       dtype=dtype)
         else:
             self.conv_cond = None
-        self.norm = GroupNorm(2, 2 * C, glu=True)
+        self.norm = GroupNorm(2, 2 * C, glu=True, seq_axis=seq_axis)
         self.res_skip = WNConv1d(C, C + skip_channels, 1,
                                  use_weight_norm=use_weight_norm, dtype=dtype)
 

@@ -24,6 +24,18 @@ beyond them.
   ``fused_group_norm.launches`` counts forward launches,
   ``fused_group_norm_backward.launches`` backward launches.
 
+Split statistics (sequence-parallel inference, where a row's frames lie
+on several ranks): :func:`group_norm_split_stats` gives this rank's
+per-(row, group) count, mean and centred sum of squares, and
+:func:`group_norm_split_apply` normalizes with every rank's of them merged
+in rank order by Chan's formula, never as E[x^2] - mean^2. On a CUDA
+tensor the two run the streaming entry points of ``csrc/groupnorm.cu``
+(``gn_split_stats``, ``gn_split_apply``) or raise;
+``group_norm_split_stats.launches`` and ``group_norm_split_apply.launches``
+count them. Gathering the partials over the ranks is the parallel layer's
+(``parallel/halo.psum_group_norm``). Forward only: the split path serves
+inference.
+
 The backward follows ``_bwd_kernel``: it rebuilds ``y = xhat*scale + bias``
 in fp32 and does not round it to the compute dtype before the GLU's
 derivative, so in bf16 it differs from autograd through
@@ -48,6 +60,17 @@ import torch
 from . import _build
 
 
+def _valid_mask(x, lengths):
+    """(B, T, 1, 1) fp32: 1 at the frames ``t < lengths[b]`` (all without
+    lengths)."""
+    B, T, _ = x.shape
+    if lengths is None:
+        return torch.ones((B, T, 1, 1), dtype=torch.float32, device=x.device)
+    t = torch.arange(T, device=x.device)
+    return (t[None, :] < lengths.to(x.device)[:, None]).float()[:, :, None,
+                                                                None]
+
+
 def group_norm_plain(x, scale, bias, num_groups, eps=1e-5, lengths=None,
                      glu=False):
     """Torch-semantics GroupNorm of (B, T, C): fp32 two-pass moments over
@@ -57,12 +80,7 @@ def group_norm_plain(x, scale, bias, num_groups, eps=1e-5, lengths=None,
     B, T, C = x.shape
     G = num_groups
     xf = x.float().reshape(B, T, G, C // G)
-    if lengths is None:
-        m = torch.ones((B, T, 1, 1), dtype=torch.float32, device=x.device)
-    else:
-        t = torch.arange(T, device=x.device)
-        m = (t[None, :] < lengths.to(x.device)[:, None]).float()[:, :, None,
-                                                                  None]
+    m = _valid_mask(x, lengths)
     count = torch.clamp(m.sum(dim=1, keepdim=True) * (C // G), min=1.0)
     mean = (xf * m).sum(dim=(1, 3), keepdim=True) / count
     sq = ((xf - mean).square() * m).sum(dim=(1, 3), keepdim=True)
@@ -93,12 +111,7 @@ def group_norm_backward_plain(x, scale, bias, g, num_groups, eps=1e-5,
     G = num_groups
     Cg = C // G
     xf = x.float().reshape(B, T, G, Cg)
-    if lengths is None:
-        m = torch.ones((B, T, 1, 1), dtype=torch.float32, device=x.device)
-    else:
-        t = torch.arange(T, device=x.device)
-        m = (t[None, :] < lengths.to(x.device)[:, None]).float()[:, :, None,
-                                                                  None]
+    m = _valid_mask(x, lengths)
     count = torch.clamp(m.sum(dim=1, keepdim=True) * Cg, min=1.0)
     mean = (xf * m).sum(dim=(1, 3), keepdim=True) / count
     sq = ((xf - mean).square() * m).sum(dim=(1, 3), keepdim=True)
@@ -139,6 +152,13 @@ def _lib():
         lib.gn_plan.argtypes = [I, I, I, I, I, I, I]
         lib.gn_plan.restype = I
         lib.gn_max_groups.restype = I
+        lib.gn_split_scratch_floats.argtypes = [I, I, I, I, I]
+        lib.gn_split_scratch_floats.restype = ctypes.c_longlong
+        lib.gn_split_stats.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+        lib.gn_split_stats.restype = I
+        lib.gn_split_apply.argtypes = [P, P, P, P, P, P, I, P, P, I, I, I,
+                                       I, I, I, F, I, P]
+        lib.gn_split_apply.restype = I
         lib._typed = True
     return lib
 
@@ -337,3 +357,137 @@ def fused_group_norm(x, scale, bias, num_groups, eps=1e-5, *, lengths=None,
 
 
 fused_group_norm.launches = 0
+
+
+# ------------------------------------------------------- split statistics
+def group_norm_split_stats_plain(x, num_groups, lengths=None, mask=None):
+    """(B, G, 3) fp32: per (row, group) the count of valid elements, their
+    mean (0 with none) and their centred sum of squares, two-pass. A
+    (B, T, 1) {0, 1} ``mask`` of the frames that enter may stand in for
+    ``lengths`` (no kernel takes one)."""
+    B, T, C = x.shape
+    G = num_groups
+    xf = x.float().reshape(B, T, G, C // G)
+    m = (_valid_mask(x, lengths) if mask is None
+         else mask.float()[:, :, :, None])
+    n = m.sum(dim=1, keepdim=True) * (C // G)
+    mean = (xf * m).sum(dim=(1, 3), keepdim=True) / torch.clamp(n, min=1.0)
+    m2 = ((xf - mean).square() * m).sum(dim=(1, 3), keepdim=True)
+    return torch.stack([n.expand_as(mean), mean, m2], dim=-1).reshape(B, G, 3)
+
+
+def chan_merge_plain(part):
+    """Merge the (B, G, R, 3) triples over R in order (Chan's formula):
+    ``(n, mean, m2)``, each (B, G)."""
+    n = torch.zeros(part.shape[:2], dtype=torch.float32, device=part.device)
+    mean, m2 = torch.zeros_like(n), torch.zeros_like(n)
+    for k in range(part.shape[2]):
+        nb, mb, qb = part[:, :, k, 0], part[:, :, k, 1], part[:, :, k, 2]
+        nt = n + nb
+        w = torch.where(nb > 0, nb / torch.clamp(nt, min=1.0),
+                        torch.zeros_like(nb))
+        delta = mb - mean
+        cross = torch.where(nb > 0, n * nb / torch.clamp(nt, min=1.0),
+                            torch.zeros_like(nb))
+        mean = mean + delta * w
+        m2 = m2 + torch.where(nb > 0, qb, torch.zeros_like(qb)) \
+            + delta * delta * cross
+        n = nt
+    return n, mean, m2
+
+
+def group_norm_split_apply_plain(x, scale, bias, part, num_groups, eps=1e-5,
+                                 lengths=None, glu=False):
+    """GroupNorm of the local ``x`` with the gathered partials ``part``
+    (B, G, R, 3) merged in rank order; the affine, cast, mask and GLU of
+    :func:`group_norm_plain`."""
+    B, T, C = x.shape
+    G = num_groups
+    n, mean, m2 = chan_merge_plain(part.float())
+    rstd = torch.rsqrt(torch.clamp(m2 / torch.clamp(n, min=1.0), min=0.0)
+                       + eps)
+    xf = x.float().reshape(B, T, G, C // G)
+    xn = ((xf - mean[:, None, :, None]) * rstd[:, None, :, None]) \
+        .reshape(B, T, C)
+    out = (xn * scale.float() + bias.float()).to(x.dtype)
+    if lengths is not None:
+        out = out * _valid_mask(x, lengths)[:, :, :, 0].to(out.dtype)
+    if glu:
+        H = C // 2
+        out = torch.tanh(out[..., :H]) * torch.sigmoid(out[..., H:])
+    return out
+
+
+def _split_checked(x, G, what):
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError(f"{what} is forward only (inference); call it "
+                         "under torch.no_grad()")
+    return x.detach()
+
+
+def group_norm_split_stats(x, num_groups, lengths=None):
+    """This rank's (B, G, 3) partial statistics of ``x`` (fp32 or bf16,
+    T or C the unit stride). CPU tensors take the plain version, CUDA
+    tensors the ``gn_split_stats`` kernels."""
+    if not x.is_cuda:
+        return group_norm_split_stats_plain(x, num_groups, lengths)
+    B, T, C = x.shape
+    G = int(num_groups)
+    what = "group_norm_split_stats"
+    dummy = torch.ones((C,), dtype=torch.float32, device=x.device)
+    lib, _, _, lengths = _checked(x, dummy, dummy, G, lengths, False, what)
+    x = _split_checked(x, G, what)
+    n = lib.gn_split_scratch_floats(B, T, C, G,
+                                    int(x.dtype == torch.bfloat16))
+    if n < 0:
+        raise ValueError(f"{what}: a row of {C} channels is too wide")
+    scratch = torch.empty((n,), dtype=torch.float32, device=x.device)
+    part = torch.empty((B, G, 3), dtype=torch.float32, device=x.device)
+    code = lib.gn_split_stats(
+        x.data_ptr(), _strides(x, what),
+        lengths.data_ptr() if lengths is not None else None,
+        part.data_ptr(), scratch.data_ptr(), B, T, C, G,
+        int(x.dtype == torch.bfloat16), x.device.index or 0,
+        _build.stream_of(x))
+    _build.check(code, lib, "gn_error_string", what)
+    group_norm_split_stats.launches += 1
+    return part
+
+
+group_norm_split_stats.launches = 0
+
+
+def group_norm_split_apply(x, scale, bias, part, num_groups, eps=1e-5,
+                           lengths=None, glu=False):
+    """GroupNorm(+GLU) of the local ``x`` with the gathered partials
+    ``part`` (B, G, R, 3) of R ranks, merged in rank order. CPU tensors
+    take the plain version, CUDA tensors the ``gn_split_apply`` kernel."""
+    if not x.is_cuda:
+        return group_norm_split_apply_plain(x, scale, bias, part, num_groups,
+                                            eps, lengths, glu)
+    B, T, C = x.shape
+    G = int(num_groups)
+    what = "group_norm_split_apply"
+    lib, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
+                                         what)
+    x = _split_checked(x, G, what)
+    if part.shape[:2] != (B, G) or part.shape[3] != 3 or not part.is_cuda:
+        raise ValueError(f"{what}: partials of shape {tuple(part.shape)} on "
+                         f"{part.device}, expected ({B}, {G}, R, 3) on "
+                         "the card")
+    part = part.to(torch.float32).contiguous()
+    out = _like_x(x, C // 2 if glu else C)
+    code = lib.gn_split_apply(
+        x.data_ptr(), _strides(x, what), scale.data_ptr(), bias.data_ptr(),
+        lengths.data_ptr() if lengths is not None else None,
+        part.data_ptr(), int(part.shape[2]), out.data_ptr(),
+        _strides(out, what), B, T, C, G, int(bool(glu)),
+        int(x.dtype == torch.bfloat16), float(eps), x.device.index or 0,
+        _build.stream_of(x))
+    _build.check(code, lib, "gn_error_string", what)
+    group_norm_split_apply.launches += 1
+    return out
+
+
+group_norm_split_apply.launches = 0
+

@@ -14,6 +14,13 @@ way.
 
 Random draws (lazy init, dead-code restarts) come from a
 ``torch.Generator`` on the tensors' device; they are not JAX's draws.
+
+Data-parallel training (``axis_name``, as ``vae_npvc_tpu/ops/vq.py``'s
+shard_map path): each rank runs the statistics mode on its own rows, the
+per-code sums and counts are summed over the axis, and the lazy-init and
+restart candidates are each rank's K draws gathered in rank order, of
+which K are re-picked with the step's generator, the same on every rank,
+so every rank commits the same codebook.
 """
 
 from __future__ import annotations
@@ -147,6 +154,22 @@ def _tiled_candidates(gen, z_flat, num_codes):
     return z_flat[perm[:num_codes]]
 
 
+def _pick(gen, n, num_codes, device):
+    """Indices of the ``num_codes`` rows re-picked from a pool of ``n``
+    gathered candidates (a draw of ``gen``, identical on every rank)."""
+    return torch.randperm(n, generator=gen, device=device)[:num_codes]
+
+
+def _pooled(gen, pool, num_codes):
+    """K of the ``(n, K, D)`` gathered candidates. A pool of one rank is
+    that rank's draw, already a random choice, taken as it is."""
+    n = pool.shape[0]
+    pool = pool.reshape(-1, pool.shape[-1])
+    if n == 1:
+        return pool
+    return pool[_pick(gen, pool.shape[0], num_codes, pool.device)]
+
+
 def ema_vq_encode(state, z):
     """(B, T, D) fp32 -> (B, T) int32 ids through the fused VQ's ids mode
     (``nearest_code``)."""
@@ -174,19 +197,34 @@ def ema_vq_forward(state, z, gen=None, *, mu=0.9, threshold=1.0,
     come from one fused pass (the kernel's statistics mode on CUDA). The
     lazy init is a tensor select on ``state.initted``, not a host branch,
     so a step never waits for the device.
+
+    ``axis_name`` (training only) names a bound data axis
+    (``parallel.comm.bind``): the statistics are summed over it in one
+    collective, and both candidate sets (lazy init, restarts) are gathered
+    over it in one more; outside a bound axis it raises ``ValueError``.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "ema_vq_forward(axis_name=...) belongs to the parallel slice "
-            "(ROADMAP Queue A, parallel)")
     B, T, D = z.shape
     K = state.emb.shape[0]
     z_flat = z.reshape(B * T, D)
     z_sg = z_flat.detach()
+    comm = None
+    if axis_name is not None and training:
+        from ..parallel import comm
+
+        comm.axis(axis_name)        # raises on an unbound name
 
     if training:
-        # lazy data-dependent init on the first training batch
+        # lazy data-dependent init on the first training batch; the
+        # restart candidates are drawn right after (the search draws
+        # nothing), so one collective gathers both
         emb0 = _tiled_candidates(gen, z_sg, K)
+        cand = _tiled_candidates(gen, z_sg, K) if update else None
+        if comm is not None:
+            both = emb0 if cand is None else torch.cat([emb0, cand])
+            pool = comm.all_gather(both, axis_name)
+            emb0 = _pooled(gen, pool[:, :K], K)
+            if cand is not None:
+                cand = _pooled(gen, pool[:, K:], K)
         keep = state.initted
         state = EmaVqState(
             torch.ones_like(state.initted),
@@ -198,7 +236,10 @@ def ema_vq_forward(state, z, gen=None, *, mu=0.9, threshold=1.0,
     if training and update:
         idx, z_q, batch_sum, batch_elem = vq_fused(z_sg, state.emb,
                                                    stats=True)
-        cand = _tiled_candidates(gen, z_sg, K)
+        if comm is not None:
+            stats = comm.psum_(torch.cat([batch_sum, batch_elem[:, None]],
+                                         dim=1), axis_name)
+            batch_sum, batch_elem = stats[:, :D], stats[:, D]
 
         old_emb = state.emb
         emb_sum = mu * state.emb_sum + (1.0 - mu) * batch_sum

@@ -15,7 +15,10 @@ comes from a whole request or from a streamed block
 by shape, and a streamed row then equals the offline row bit for bit.
 
 Every device stage runs on the engine's device or raises; there is no
-retry on another device. Data-parallel serving is not ported yet.
+retry on another device. ``data_parallel=True`` serves the live model over
+every visible card (``parallel/mesh.data_mesh``): one replica per card,
+each coalesced batch padded to a multiple of the card count and split
+along B (``Converter(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -59,9 +62,16 @@ class _InferBatcher:
     worker also serializes device calls.
     """
 
-    def __init__(self, runner, max_batch: int = 8, window_ms: float = 5.0):
+    def __init__(self, runner, max_batch: int = 8, window_ms: float = 5.0,
+                 pad_multiple: int = 1):
         self.runner = runner
         self.max_batch = int(max_batch)
+        # a data-parallel mesh takes batches divisible by its size: the
+        # power-of-two padding is rounded up to a multiple of it
+        self.pad_multiple = int(pad_multiple)
+        if self.max_batch % self.pad_multiple:
+            raise ValueError(f"max_batch {max_batch} not divisible by "
+                             f"pad_multiple {pad_multiple}")
         self.window_s = float(window_ms) / 1e3
         self._q: queue.Queue = queue.Queue()
         self.calls = 0                       # batched device calls
@@ -109,7 +119,9 @@ class _InferBatcher:
                 return
             group = self._take_group(item)
             B = len(group)
-            B_pad = min(1 << (B - 1).bit_length(), self.max_batch)
+            m = self.pad_multiple
+            B_pad = min(-(-(1 << (B - 1).bit_length()) // m) * m,
+                        self.max_batch)
             pad = [group[0]] * (B_pad - B)
             feats = np.stack([g[0] for g in group] + [p[0] for p in pad])
             lengths = np.asarray([g[1] for g in group]
@@ -147,12 +159,25 @@ class ConversionEngine:
                  bucket_frames=None, max_batch=8, batch_window_ms=5.0,
                  seed=0, data_parallel=False, voc_config=None,
                  voc_checkpoint=None, device="cuda"):
-        if data_parallel:
-            raise NotImplementedError("data-parallel serving is not ported "
-                                      "yet (ROADMAP Queue A item 15)")
         if vocoder not in ("gl", "jpwg", "none"):
             raise ValueError(f"unknown vocoder {vocoder!r}")
         self.bundle = None
+        mesh, pad_multiple = None, 1
+        if data_parallel:
+            # one replica per visible card (or per device of a given
+            # LocalMesh); bundles are single-device programs
+            if bundle is not None:
+                raise ValueError("data_parallel serves the live model; "
+                                 "bundles are single-device programs")
+            from ..parallel.mesh import LocalMesh, data_mesh
+
+            mesh = (data_parallel if isinstance(data_parallel, LocalMesh)
+                    else data_mesh(None if torch.device(device).type
+                                   == "cuda" else [device]))
+            pad_multiple = len(mesh.devices)
+            # round max_batch up to a multiple the batcher can submit
+            max_batch = -(-max(int(max_batch), pad_multiple)
+                          // pad_multiple) * pad_multiple
         if bundle is not None:
             # exported-program backend: no model code, config or checkpoint
             from ..infer.export_serving import ServingBundle
@@ -177,7 +202,7 @@ class ConversionEngine:
                 with open(config) as f:
                     config = yaml.safe_load(f)
             self.config = config
-            self.converter = Converter(config, device=device)
+            self.converter = Converter(config, device=device, mesh=mesh)
             self.device = self.converter.device
             self.iteration = self.converter.load_checkpoint(checkpoint)
             self._min_frames = self.converter.min_frames
@@ -219,7 +244,8 @@ class ConversionEngine:
                            "bundle meta" if self.bundle else "config")
         self._y_num = y_num
         self.batcher = _InferBatcher(runner, max_batch=max_batch,
-                                     window_ms=batch_window_ms)
+                                     window_ms=batch_window_ms,
+                                     pad_multiple=pad_multiple)
         self._stats_lock = threading.Lock()
         self.n_requests = 0
         self.latency_ms: list = []           # rolling (last 1024)
@@ -364,9 +390,9 @@ class ConversionEngine:
                          self.fs, tgt)
         if pads and self.bundle is None:
             T_pad, D = pads[0], int(self.feature["n_mels"])
-            B = 1
+            B, m = 1, self.batcher.pad_multiple
             while B < self.batcher.max_batch:
-                B = min(B * 2, self.batcher.max_batch)
+                B = min(-(-(B * 2) // m) * m, self.batcher.max_batch)
                 self.batcher.runner(np.zeros((B, T_pad, D), np.float32),
                                     np.full((B,), tgt, np.int32),
                                     np.full((B,), T_pad, np.int32))

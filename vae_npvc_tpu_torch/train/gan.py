@@ -80,7 +80,11 @@ class GanTrainer(Trainer):
     # with phase-dependent detail keys: bin/train runs single steps
     supports_steps_per_call = False
 
-    def __init__(self, config, device="cuda", seed=None):
+    def __init__(self, config, device="cuda", seed=None, mesh=None):
+        if mesh is not None:
+            raise ValueError("the WGAN-GP trainer runs in one process (its "
+                             "critic and generator steps are not "
+                             "data-parallel)")
         super().__init__(config, device=device, seed=seed)
         if self.grad_accum > 1:
             raise ValueError("grad_accum is not supported by the GAN "

@@ -34,11 +34,14 @@ from typing import NamedTuple, Optional
 import torch
 
 
-def clip_by_global_norm_torch(grad, max_norm):
+def clip_by_global_norm_torch(grad, max_norm, norm=None):
     """Scale ``grad`` by ``min(1, max_norm / (norm + 1e-6))``, the
     semantics of ``torch.nn.utils.clip_grad_norm_`` that the JAX package's
-    transform of the same name keeps."""
-    norm = torch.linalg.vector_norm(grad)
+    transform of the same name keeps. ``norm`` is the global norm when
+    ``grad`` is one rank's slice of the gradient (model-axis sharding);
+    by default ``grad``'s own."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(grad)
     return grad * torch.clamp(max_norm / (norm + 1e-6), max=1.0)
 
 
@@ -112,11 +115,13 @@ class Adam:
     def _step(self, mu_hat, nu_hat, count, params):
         return mu_hat / (torch.sqrt(nu_hat) + self.eps)
 
-    def update(self, grad, state, params=None):
+    def update(self, grad, state, params=None, grad_norm=None):
         """``(update, new_state)``; the new parameters are ``params +
-        update``."""
+        update``. ``grad_norm`` is the clip's global norm when ``grad`` is
+        a slice of the whole gradient."""
         if self.clips:
-            grad = clip_by_global_norm_torch(grad, self.max_grad_norm)
+            grad = clip_by_global_norm_torch(grad, self.max_grad_norm,
+                                             grad_norm)
         mu = self.b1 * state.mu + (1.0 - self.b1) * grad
         nu = self.b2 * state.nu + (1.0 - self.b2) * grad * grad
         count = state.count + 1

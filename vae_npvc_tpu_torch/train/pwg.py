@@ -1,4 +1,4 @@
-"""Parallel WaveGAN vocoder trainer on one device.
+"""Parallel WaveGAN vocoder trainer, on one device or data-parallel.
 
 Counterpart of ``vae_npvc_tpu/train/pwg.py`` (``PwgTrainer``): the
 published scheme (Yamamoto et al., ICASSP 2020) in the JAX step's order.
@@ -23,6 +23,14 @@ device reseeded from ``(seed, step)``, so a resumed run draws what an
 uninterrupted one would; they are not ``jax.random``'s draws, so a step
 takes an injected ``z`` for the lockstep tests.
 
+With a ``mesh`` (``parallel/mesh.py``) the step is data-parallel: each rank
+of the ``data`` axis takes its rows of the global batch (and of the global
+noise, drawn whole on every rank from the same generator), and the
+generator's and the discriminator's flat gradients are each averaged over
+the axis before their updates, as the JAX GSPMD step reduces them; the
+detail is averaged too. Both losses are means over the batch's rows, so
+equal shards give the global batch's values. Rank 0 writes checkpoints.
+
 Detail keys: ``Total``, ``spectral_convergence``, ``log_stft_magnitude``,
 ``adversarial``, ``disc_real``, ``disc_fake``. Checkpoints: msgpack
 ``{generator, discriminator, optimizer_G, optimizer_D, iteration}``, as the
@@ -41,6 +49,8 @@ from ..ops.stft_loss import DEFAULT_RESOLUTIONS, multi_stft_loss
 from ..utils import msgpack_io
 from ..utils.bridge import (from_jax_variables, optimizer_from_jax,
                             optimizer_to_jax, to_jax_variables)
+from ..parallel import comm
+from ..parallel.shard import AXIS, mean_detail, shard_rows
 from ..utils.device import resolve_device
 from .optim import OptState, build_optimizer
 
@@ -88,10 +98,14 @@ class _Net:
                 off += n
         self.opt_state = self.tx.init(self.flat)
 
-    def step(self, loss):
-        """Gradient of ``loss`` over this network, then the update."""
+    def step(self, loss, mesh=None):
+        """Gradient of ``loss`` over this network (averaged over the data
+        axis of ``mesh``), then the update."""
         grads = torch.autograd.grad(loss, self.params)
         flat_g = torch.cat([g.float().reshape(-1) for g in grads])
+        if mesh is not None:
+            with comm.bind(mesh, (AXIS,)):
+                comm.pmean_(flat_g, AXIS)
         update, self.opt_state = self.tx.update(flat_g, self.opt_state,
                                                 self.flat)
         with torch.no_grad():
@@ -116,9 +130,10 @@ class PwgTrainer:
     """Owns the generator, the discriminator and the GAN step on ``device``
     (the GPU unless the caller asks for the CPU)."""
 
-    def __init__(self, config, device="cuda", seed=None):
+    def __init__(self, config, device="cuda", seed=None, mesh=None):
         self.config = dict(config)
         self.device = resolve_device(device)
+        self.mesh = mesh
         scales = self.config.get("upsample_scales", (4, 4, 4, 4))
         self.hop = math.prod(scales)
         if "n_shift" in self.config and self.hop != self.config["n_shift"]:
@@ -173,6 +188,10 @@ class PwgTrainer:
 
     # ------------------------------------------------------------------ step
     def _step(self, wav, mel, z):
+        mesh = None
+        if self.mesh is not None:
+            (wav, mel, z), sharded = shard_rows((wav, mel, z), self.mesh)
+            mesh = self.mesh if sharded else None
         active = self._host_step >= self.d_start
         wav_hat = self.generator(z, mel)[..., 0]
         sc, mag = multi_stft_loss(wav_hat, wav, self.resolutions)
@@ -182,7 +201,7 @@ class PwgTrainer:
             adv = torch.mean((self.discriminator(wav_hat[..., None])
                               - 1.0) ** 2)
         total = sc + mag + (self.lambda_adv * float(active)) * adv
-        self.G.step(total)
+        self.G.step(total, mesh)
 
         # D on the same forward's x_hat, real and fake in one batch
         fake = wav_hat.detach()
@@ -192,12 +211,16 @@ class PwgTrainer:
             d_real = torch.mean((real_l - 1.0) ** 2)
             d_fake = torch.mean(fake_l ** 2)
         if active:
-            self.D.step(d_real + d_fake)
+            self.D.step(d_real + d_fake, mesh)
         self._host_step += 1
-        return {"Total": total.detach(), "spectral_convergence": sc.detach(),
-                "log_stft_magnitude": mag.detach(),
-                "adversarial": adv.detach(), "disc_real": d_real.detach(),
-                "disc_fake": d_fake.detach()}
+        detail = {"Total": total.detach(), "spectral_convergence": sc.detach(),
+                  "log_stft_magnitude": mag.detach(),
+                  "adversarial": adv.detach(), "disc_real": d_real.detach(),
+                  "disc_fake": d_fake.detach()}
+        if mesh is not None:
+            with comm.bind(mesh, (AXIS,)):
+                detail = mean_detail(detail)
+        return detail
 
     def _dev(self, a):
         if torch.is_tensor(a):
@@ -285,16 +308,20 @@ class PwgTrainer:
 
     # ------------------------------------------------------- checkpointing
     def save_checkpoint(self, path):
+        """Rank 0 writes; on a mesh every rank waits for the write."""
         self._require_state()
-        payload = {
-            "generator": self.G.params_tree(),
-            "discriminator": self.D.params_tree(),
-            "optimizer_G": self.G.opt_tree(),
-            "optimizer_D": self.D.opt_tree(),
-            "iteration": self._host_step,
-        }
-        with open(path, "wb") as f:
-            f.write(msgpack_io.msgpack_serialize(payload))
+        if self.mesh is None or self.mesh.rank == 0:
+            payload = {
+                "generator": self.G.params_tree(),
+                "discriminator": self.D.params_tree(),
+                "optimizer_G": self.G.opt_tree(),
+                "optimizer_D": self.D.opt_tree(),
+                "iteration": self._host_step,
+            }
+            with open(path, "wb") as f:
+                f.write(msgpack_io.msgpack_serialize(payload))
+        if self.mesh is not None:
+            comm.barrier()
 
     def load_checkpoint(self, path, example_batch=None):
         """Restore a checkpoint of the JAX trainer or of this one; returns

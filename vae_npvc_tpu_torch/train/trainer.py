@@ -1,13 +1,12 @@
-"""Trainer: the train step, validation and checkpointing on one device.
+"""Trainer: the train step, validation and checkpointing.
 
 Counterpart of the core of ``vae_npvc_tpu/train/trainer.py`` (``Trainer``:
 ``init_state``, ``train_step``, ``train_steps``, the non-finite guard,
 ``grad_accum``, ``valid``, ``stage_dataset`` + ``train_steps_indices``,
 ``train_steps_device``, ``save_checkpoint`` / ``load_checkpoint`` in the
-JAX checkpoint format).
-Meshes, model-axis sharding and multi-host assembly belong to the parallel
-slice. It drives any registered model: the flat VQ-VAE with its EMA
-codebook and ``(feats, spks)`` batches, the hierarchical VQ-VAEs with one
+JAX checkpoint format, ``shard_batch``, ``_assemble_multihost`` and the
+model-axis shardings of a mesh). It drives any registered model: the flat
+VQ-VAE with its EMA codebook and ``(feats, spks)`` batches, the hierarchical VQ-VAEs with one
 EMA codebook per level (or plain codebooks), and models without EMA state
 such as the token->mel synthesizer with its six-entry batches (``tokens,
 durations, mels, spks, tok_lens, mel_lens``); a batch is a tuple the model's
@@ -32,10 +31,21 @@ EMA level of a hierarchy draws from its own generator, reseeded from
 come from a generator of their own, reseeded from ``(seed, IID_SALT,
 step)``, so the VQ draws are the same with or without on-device sampling.
 They are not the JAX package's draws.
+
+With a ``mesh`` (``parallel/mesh.py``, one process per rank) the step is
+data-parallel (``parallel/shard.py``): each rank of the ``data`` axis takes
+its rows of the global batch, the flat gradient and the detail are
+averaged over the axis, and the flat EMA codebook sums its statistics and
+pools its candidates over it. A ``model`` axis above 1 splits parameters
+and Adam moments by the shape-generic rule (``parallel/tp.py``): each rank
+updates its slices and all-gathers the whole parameters after the step.
+Checkpoints hold the whole trees in the JAX format; rank 0 writes them and
+every rank waits for the write.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 
 import numpy as np
@@ -46,6 +56,9 @@ from ..models import build_model, codebook_renorm_fn
 from ..models.hier_common import HierVQMixin
 from ..models.vqvae import EmaQuantizer
 from ..ops.vq import ema_vq_init
+from ..parallel import comm
+from ..parallel.shard import (AXIS, enable_explicit_dp, mean_detail,
+                              reduce_gradient, shard_rows)
 from ..utils import msgpack_io
 from ..utils.bridge import (from_jax_variables, optimizer_from_jax,
                             optimizer_to_jax, to_jax_variables)
@@ -72,10 +85,19 @@ class Trainer:
     # device-resident corpus
     supports_steps_per_call = True
 
-    def __init__(self, config, device="cuda", seed=None):
+    def __init__(self, config, device="cuda", seed=None, mesh=None):
         self.config = config
-        self.model = build_model(config, device)
+        # with a mesh the flat EMA quantizer sums its statistics over the
+        # data axis (the other families carry no cross-rank state)
+        self.model = build_model(
+            config if mesh is None else enable_explicit_dp(config), device)
         self.device = next(self.model.parameters()).device
+        self.mesh = mesh
+        self.n_model = dict(mesh.shape).get("model", 1) if mesh else 1
+        self.tp_min_param_size = config.get("tp_min_param_size", 1024)
+        self._tp = None           # parallel.tp.TpLayout, with a model axis
+        self._warned_shard = False
+        self._batch_spec = None   # ((trailing shape, dtype), ...) seen last
         # the EMA codebooks by name (the JAX ``ema`` collection's roots)
         self.ema = {n: m for n, m in self.model.named_children()
                     if isinstance(m, EmaQuantizer)}
@@ -83,6 +105,10 @@ class Trainer:
         # a hierarchy takes its EMA states as a dict by name, and draws
         # each level's lazy init and restarts from that level's generator
         self._hier = isinstance(self.model, HierVQMixin)
+        if mesh is not None and self.has_ema and self._hier:
+            raise ValueError("data-parallel training keeps one flat EMA "
+                             "codebook consistent across ranks; the "
+                             "hierarchies' EMA levels are not")
         self.tx = build_optimizer(config)
         self.seed = int(config.get("seed", 777) if seed is None else seed)
         self.gen = torch.Generator(device=self.device)
@@ -124,8 +150,25 @@ class Trainer:
         for q in self.ema.values():
             q.set_state(ema_vq_init(*q.emb.shape, device=self.device))
         self._flatten_parameters()
-        self.opt_state = self.tx.init(self.flat)
+        self._init_layout()
+        self.opt_state = self.tx.init(self._opt_vector())
         self._host_iter = 0
+        if example_batch is not None:
+            self._note_spec(example_batch)
+
+    def _init_layout(self):
+        """With a model axis, the slices this rank keeps (tp.TpLayout)."""
+        if self.n_model > 1 and self._tp is None:
+            from ..parallel.tp import TpLayout
+
+            self._tp = TpLayout(self.layout, self.n_model,
+                                self.mesh.coords["model"],
+                                self.tp_min_param_size, self.device)
+
+    def _opt_vector(self):
+        """The vector the optimizer updates: every parameter, or with a
+        model axis this rank's slices and the whole parameters."""
+        return self.flat if self._tp is None else self._tp.local(self.flat)
 
     def _require_state(self):
         if self.flat is None:
@@ -178,9 +221,40 @@ class Trainer:
         flat_g = self._flat_grad(loss)
         return flat_g, pending, {k: v.detach() for k, v in detail.items()}
 
+    # ----------------------------------------------------------- mesh
+    def shard_batch(self, batch):
+        """``(local batch, sharded)``: this rank's rows of the global
+        batch, or without a mesh the batch itself. A batch the data axis
+        does not divide runs whole on every rank (``sharded`` False), as the
+        JAX trainer replicates it."""
+        if self.mesh is None:
+            return batch, False
+        local, sharded = shard_rows(batch, self.mesh)
+        if not sharded and not self._warned_shard:
+            logging.getLogger("vae_npvc_tpu_torch.train").warning(
+                f"batch size {batch[0].shape[0]} not divisible by data-axis "
+                f"size {self.mesh.shape['data']}; replicating this batch")
+            self._warned_shard = True
+        return local, sharded
+
+    def _bound(self, sharded):
+        """The data axis bound for a sharded step's collectives."""
+        return (comm.bind(self.mesh, (AXIS,)) if sharded
+                else contextlib.nullcontext())
+
+    def _reduced(self, flat_g, detail, sharded):
+        """The sharded step's means over the data axis."""
+        if not sharded:
+            return flat_g, detail
+        with comm.bind(self.mesh, (AXIS,)):
+            return reduce_gradient(flat_g, detail)
+
     def _train_step(self, batch):
+        batch, sharded = self.shard_batch(batch)
         self._begin_step()
-        flat_g, new_ema, detail = self._loss_and_grad(batch)
+        with self._bound(sharded):
+            flat_g, new_ema, detail = self._loss_and_grad(batch)
+        flat_g, detail = self._reduced(flat_g, detail, sharded)
         return self._finish_step(flat_g, new_ema, detail)
 
     def _train_step_accum(self, batch):
@@ -188,6 +262,7 @@ class Trainer:
         gradients; the EMA codebook statistics chain through the
         microbatches in order, the detail is their mean."""
         k = self.grad_accum
+        batch, sharded = self.shard_batch(batch)
         B = batch[0].shape[0]
         if B % k != 0:
             raise ValueError(
@@ -196,32 +271,49 @@ class Trainer:
         self._begin_step()
         ema = self._ema_states() if self.has_ema else None
         gsum, details = None, []
-        for i in range(k):
-            mb = tuple(a[i * (B // k):(i + 1) * (B // k)] for a in batch)
-            flat_g, ema, detail = self._loss_and_grad(mb, ema)
-            gsum = flat_g if gsum is None else gsum + flat_g
-            details.append(detail)
+        with self._bound(sharded):
+            for i in range(k):
+                mb = tuple(a[i * (B // k):(i + 1) * (B // k)] for a in batch)
+                flat_g, ema, detail = self._loss_and_grad(mb, ema)
+                gsum = flat_g if gsum is None else gsum + flat_g
+                details.append(detail)
         detail = {key: torch.stack([d[key] for d in details]).mean(dim=0)
                   for key in details[0]}
-        return self._finish_step(gsum / k, ema, detail)
+        flat_g, detail = self._reduced(gsum / k, detail, sharded)
+        return self._finish_step(flat_g, ema, detail)
 
     def _finish_step(self, flat_g, new_ema, detail):
         """Optimizer update and non-finite guard; commits the parameters,
-        the optimizer state and the EMA codebooks."""
-        update, opt_state = self.tx.update(flat_g, self.opt_state,
-                                           self.flat)
-        new_flat = self.flat + update
-        grad_sq = torch.sum(flat_g * flat_g)
+        the optimizer state and the EMA codebooks. With a model axis the
+        update is of this rank's slices (the gradient reduce-scattered, the
+        norm summed over the axis), then the whole parameters are
+        gathered."""
+        params = self._opt_vector()
+        if self._tp is None:
+            grad_sq = torch.sum(flat_g * flat_g)
+            update, opt_state = self.tx.update(flat_g, self.opt_state,
+                                               params)
+        else:
+            with comm.bind(self.mesh, ("model",)):
+                flat_g = self._tp.reduce_scatter(flat_g)
+                grad_sq = self._tp.sq_norm(flat_g)
+            update, opt_state = self.tx.update(flat_g, self.opt_state,
+                                               params, torch.sqrt(grad_sq))
+        new_params = params + update
         if self.skip_nonfinite:
             ok = torch.isfinite(grad_sq)
-            new_flat = torch.where(ok, new_flat, self.flat)
+            new_params = torch.where(ok, new_params, params)
             opt_state = _select(ok, opt_state, self.opt_state)
             if new_ema is not None:
                 new_ema = {n: _select(ok, s, self.ema[n].state())
                            for n, s in new_ema.items()}
             detail["skipped_nonfinite"] = 1.0 - ok.float()
         with torch.no_grad():
-            self.flat.copy_(new_flat)
+            if self._tp is None:
+                self.flat.copy_(new_params)
+            else:
+                with comm.bind(self.mesh, ("model",)):
+                    self._tp.gather(new_params, self.flat)
         self.opt_state = opt_state
         for n, s in (new_ema or {}).items():
             self.ema[n].set_state(s)
@@ -317,39 +409,165 @@ class Trainer:
                                  for ii, ss in zip(idx, starts)])
 
     # ------------------------------------------------------------ validation
+    def _valid_detail(self, batch):
+        """The loss detail of one global batch: with a data axis above 1,
+        its largest divisible prefix split over the ranks (the detail
+        averaged over the axis) and the rest whole on every rank, combined
+        by rows (valid batches share one crop, so a batch's detail is a
+        mean over its rows)."""
+        n = self.mesh.shape["data"] if self.mesh is not None else 1
+        if n == 1:
+            return self.model(*batch, False)[2]
+        B = batch[0].shape[0]
+        rem = B % n
+        parts = []
+        if B > rem:
+            local, _ = shard_rows(tuple(a[:B - rem] for a in batch),
+                                  self.mesh)
+            with comm.bind(self.mesh, (AXIS,)):
+                parts.append((B - rem, mean_detail(
+                    self.model(*local, False)[2])))
+        if rem:
+            tail = tuple(a[B - rem:] for a in batch)
+            parts.append((rem, self.model(*tail, False)[2]))
+        return {k: sum(w * d[k] for w, d in parts) / B for k in parts[0][1]}
+
     def valid(self, batches):
         """Loss detail over an iterable of batches, as lists of floats (the
-        caller takes the mean)."""
+        caller takes the mean).
+
+        With several data-axis ranks each rank passes its own stream of
+        local batches, which may differ in count and size: every rank
+        drains its stream, adds a zero-row batch once it is exhausted, and
+        every global batch is assembled from all ranks' rows in rank order
+        (:meth:`_assemble_multihost`); the loop ends when the global row
+        count is 0, after the same number of steps on every rank.
+        """
         self._require_state()
         acc: dict[str, list] = {}
+        multi = self.mesh is not None and self.mesh.shape["data"] > 1
         with torch.no_grad():
-            for batch in batches:
-                _, _, detail = self.model(*self._to_device(batch), False)
+            it = iter(batches)
+            while True:
+                batch = next(it, None)
+                if multi:
+                    if batch is None:
+                        batch = self._empty_local_batch()
+                    batch, total = self._assemble_multihost(batch)
+                    if total == 0:
+                        break
+                elif batch is None:
+                    break
+                else:
+                    batch = self._to_device(batch)
+                detail = self._valid_detail(batch)
                 for k, v in detail.items():
                     acc.setdefault(k, []).append(v)
         return {k: [float(x) for x in torch.stack(v).cpu()]
                 for k, v in acc.items()}
+
+    def _note_spec(self, batch):
+        self._batch_spec = tuple(
+            (tuple(a.shape[1:]), a.dtype if torch.is_tensor(a)
+             else torch.as_tensor(np.asarray(a)[:0]).dtype) for a in batch)
+
+    def _empty_local_batch(self):
+        """A zero-row batch of the last spec seen (a drained stream)."""
+        if self._batch_spec is None:
+            raise ValueError("a rank drained its stream before seeing a "
+                             "batch: pass example_batch to init_state")
+        return tuple(torch.zeros((0,) + shape, dtype=dtype,
+                                 device=self.device)
+                     for shape, dtype in self._batch_spec)
+
+    def _assemble_multihost(self, batch):
+        """The global batch of every data-axis rank's local rows, in rank
+        order: ``(arrays on the device, rows)``.
+
+        Every rank first gathers one small int vector ``[rows, trailing
+        dims...]``; every branch then depends only on that shared vector.
+        The trailing dims are the maximum over ranks that hold rows; each
+        rank pads its rows to the largest count, the padded blocks are
+        gathered and the true rows re-sliced in rank order. ``rows == 0``
+        (every rank empty) returns ``(None, 0)``, the same decision on every
+        rank. A rank with no rows left still takes part, which is how
+        :meth:`valid` drains unequal streams.
+        """
+        arrs = [torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
+                                else a).to(self.device) for a in batch]
+        if arrs[0].shape[0] > 0:
+            self._note_spec(arrs)
+        vec = torch.tensor([arrs[0].shape[0]] + [d for a in arrs
+                                                 for d in a.shape[1:]],
+                           dtype=torch.int64, device=self.device)
+        with comm.bind(self.mesh, (AXIS,)):
+            all_vecs = comm.all_gather(vec, AXIS).cpu().numpy()
+            sizes = all_vecs[:, 0]
+            total = int(sizes.sum())
+            if total == 0:
+                return None, 0
+            tmax = all_vecs[sizes > 0, 1:].max(axis=0)
+            max_b = int(sizes.max())
+            out, off = [], 0
+            for a in arrs:
+                nd = a.dim() - 1
+                tshape = tuple(int(x) for x in tmax[off:off + nd])
+                off += nd
+                pad = torch.zeros((max_b,) + tshape, dtype=a.dtype,
+                                  device=self.device)
+                # a drained rank's spec may be wider than the real rows:
+                # crop to the agreed dims
+                sl = tuple(slice(0, min(x, t)) for x, t in
+                           zip(a.shape[1:], tshape))
+                pad[(slice(0, a.shape[0]),) + sl] = a[(slice(None),) + sl]
+                g = comm.all_gather(pad, AXIS)
+                out.append(torch.cat([g[r, :int(sizes[r])]
+                                      for r in range(len(sizes))]))
+        return tuple(out), total
 
     @property
     def iteration(self):
         return self._host_iter
 
     # ------------------------------------------------------------ checkpoint
+    def _whole_opt_state(self):
+        """The optimizer state over every parameter (with a model axis the
+        moments' slices gathered; every rank of the mesh takes part)."""
+        if self._tp is None:
+            return self.opt_state
+        st = self.opt_state
+        with comm.bind(self.mesh, ("model",)):
+            mu = self._tp.gather(st.mu, torch.empty_like(self.flat))
+            nu = self._tp.gather(st.nu, torch.empty_like(self.flat))
+        return OptState(st.count, mu, nu, st.sched_count)
+
+    @property
+    def writes(self):
+        """Whether this rank writes files (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def save_checkpoint(self, path):
         """Write ``{model, ema, optimizer, iteration, wn_axis_format}`` as
-        the JAX trainer does (msgpack, same trees)."""
+        the JAX trainer does (msgpack, same trees). On a mesh every rank
+        calls it, rank 0 writes the whole trees, and every rank waits for
+        the write."""
         self._require_state()
-        v = to_jax_variables(self.model.state_dict())
-        payload = {
-            "model": v["params"],
-            "ema": {"ema": v["ema"]} if v["ema"] else {},
-            "optimizer": optimizer_to_jax(self.opt_state, self.layout,
-                                          self.tx.clips, self.tx.decoupled),
-            "iteration": self._host_iter,
-            "wn_axis_format": WN_AXIS_FORMAT,
-        }
-        with open(path, "wb") as f:
-            f.write(msgpack_io.msgpack_serialize(payload))
+        opt_state = self._whole_opt_state()
+        if self.writes:
+            v = to_jax_variables(self.model.state_dict())
+            payload = {
+                "model": v["params"],
+                "ema": {"ema": v["ema"]} if v["ema"] else {},
+                "optimizer": optimizer_to_jax(opt_state, self.layout,
+                                              self.tx.clips,
+                                              self.tx.decoupled),
+                "iteration": self._host_iter,
+                "wn_axis_format": WN_AXIS_FORMAT,
+            }
+            with open(path, "wb") as f:
+                f.write(msgpack_io.msgpack_serialize(payload))
+        if self.mesh is not None:
+            comm.barrier()
 
     def load_checkpoint(self, path, example_batch=None):
         """Restore a checkpoint in the JAX format. One of weight-norm axis
@@ -365,11 +583,16 @@ class Trainer:
             from_jax_variables(checkpoint_variables(payload, model)),
             strict=True)
         if payload.get("optimizer") and not migrated:
-            self.opt_state = OptState(*optimizer_from_jax(
+            st = OptState(*optimizer_from_jax(
                 payload["optimizer"], self.layout, self.tx.clips,
                 self.tx.scheduled, self.device, self.tx.decoupled))
+            if self._tp is not None:
+                # re-sharded: this rank keeps its slices of the moments
+                st = OptState(st.count, self._tp.local(st.mu),
+                              self._tp.local(st.nu), st.sched_count)
+            self.opt_state = st
         else:
-            self.opt_state = self.tx.init(self.flat)
+            self.opt_state = self.tx.init(self._opt_vector())
             if migrated and payload.get("optimizer"):
                 logging.getLogger("vae_npvc_tpu_torch.train").warning(
                     "weight-norm axis migration applied: optimizer moments "
