@@ -5976,6 +5976,7 @@ def _par_dp1(torch, root):
         plain_prof = _profiled(torch, lambda: plain_tr.train_steps_device(1))
         dp_prof = _profiled(torch, lambda: dp_tr.train_steps_device(1))
         del plain_tr, dp_tr
+        rest = _par_dp1_rest(torch)
     finally:
         dist.destroy_process_group()
     for k in keys:
@@ -6002,9 +6003,10 @@ def _par_dp1(torch, root):
           "plain_ms_per_step_median": float(np.median(plain_ms[steady])),
           "ms_per_step": dp_ms, "plain_ms_per_step": plain_ms,
           "steps_alternate": True,
-          "one_step_profile": dp_prof, "plain_one_step_profile": plain_prof})
+          "one_step_profile": dp_prof, "plain_one_step_profile": plain_prof,
+          "families_bit_equal_to_plain": rest})
     return {"ms": float(np.median(dp_ms[steady])),
-            "plain_ms": float(np.median(plain_ms[steady]))}
+            "plain_ms": float(np.median(plain_ms[steady])), "rest": rest}
 
 
 def _par_references(torch, root):
@@ -6262,8 +6264,10 @@ def _rank_voc(torch, root, rank, res):
 
 
 def _parallel_ranks(rank, world, root):
-    """Two ranks on cuda:0 over gloo: dp2, tp, seq, pp, pwg_dp, each
-    checked in the parent against its one-process reference."""
+    """Two ranks on cuda:0 over gloo: dp2, tp, seq, pp, pwg_dp, the
+    other families' cases (hier_dp, hier_plain_dp, gan_dp, tts_dp, tac2_dp) and
+    ``bin/train`` device-resident, each checked in the parent against its
+    one-process reference."""
     import torch
 
     torch.cuda.set_device(0)
@@ -6278,6 +6282,8 @@ def _parallel_ranks(rank, world, root):
     _rank_seq(torch, root, res)
     _rank_pp(torch, root, rank, res)
     _rank_voc(torch, root, rank, res)
+    _rank_rest(torch, root, rank, res)
+    _rank_train_cli_dev(torch, root, rank, world, res)
     (root / f"rank{rank}.json").write_text(json.dumps(res))
 
 
@@ -6482,6 +6488,501 @@ def _par_train_cli(torch, root, corpus):
           "x_like": [r["X like"] for r in rows]})
 
 
+# ------------------------------------------- parallel: the other families
+# The families the JAX package spreads over its chips besides the flat model
+# and the vocoder, at the recipes' widths: two ranks on cuda:0 over gloo
+# against one process on the global batch, and NCCL at world size 1 against
+# the plain step. Global batches: 16 rows of 256 frames (hierarchy, GAN),
+# 8 token-mel rows (synthesizer, the halves' frame and token counts
+# unequal), 4 Tacotron2 rows cut to PAR_TAC2_T frames.
+PAR_REST = {
+    "hier_dp": (dict(HIER, use_ema=True), 16, 3),
+    "hier_plain_dp": (dict(HIER), 16, 2),
+    "gan_dp": (dict(GAN, pre_iter=1), 16, 4),
+    "tts_dp": (dict(TTS), 8, 3),
+    "tac2_dp": (dict(TAC2), 4, 2),
+}
+PAR_TAC2_L, PAR_TAC2_T = 48, 96
+# the two-rank comparisons run in fp32: a rank's half batch and the whole
+# batch take other bf16 GEMM and convolution algorithms, so bf16 rows
+# round apart and move codes (the world-size-1 cases run the recipes' bf16)
+PAR_REST_DTYPE = "float32"
+# K1-K5 a step (a GAN step: an iteration; 2 of its 4 are the phase-1 step,
+# 2 a critic and a generator step), on each rank as on one process; the
+# kernels not named launch 0 times
+PAR_REST_LAUNCHES = {
+    "hier_dp": {"vq_fused": 2, "fused_group_norm": 40,
+                "fused_group_norm_backward": 40},
+    "hier_plain_dp": {"vq_fused": 2, "fused_group_norm": 40,
+                      "fused_group_norm_backward": 40},
+    "gan_dp": {"vq_fused": 1.5, "fused_group_norm": 30,
+               "fused_group_norm_backward": 20},
+    "tts_dp": {"fused_attention": 12, "fused_attention_backward": 12},
+    "tac2_dp": {},
+}
+# the synthesizers' parameters after a few fp32 steps: Adam moves every
+# element by about the learning rate at its first steps whatever the
+# gradient's size, so an element whose gradient the two summation orders put
+# on either side of 0 lands up to 2 learning rates a step apart (on an H100:
+# 5e-4 of their peak after 3 steps); their bound is that reach
+PAR_ADAM_REACH = ("tts_dp", "tac2_dp")
+# the parameters whose exact gradient is 0 (an attention key projection's
+# bias, a weight-normalized one-channel conv's v): Adam walks them by
+# rounding noise, at most 2 learning rates a step
+PAR_FREE = ("linear_k.bias", "pitch_proj.v", "energy_proj.v")
+
+
+class _DeterministicCudnn:
+    """cuDNN's deterministic algorithms inside the block: the comparisons
+    of a step with another must not see run-to-run noise (cuDNN's default
+    weight-gradient algorithms add with atomics; a synthesizer step then
+    differs from itself by ~1e-3 after 3 steps on an H100)."""
+
+    def __init__(self, torch):
+        self.backends = torch.backends.cudnn
+
+    def __enter__(self):
+        self.was = self.backends.deterministic
+        self.backends.deterministic = True
+
+    def __exit__(self, *exc):
+        self.backends.deterministic = self.was
+
+
+def _k_fns():
+    """K1-K5's wrappers by the ``kernels`` line's names."""
+    from vae_npvc_tpu_torch.ops.attention import (fused_attention,
+                                                  fused_attention_backward)
+
+    return dict(_counters(), fused_attention=fused_attention,
+                fused_attention_backward=fused_attention_backward)
+
+
+def _k_zero():
+    for fn in _k_fns().values():
+        fn.launches = 0
+
+
+def _k_read():
+    return {k: fn.launches for k, fn in _k_fns().items()}
+
+
+def _par_rest_launches_want(name):
+    want = dict.fromkeys(_k_fns(), 0)
+    want.update(PAR_REST_LAUNCHES[name])
+    return want
+
+
+def _par_rest_cfg(name, dtype=None):
+    cfg, B, _ = PAR_REST[name]
+    cfg = dict(cfg, batch_size=B)
+    if name in ("hier_dp", "hier_plain_dp", "gan_dp"):
+        cfg["compute_dtype"] = dtype or PAR_REST_DTYPE
+    if name == "tac2_dp":
+        cfg.update(max_tokens=PAR_TAC2_L, max_frames=PAR_TAC2_T)
+    return cfg
+
+
+def _par_rest_batches(name):
+    """The case's global batches (numpy), the same on every rank."""
+    cfg, B, steps = PAR_REST[name]
+    rng = np.random.default_rng(70 + list(PAR_REST).index(name))
+    if name in ("hier_dp", "hier_plain_dp", "gan_dp"):
+        return [(rng.normal(-3.0, 1.5, size=(B, 256, 80)).astype(np.float32),
+                 rng.integers(0, cfg["y_num"], size=B).astype(np.int32))
+                for _ in range(steps)]
+    L, T = ((cfg["max_tokens"], cfg["max_frames"]) if name == "tts_dp"
+            else (PAR_TAC2_L, PAR_TAC2_T))
+    D = cfg["mel_dim"]
+    out = []
+    for _ in range(steps):
+        # the first half long, the second short: unequal frame and token
+        # counts on the two ranks
+        tok_lens = np.concatenate([
+            rng.integers(L // 2, L + 1, size=B // 2),
+            rng.integers(2, L // 3, size=B - B // 2)]).astype(np.int32)
+        tokens = np.zeros((B, L), np.int32)
+        durs = np.zeros((B, L), np.int32)
+        mels = np.zeros((B, T, D), np.float32)
+        for b, n in enumerate(tok_lens):
+            tokens[b, :n] = rng.integers(0, cfg["token_num"], size=n)
+            durs[b, :n] = rng.integers(1, 7, size=n)
+            while durs[b].sum() > T:
+                durs[b, int(np.argmax(durs[b]))] -= 1
+        mel_lens = durs.sum(axis=1).astype(np.int32)
+        for b, n in enumerate(mel_lens):
+            mels[b, :n] = rng.normal(size=(n, D))
+        spks = rng.integers(0, cfg["y_num"], size=B).astype(np.int32)
+        out.append((tokens, durs, mels, spks, tok_lens, mel_lens))
+    return out
+
+
+def _par_rest_draws(torch, name):
+    """The draws one process and every rank share (restored by the
+    returned function): the EMA codebooks' candidates, the penalty's
+    weights of the global batch, Tacotron2's dropout and zoneout masks
+    (the i-th draw of a shape from a seed of i, so the whole batch's)."""
+    from vae_npvc_tpu_torch.models import token_tts
+    from vae_npvc_tpu_torch.train import gan
+
+    restore = _inject_candidates(torch)
+    saved = gan.gp_alpha, token_tts.bernoulli
+    B = PAR_REST[name][1]
+    alphas = torch.tensor(np.random.default_rng(6).uniform(size=(B, 1, 1)),
+                          dtype=torch.float32)
+    gan.gp_alpha = lambda gen, shape, device: alphas.to(device)
+    calls = [0]
+
+    def masks(gen, p, shape, device):
+        calls[0] += 1
+        m = np.random.default_rng(1000 + calls[0]).random(shape) < p
+        return torch.as_tensor(m, device=device)
+
+    token_tts.bernoulli = masks
+
+    def undo():
+        restore()
+        gan.gp_alpha, token_tts.bernoulli = saved
+    return undo
+
+
+def _par_rest_run(torch, name, mesh=None, dtype=None):
+    """The case's steps on one process (``mesh`` None) or this rank:
+    per-step detail, K1-K5 launches a step, the final parameters by name
+    and every EMA bank (CPU tensors)."""
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    cfg = _par_rest_cfg(name, dtype)
+    tr = build_trainer(cfg, device="cuda",
+                       **({"mesh": mesh} if mesh is not None else {}))
+    tr.init_state()
+    undo = _par_rest_draws(torch, name)
+    details, ms = [], []
+    try:
+        _k_zero()
+        with _DeterministicCudnn(torch):
+            for b in _par_rest_batches(name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                details.append({k: float(v)
+                                for k, v in tr.train_step(b).items()})
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        counts = _k_read()
+    finally:
+        undo()
+    steps = len(details)
+    state = {"params": {n: p.detach().float().cpu() for n, p in
+                        tr.model.named_parameters()},
+             "ema": {n: q.emb.cpu() for n, q in tr.ema.items()}}
+    if hasattr(tr, "d_flat"):
+        state["params"]["critic"] = tr.d_flat.cpu()
+    return {"details": details, "ms_per_step": ms,
+            "launches_per_step": {k: v / steps for k, v in counts.items()},
+            "params": int(tr.flat.numel())}, state
+
+
+def _rank_rest(torch, root, rank, res):
+    """The five cases on this rank of a ``data`` mesh of two; each rank's
+    final state saved for the parent."""
+    from vae_npvc_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    for name in PAR_REST:
+        out, state = _par_rest_run(torch, name, mesh)
+        torch.save(state, root / f"{name}_r{rank}.pt")
+        res[name] = out
+
+
+def _rank_train_cli_dev(torch, root, rank, world, res):
+    """``bin/train`` under torchrun's environment at world 2 with the
+    device-resident corpus (epoch sampling): every step's rows recorded."""
+    from vae_npvc_tpu_torch.bin import train as train_cli
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
+    cfg = _par_cli_dev_cfg()
+    conf = root / f"cli_dev_r{rank}.json"
+    conf.write_text(json.dumps(cfg))
+    rows, step = [], Trainer._step
+
+    def recording(self, batch, sharded):
+        rows.append([a.cpu().numpy() for a in batch])
+        return step(self, batch, sharded)
+
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world),
+           "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1"}
+    os.environ.update(env)
+    Trainer._step = recording
+    _k_zero()
+    try:
+        train_cli.main(["-c", str(conf), "--train_dir",
+                        str(root / "dp_corpus"), "--output_dir",
+                        str(root / "cli_dev_exp")])
+    finally:
+        Trainer._step = step
+        for k in env:
+            os.environ.pop(k, None)
+    counts = _k_read()
+    np.savez(root / f"cli_dev_rows_r{rank}.npz",
+             **{f"{i}/{j}": a for i, r in enumerate(rows)
+                for j, a in enumerate(r)})
+    res["cli_dev"] = {"steps": len(rows), "launches_per_step": {
+        k: v / max(len(rows), 1) for k, v in counts.items()}}
+
+
+def _par_cli_dev_cfg():
+    return dict(_par_cfg("bfloat16"), batch_size=PAR_B,
+                max_iter=PAR_CLI_STEPS, iters_per_log=PAR_CLI_STEPS // 2,
+                iters_per_checkpoint=PAR_CLI_STEPS, num_jobs=2)
+
+
+def _rel_errs(got, want):
+    """Each detail key's largest relative error of ``got`` against
+    ``want`` over the steps, with the step (an absolute 1e-7 floor for
+    values at 0)."""
+    out = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k, v in w.items():
+            err = abs(g[k] - v)
+            err = err / max(abs(v), 1e-12) if err > 1e-7 else 0.0
+            if err >= out.get(k, (-1.0, 0))[0]:
+                out[k] = (err, i)
+    return out
+
+
+def _par_rest_checks(torch, root, ranks):
+    """Each case's ranks against one process on the global batch: every
+    detail value of the first step (the same parameters on both sides:
+    the data-parallel semantics) and the loss (``Total``, ``X like``) of
+    every step within ``PAR_LOSS_RTOL``; the parameters and every EMA bank
+    within ``PAR_STATE_TOL`` of their peaks (the synthesizers' parameters
+    and every free one within Adam's reach), the ranks' banks equal; the
+    one-process reference run twice (its spread is reported)."""
+    out = {}
+    for name in PAR_REST:
+        ref, want = _par_rest_run(torch, name)
+        _, again = _par_rest_run(torch, name)
+        got = [torch.load(root / f"{name}_r{r}.pt") for r in (0, 1)]
+        cfg = _par_rest_cfg(name)
+        steps = len(ref["details"])
+        reach = 2 * steps * cfg.get("generator_param", cfg).get(
+            "learning_rate", 1e-3)
+        r0 = ranks[0][name]
+        errs = _rel_errs(r0["details"], ref["details"])
+        first = _rel_errs(r0["details"][:1], ref["details"][:1])
+        check(max(e for e, _ in first.values()) <= PAR_LOSS_RTOL,
+              f"{name}: first step's detail {first} vs one process")
+        loss = {k: errs[k] for k in ("Total", "X like") if k in errs}
+        check(max(e for e, _ in loss.values()) <= PAR_LOSS_RTOL,
+              f"{name}: loss {loss} vs one process")
+        check(ranks[1][name]["details"] == r0["details"],
+              f"{name}: the ranks' details differ")
+        for r, res in enumerate(ranks):
+            check(res[name]["launches_per_step"]
+                  == _par_rest_launches_want(name),
+                  f"{name} rank {r}: launches a step "
+                  f"{res[name]['launches_per_step']}")
+        diffs = {n: (got[0]["params"][n] - p).abs()
+                 for n, p in want["params"].items()}
+        peak = max(float(p.abs().max()) for n, p in want["params"].items()
+                   if not n.endswith(PAR_FREE))
+        worst = sorted(((float(d.max()) / peak, n) for n, d in diffs.items()
+                        if not n.endswith(PAR_FREE)), reverse=True)
+        params_err = worst[0][0]
+        params_abs = max(float(d.max()) for d in diffs.values())
+        over_lr = sum(int((d > reach / (2 * steps)).sum())
+                      for d in diffs.values())
+        free = max((float(d.max()) for n, d in diffs.items()
+                    if n.endswith(PAR_FREE)), default=0.0)
+        spread = max(float((again["params"][n] - p).abs().max())
+                     for n, p in want["params"].items()) / peak
+        if name in PAR_ADAM_REACH:
+            check(params_abs <= reach,
+                  f"{name}: parameters moved {params_abs} > {reach}")
+        else:
+            check(params_err <= PAR_STATE_TOL,
+                  f"{name}: parameters {params_err} of their peak")
+            check(free <= reach,
+                  f"{name}: free parameters moved {free} > {reach}")
+        banks = {}
+        for n, e in want["ema"].items():
+            banks[n] = float((got[0]["ema"][n] - e).abs().max()
+                             / e.abs().max())
+            check(banks[n] <= PAR_STATE_TOL,
+                  f"{name}: codebook {n} {banks[n]} of its peak")
+            check(torch.equal(got[0]["ema"][n], got[1]["ema"][n]),
+                  f"{name}: the ranks' codebooks {n} differ")
+        out[name] = {
+            "B": PAR_REST[name][1], "steps": steps,
+            "dtype": cfg.get("compute_dtype", "float32"),
+            "params": r0["params"],
+            "first_step_detail_rel_err": max(e for e, _ in first.values()),
+            "loss_rel_err": loss,
+            "detail_rel_err_by_key": errs,
+            "params_err_of_peak": params_err,
+            "params_max_abs_err": params_abs, "adam_reach": reach,
+            "param_elements_moved_over_lr": over_lr,
+            "one_process_repeat_err_of_peak": spread,
+            "largest_params_errs_of_peak": worst[:4],
+            "free_params_max_abs": free,
+            "codebook_err_of_peak": banks,
+            "ranks_codebooks_equal": True if banks else None,
+            "launches_per_rank_per_step": r0["launches_per_step"],
+            "ms_per_step_host_transport": r0["ms_per_step"],
+            "one_process_ms_per_step": ref["ms_per_step"],
+            "details": r0["details"], "one_process_details": ref["details"]}
+    return out
+
+
+def _par_cli_dev_checks(root, ranks):
+    """``bin/train`` at world 2, device-resident: each step's rows of the
+    two ranks, in rank order, are the host loader's global batch."""
+    from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
+                                                 batch_iterator)
+
+    cfg = _par_cli_dev_cfg()
+    exp = root / "cli_dev_exp"
+    log = (exp / "train.log").read_text()
+    check("Rank 0 of 2" in log and "Device-resident corpus" in log,
+          "cli_dp: bin/train at world 2 did not keep the staged corpus")
+    check((exp / f"iter.{PAR_CLI_STEPS}").exists(),
+          "cli_dp: bin/train wrote no checkpoint")
+    rows = [np.load(root / f"cli_dev_rows_r{r}.npz") for r in (0, 1)]
+    host = batch_iterator(UttMelSpkDataset(root / "dp_corpus", cfg),
+                          PAR_B, shuffle=True, drop_last=True,
+                          seed=cfg["seed"], num_workers=2)
+    for i in range(PAR_CLI_STEPS):
+        want = next(host)
+        for j, w in enumerate(want):
+            got = np.concatenate([r[f"{i}/{j}"] for r in rows])
+            check(np.array_equal(got, np.asarray(w)),
+                  f"cli_dp: step {i} entry {j} rows differ from the host "
+                  "loader's global batch")
+    if hasattr(host, "close"):
+        host.close()
+    steps = [r["cli_dev"]["steps"] for r in ranks]
+    check(steps == [PAR_CLI_STEPS] * 2, f"cli_dp: steps {steps}")
+    flat = dict.fromkeys(_k_fns(), 0)
+    flat.update(vq_fused=1, fused_group_norm=_flat_norms(),
+                fused_group_norm_backward=_flat_norms())
+    for r, res in enumerate(ranks):
+        check(res["cli_dev"]["launches_per_step"] == flat,
+              f"cli_dp rank {r}: bin/train launches a step "
+              f"{res['cli_dev']['launches_per_step']}")
+    return {"world": 2, "steps": PAR_CLI_STEPS, "B": PAR_B,
+            "rows_equal_host_loader": True,
+            "launches_per_rank_per_step":
+                ranks[0]["cli_dev"]["launches_per_step"]}
+
+
+def _par_cli_rest(torch, root):
+    """``bin/train_tts`` (the recipe's transformer, B = 8) and
+    ``bin/train_pwg`` (the recipe's vocoder) joining an NCCL group of one
+    from torchrun's environment: 4 steps, then resumed to 8."""
+    import socket
+
+    from vae_npvc_tpu_torch.bin import train_pwg, train_tts
+
+    _token_mel_corpus(root / "cli_tts_data", 24, seed=13)
+    _voc_corpus(root / "cli_pwg_data", 8, seed=31)
+    half = PAR_CLI_STEPS // 2
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    out = {}
+    try:
+        for name, cli, cfg in (
+                ("train_tts", train_tts, dict(TTS, batch_size=8)),
+                ("train_pwg", train_pwg,
+                 dict(PWG, discriminator_train_start_steps=half,
+                      steps_per_call=2))):
+            exp = root / f"cli_{name}"
+            counts = []
+            for max_iter in (half, PAR_CLI_STEPS):
+                conf = root / f"cli_{name}.json"
+                conf.write_text(json.dumps(dict(
+                    cfg, max_iter=max_iter, iters_per_log=2,
+                    iters_per_checkpoint=half)))
+                ck = (["--checkpoint", str(exp / f"iter.{half}")]
+                      if name == "train_tts" and max_iter > half else [])
+                data = root / ("cli_tts_data" if name == "train_tts"
+                               else "cli_pwg_data")
+                _k_zero()
+                cli.main(["-c", str(conf), "--train_dir", str(data),
+                          "--output_dir", str(exp), *ck])
+                counts.append({k: v / half for k, v in _k_read().items()})
+            log = (exp / "train.log").read_text()
+            check("Rank 0 of 1" in log and "Resumed from" in log
+                  and f"Iter {PAR_CLI_STEPS}:" in log,
+                  f"cli_dp: {name}'s log does not show the group, the "
+                  "resume and the last step")
+            check((exp / f"iter.{PAR_CLI_STEPS}").exists(),
+                  f"cli_dp: {name} wrote no iter.{PAR_CLI_STEPS}")
+            out[name] = {"launches_per_step": counts,
+                         "resumed_at": half, "steps": PAR_CLI_STEPS}
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    tts = dict.fromkeys(_k_fns(), 0)
+    tts.update(fused_attention=TTS["elayers"] + TTS["dlayers"],
+               fused_attention_backward=TTS["elayers"] + TTS["dlayers"])
+    for name, want in (("train_tts", tts),
+                       ("train_pwg", dict.fromkeys(_k_fns(), 0))):
+        for c in out[name]["launches_per_step"]:
+            check(c == want, f"cli_dp: {name} launches a step {c}")
+    return out
+
+
+def _par_dp1_rest(torch):
+    """The EMA hierarchy, the GAN and the synthesizer through the DP
+    trainer over the NCCL group of one (open) against the plain trainer
+    from the same weights on the same batches, in the recipes' dtypes (bf16
+    hierarchy and GAN, fp32 synthesizer), the draws their own: every
+    detail value and parameter equal."""
+    from vae_npvc_tpu_torch.parallel.mesh import make_mesh
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    out = {}
+    for name in ("hier_dp", "gan_dp", "tts_dp"):
+        cfg = _par_rest_cfg(name, dtype="bfloat16")
+        trainers = [build_trainer(cfg, device="cuda", **kw)
+                    for kw in ({}, {"mesh": make_mesh()})]
+        for tr in trainers:
+            tr.init_state()
+        with torch.no_grad():
+            trainers[1].flat.copy_(trainers[0].flat)
+            if hasattr(trainers[0], "d_flat"):
+                trainers[1].d_flat.copy_(trainers[0].d_flat)
+        runs = []
+        for tr in trainers:
+            _k_zero()
+            with _DeterministicCudnn(torch):
+                details = [{k: float(v) for k, v in tr.train_step(b).items()}
+                           for b in _par_rest_batches(name)]
+            torch.cuda.synchronize()
+            runs.append((details, _k_read()))
+        (plain, n_plain), (dp, n_dp) = runs
+        check(dp == plain, f"dp1 {name}: {dp} differs from the plain "
+              f"trainer's {plain}")
+        check(torch.equal(trainers[0].flat, trainers[1].flat)
+              and all(torch.equal(q.emb, trainers[1].ema[n].emb)
+                      for n, q in trainers[0].ema.items()),
+              f"dp1 {name}: the parameters or codebooks differ")
+        per_step = {k: v / len(dp) for k, v in n_dp.items()}
+        check(n_dp == n_plain and per_step == _par_rest_launches_want(name),
+              f"dp1 {name}: launches {n_dp} vs {n_plain}")
+        out[name] = {"steps": len(dp), "dtype": cfg.get("compute_dtype",
+                                                        "float32"),
+                     "bit_equal_to_plain": True,
+                     "launches_per_step": per_step}
+        del trainers
+    return out
+
+
 def _gn_split_case(torch, C, G, glu, dtype, rng):
     """K2's split entry points at a sequence-parallel rank's shape (one
     utterance, T_local = PAR_SEQ_T / 2): two ranks' partials merged, each
@@ -6580,18 +7081,32 @@ def _gn_split_case(torch, C, G, glu, dtype, rng):
 
 
 def phase_parallel(torch, root):
-    """The parallel slice on the one card: ``dp1`` (NCCL, world size 1),
-    then dp2/tp/seq/pp/pwg_dp on two gloo ranks sharing cuda:0 against one
-    process, ``dp_serve`` and ``train_cli`` (bin/train under torchrun's
-    environment). Returns the split entry points' launches per GroupNorm
-    of the sequence-parallel run and their timed cases."""
+    """The parallel slice on the one card: ``dp1`` (NCCL, world size 1;
+    the flagship, then the hierarchy, the GAN and the synthesizer against
+    their plain steps), then dp2/tp/seq/pp/pwg_dp and hier_dp,
+    hier_plain_dp, gan_dp, tts_dp, tac2_dp and device-resident
+    ``bin/train`` on two gloo ranks sharing cuda:0 against one process,
+    ``dp_serve``, ``train_cli`` and ``cli_dp`` (bin/train, bin/train_tts and
+    bin/train_pwg under torchrun's environment). Returns the split entry
+    points' launches per GroupNorm of the sequence-parallel run, their
+    timed cases and K1-K5's launches per rank per step of each case."""
     root.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     dp1 = _par_dp1(torch, root)
     ckpt = _par_references(torch, root)
     ranks = _par_two_ranks(torch, root)
+    t_rest = time.perf_counter()
+    rest = _par_rest_checks(torch, root, ranks)
+    cli_dev = _par_cli_dev_checks(root, ranks)
     _par_dp_serve(torch, root, ckpt)
     _par_train_cli(torch, root, root / "dp_corpus")
+    cli_rest = _par_cli_rest(torch, root)
+    emit({"phase": "parallel_rest", "backend": "gloo (two ranks on "
+          "cuda:0, collectives through host memory: not a multi-card "
+          "speed); nccl at world size 1 for dp1 and the CLIs",
+          "cases": rest, "dp1_bit_equal": dp1["rest"],
+          "cli_dp": {"train_device_resident": cli_dev, **cli_rest},
+          "seconds_after_spawn": time.perf_counter() - t_rest})
     rng = np.random.default_rng(61)
     split = [_gn_split_case(torch, 512, 1, False, torch.float32, rng),
              _gn_split_case(torch, 1024, 2, True, torch.float32, rng),
@@ -6601,7 +7116,15 @@ def phase_parallel(torch, root):
           "dp1_ms_per_step": dp1["ms"],
           "dp1_plain_ms_per_step": dp1["plain_ms"],
           "seq_fp32_ms": seq["ms"], "split_cases": split})
-    return {"launches": seq["launches"], "split": split, "seq_ms": seq["ms"]}
+    return {"launches": seq["launches"], "split": split, "seq_ms": seq["ms"],
+            "rest": {name: case["launches_per_rank_per_step"]
+                     for name, case in rest.items()},
+            "dp1_rest": {name: case["launches_per_step"]
+                         for name, case in dp1["rest"].items()},
+            "cli": dict({name: case["launches_per_step"][-1]
+                         for name, case in cli_rest.items()},
+                        train_device_resident_world2=cli_dev[
+                            "launches_per_rank_per_step"])}
 
 
 def _stream_launches(kernel, stream, vs_launches, vs_calls,
@@ -6630,6 +7153,18 @@ def _rest_launches(kernel, rest):
     if kernel in rest["doctor"]:
         out["launches_doctor_infer"] = rest["doctor"][kernel]
     return out
+
+
+def _par_rest_launches(kernel, par):
+    """The ``kernels`` line's keys of the other families' parallel cases for
+    ``kernel``: launches per rank per step of each two-rank case, per step
+    of each world-size-1 case and of each CLI."""
+    return {"launches_per_rank_per_step_parallel":
+                {name: c[kernel] for name, c in par["rest"].items()},
+            "launches_per_step_dp1_world_size_1":
+                {name: c[kernel] for name, c in par["dp1_rest"].items()},
+            "launches_per_step_cli_dp":
+                {name: c[kernel] for name, c in par["cli"].items()}}
 
 
 def _split_kernel_lines(par):
@@ -6770,10 +7305,12 @@ def main():
     bwd_keys = ("B", "T", "valid_keys", "bwd_ms", "bwd_ms_l2_cold",
                 "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by",
                 "bwd_library_ms", "bwd_max_abs_err")
+    emit({"phase": "smoke", "seconds": time.perf_counter() - _T0})
     emit({"kernels": [
         {"name": "vq_fused", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/vq.cu",
          "replaces": "vae_npvc_tpu/ops/vq_pallas.py:105",
+         **_par_rest_launches("vq_fused", par),
          "launches": launches["vq_fused"],
          "max_abs_err": vq_main["max_abs_err"], "ms": vq_main["ms"],
          "ms_l2_cold": vq_main["ms_l2_cold"],
@@ -6820,6 +7357,7 @@ def main():
         {"name": "fused_group_norm", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:200",
+         **_par_rest_launches("fused_group_norm", par),
          "launches": launches["fused_group_norm"],
          "max_abs_err": gn_main["max_abs_err"], "ms": gn_main["ms"],
          "ms_l2_cold": gn_main["ms_l2_cold"],
@@ -6859,6 +7397,7 @@ def main():
         {"name": "fused_group_norm_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/groupnorm.cu",
          "replaces": "vae_npvc_tpu/ops/groupnorm_pallas.py:225",
+         **_par_rest_launches("fused_group_norm_backward", par),
          "launches": train_launches["fused_group_norm_backward"],
          **_rest_launches("fused_group_norm_backward", rest),
          "max_abs_err": gnb_train["max_abs_err"], "ms": gnb_train["ms"],
@@ -6881,6 +7420,7 @@ def main():
         {"name": "fused_attention", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/attention.cu",
          "replaces": "vae_npvc_tpu/ops/attention_pallas.py:121",
+         **_par_rest_launches("fused_attention", par),
          "launches": tts_launches["fused_attention"],
          "max_abs_err": attn_dec["max_abs_err"], "ms": attn_dec["ms"],
          "ms_l2_cold": attn_dec["ms_l2_cold"],
@@ -6899,6 +7439,7 @@ def main():
         {"name": "fused_attention_backward", "route": "cuda",
          "source": "vae_npvc_tpu_torch/csrc/attention.cu",
          "replaces": "vae_npvc_tpu/ops/attention_pallas.py:225",
+         **_par_rest_launches("fused_attention_backward", par),
          "launches": tts_launches["fused_attention_backward"],
          "max_abs_err": attn_dec["bwd_max_abs_err"], "ms": attn_dec["bwd_ms"],
          "ms_l2_cold": attn_dec["bwd_ms_l2_cold"],

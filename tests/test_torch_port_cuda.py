@@ -1313,3 +1313,122 @@ def test_doctor_compile_cache_and_devices_on_the_card(dev):
     status, detail = doctor._check_cache("cuda", 600)
     assert status == "ok", detail
     assert "3 kernel libraries" in detail and "ark_loader-" in detail
+
+
+# ------------------------------------------- data-parallel steps, world 1
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    """A ``data`` mesh over an NCCL group of one rank (the card)."""
+    import torch.distributed as dist
+
+    from vae_npvc_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/nccl",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _hier_config():
+    def enc(cin, ds):
+        return {"in_channels": [cin], "out_channels": [32], "kernel_size": 3,
+                "downsample_scales": [ds], "z_channels": 8,
+                "dilation": False, "stack_kernel_size": 3,
+                "stack_layers": 1, "stacks": [2], "use_weight_norm": True}
+
+    def dec(cin, cond, final):
+        return {"in_channels": [cin], "out_channels": [32],
+                "cond_channels": cond, "skip_channels": 8,
+                "final_channels": final, "kernel_size": 3,
+                "upsample_scales": [1], "dilation": False,
+                "stack_kernel_size": 3, "stacks": [2],
+                "use_weight_norm": True}
+
+    q = {"z_dim": 8, "z_num": 16, "mu": 0.9}
+    return {"model_type": "vqvae2", "seed": 4, "levels": 3, "y_dim": 8,
+            "y_num": 4, "beta": 0.01, "use_gst": True, "use_ema": True,
+            "compute_dtype": "float32", "encoder.0": enc(10, 1),
+            "encoder.1": enc(32, 2), "encoder.2": enc(32, 4),
+            "decoder.0": dec(24, 8, 10), "decoder.1": dec(8, 16, 8),
+            "decoder.2": dec(8, 8, 8), "quantizer.0": q, "quantizer.1": q,
+            "quantizer.2": {"ref_embed_dim": 8, "gst_tokens": 4,
+                            "gst_token_dim": 8, "gst_heads": 2}}
+
+
+def _tts_config():
+    return {"model_type": "token_tts", "seed": 2, "token_num": 16,
+            "token_dim": 16, "y_num": 4, "y_dim": 8, "mel_dim": 10,
+            "block_type": "transformer", "adim": 32, "aheads": 2,
+            "elayers": 2, "dlayers": 2, "eunits": 64, "dunits": 64,
+            "max_tokens": 16, "max_frames": 64, "compute_dtype": "float32"}
+
+
+def _tts_batch():
+    rng = np.random.default_rng(6)
+    B, L, T = 4, 16, 64
+    tok_lens = np.array([16, 11, 5, 8], np.int32)
+    tokens = np.zeros((B, L), np.int32)
+    durs = np.zeros((B, L), np.int32)
+    for b, n in enumerate(tok_lens):
+        tokens[b, :n] = rng.integers(0, 16, size=n)
+        durs[b, :n] = rng.integers(1, 5, size=n)
+    mel_lens = durs.sum(axis=1).astype(np.int32)
+    mels = rng.normal(size=(B, T, 10)).astype(np.float32)
+    mels *= (np.arange(T)[None, :, None] < mel_lens[:, None, None])
+    return tokens, durs, mels, rng.integers(0, 4, size=B).astype(
+        np.int32), tok_lens, mel_lens
+
+
+def _hier_batch():
+    rng = np.random.default_rng(7)
+    return (rng.normal(size=(4, 64, 10)).astype(np.float32),
+            np.array([0, 3, 1, 2], np.int32))
+
+
+@pytest.mark.parametrize("family", ["hierarchy", "gan", "synthesizer"])
+def test_dp_step_at_world_size_one_equals_the_plain_step(nccl_mesh, family,
+                                                         monkeypatch):
+    """The data-parallel step over NCCL at world size 1 (the EMA
+    hierarchy's pooled candidates and summed statistics, the GAN's
+    critic and generator steps, the synthesizer's frame counts) equals the
+    plain step bit for bit on the card, with the same kernel launches.
+    cuDNN takes its deterministic algorithms here: its default
+    weight-gradient algorithms add with atomics, and a step would not
+    repeat itself bit for bit."""
+    from vae_npvc_tpu_torch.ops.attention import fused_attention
+    from vae_npvc_tpu_torch.train import build_trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    cfg, batch = {"hierarchy": (_hier_config(), _hier_batch()),
+                  "gan": (_gan_config(), _gan_batch()),
+                  "synthesizer": (_tts_config(), _tts_batch())}[family]
+    fns = (vq_fused, fused_group_norm, fused_group_norm_backward,
+           fused_attention, fused_attention_backward)
+    trainers = [build_trainer(cfg, device="cuda",
+                              **({"mesh": mesh} if mesh else {}))
+                for mesh in (None, nccl_mesh)]
+    for tr in trainers:
+        tr.init_state()
+    with torch.no_grad():   # the same weights, whatever the init rounds
+        trainers[1].flat.copy_(trainers[0].flat)
+        if hasattr(trainers[0], "d_flat"):
+            trainers[1].d_flat.copy_(trainers[0].d_flat)
+    runs = []
+    for tr in trainers:
+        before = [f.launches for f in fns]
+        details = [{k: float(v) for k, v in tr.train_step(batch).items()}
+                   for _ in range(3)]
+        torch.cuda.synchronize()
+        runs.append((tr, details, [f.launches - b for f, b in
+                                   zip(fns, before)]))
+    (plain, want, n_plain), (dp, got, n_dp) = runs
+    assert got == want
+    assert n_dp == n_plain and sum(n_dp) > 0, n_dp
+    if family == "synthesizer":
+        assert n_dp[3] == n_dp[4] == 3 * 4
+    a, b = plain.model.state_dict(), dp.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert torch.equal(plain.opt_state.mu, dp.opt_state.mu)

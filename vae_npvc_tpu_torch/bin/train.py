@@ -22,7 +22,11 @@ names, and trains data-parallel over a ``data`` mesh of all ranks: every
 rank reads the same global batches and keeps its rows, and validation
 gives each rank every ``WORLD_SIZE``-th batch. Only rank 0 writes the log,
 ``metrics.jsonl``, ``best.json`` and the checkpoints. The device-resident
-corpus is single-process only (as the JAX CLI's is single-host only).
+corpus is staged whole on every rank, which draws the global batch's
+windows as every other rank does and gathers its own rows; it is
+single-host only (``LOCAL_WORLD_SIZE`` below ``WORLD_SIZE``: the host
+loader), as the JAX CLI's is. ``bin/train_tts`` and ``bin/train_pwg``
+start the same way (:func:`join_data_parallel`).
 
     torchrun --nproc_per_node 8 -m vae_npvc_tpu_torch.bin.train -c conf.yaml \
         --train_dir dump/train --output_dir exp/vqvae
@@ -137,6 +141,39 @@ def get_logger(output_dir, writes=True):
     return logger
 
 
+def join_data_parallel(device):
+    """Under torchrun (``WORLD_SIZE`` in the environment, even 1): join the
+    default process group (NCCL for a CUDA ``device``, gloo for the CPU),
+    take the card ``LOCAL_RANK`` names and build a ``data`` mesh of every
+    rank. Returns ``(device, mesh, rank, world, joined)``; ``joined`` says
+    whether this call created the group (the caller then destroys it).
+    Outside torchrun: ``(device, None, 0, 1, False)``."""
+    if "WORLD_SIZE" not in os.environ:
+        return device, None, 0, 1, False
+    import torch.distributed as dist
+
+    from ..parallel import mesh as mesh_mod
+
+    cuda = not str(device).startswith("cpu")
+    if cuda:
+        device = mesh_mod.local_cuda_device()
+        import torch
+
+        torch.cuda.set_device(device)
+    joined = not dist.is_initialized()
+    rank, world = mesh_mod.initialize_multihost(
+        backend="nccl" if cuda else "gloo")
+    return device, mesh_mod.make_mesh(), rank, world, joined
+
+
+def leave_data_parallel(joined):
+    """Destroy the default group if :func:`join_data_parallel` made it."""
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
 def train(args):
     from ..data.dataset import (UttMelSpkDataset, batch_iterator,
                                 index_iterator, prefetch_to_device)
@@ -155,19 +192,7 @@ def train(args):
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
 
-    device, mesh, rank, world = args.device, None, 0, 1
-    if "WORLD_SIZE" in os.environ:
-        from ..parallel import mesh as mesh_mod
-
-        cuda = not str(args.device).startswith("cpu")
-        if cuda:
-            device = mesh_mod.local_cuda_device()
-            import torch
-
-            torch.cuda.set_device(device)
-        rank, world = mesh_mod.initialize_multihost(
-            backend="nccl" if cuda else "gloo")
-        mesh = mesh_mod.make_mesh()
+    device, mesh, rank, world, joined = join_data_parallel(args.device)
     writes = rank == 0
     logger = get_logger(output_dir, writes)
     if mesh is not None:
@@ -197,8 +222,8 @@ def train(args):
         logger.warning("device_resident is not supported by this trainer; "
                        "using the host loader")
         use_dev = False
-    if use_dev and world > 1:
-        logger.warning("device_resident is single-process only; "
+    if use_dev and world > int(os.environ.get("LOCAL_WORLD_SIZE", world)):
+        logger.warning("device_resident is single-host only; "
                        "using the host loader")
         use_dev = False
     if use_dev:
@@ -423,10 +448,7 @@ def train(args):
         logger.info(f"No validation set; model.loss.best = iteration "
                     f"{trainer.iteration}")
     logger.info("Finished")
-    if mesh is not None:
-        import torch.distributed as dist
-
-        dist.destroy_process_group()
+    leave_data_parallel(joined)
 
 
 def main(argv=None):

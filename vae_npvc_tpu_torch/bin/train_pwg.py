@@ -14,6 +14,15 @@ the whole corpus on the device and draws the crops there
 preloaded and its padded arrays are smaller than
 ``device_resident_limit_bytes`` (4 GiB).
 
+Under torchrun every process joins one group and trains data-parallel
+(``bin/train.py`` ``join_data_parallel``; the JAX CLI's trainer spreads
+over every local chip): every rank draws the same global batches (host
+or device-resident) and keeps its rows, and only rank 0 writes the log
+and the checkpoints.
+
+    torchrun --nproc_per_node 8 -m vae_npvc_tpu_torch.bin.train_pwg \
+        -c conf/train_jpwg.yaml --train_dir data/train --output_dir exp/jpwg
+
 Usage:
     python -m vae_npvc_tpu_torch.bin.train_pwg -c conf/train_jpwg.yaml \
         --train_dir data/train --output_dir exp/jpwg
@@ -25,7 +34,8 @@ import argparse
 import time
 from pathlib import Path
 
-from .train import flat_mean_log, get_logger, load_config
+from .train import (flat_mean_log, get_logger, join_data_parallel,
+                    leave_data_parallel, load_config)
 
 
 def train(args):
@@ -40,13 +50,16 @@ def train(args):
 
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    logger = get_logger(output_dir)
+    device, mesh, rank, world, joined = join_data_parallel(args.device)
+    logger = get_logger(output_dir, rank == 0)
+    if mesh is not None:
+        logger.info(f"Rank {rank} of {world}: data-parallel over {mesh}")
 
     dataset = WavMelDataset(args.train_dir, config)
     logger.info(f"PWG vocoder training: {len(dataset)} utterances, "
                 f"segment {dataset.max_frames} frames x hop {dataset.hop}")
 
-    trainer = PwgTrainer(config, device=args.device)
+    trainer = PwgTrainer(config, device=device, mesh=mesh)
     batches = dataset.batches(batch_size, seed=config.get("seed", 777))
     # the first batch is the JAX trainer's init example: not trained on
     trainer.init_state(next(batches))
@@ -84,8 +97,15 @@ def train(args):
         # a finished run invoked again: model.final stays as it is
         logger.info(f"Already at iteration {iteration} >= max_iter "
                     f"{max_iter}; nothing to do")
-        if not (output_dir / "model.final").exists():
+        need = not (output_dir / "model.final").exists()
+        if mesh is not None:
+            # every rank decides before rank 0 may write it
+            from ..parallel import comm
+
+            comm.barrier()
+        if need:
             trainer.save_checkpoint(output_dir / "model.final")
+        leave_data_parallel(joined)
         return
 
     running: dict = {}
@@ -114,6 +134,7 @@ def train(args):
             logger.info(f"Saved checkpoint to {path}")
     trainer.save_checkpoint(output_dir / "model.final")
     logger.info("Finished")
+    leave_data_parallel(joined)
 
 
 def main(argv=None):

@@ -8,6 +8,16 @@ trainer on the token-mel data contract (``data/token_mel.py``) on the GPU
 (``--device cpu`` for a CPU run). The config is a YAML file (or a ``.json``
 file, for hosts without a YAML parser).
 
+Under torchrun every process joins one group and trains data-parallel
+(``bin/train.py`` ``join_data_parallel``; the JAX CLI's trainer spreads
+over every local chip): every rank reads the same global batches and
+keeps its rows, validation gives each rank every ``WORLD_SIZE``-th batch,
+and only rank 0 writes the log, ``best.json`` and the checkpoints.
+
+    torchrun --nproc_per_node 8 -m vae_npvc_tpu_torch.bin.train_tts \
+        -c conf/train_token_tts.yaml --train_dir data/token_mel_train \
+        --output_dir exp/token_tts
+
 Usage:
     python -m vae_npvc_tpu_torch.bin.train_tts -c conf/train_token_tts.yaml \
         --train_dir data/token_mel_train --valid_dir data/token_mel_dev \
@@ -17,6 +27,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import time
 from pathlib import Path
@@ -24,7 +35,8 @@ from shutil import copyfile
 
 import numpy as np
 
-from .train import (chunk_size, flat_mean_log, get_logger, load_config,
+from .train import (chunk_size, flat_mean_log, get_logger,
+                    join_data_parallel, leave_data_parallel, load_config,
                     pull_chunk)
 
 
@@ -42,12 +54,23 @@ def train(args):
 
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    logger = get_logger(output_dir)
-
-    trainer = build_trainer(config, device=args.device)
+    device, mesh, rank, world, joined = join_data_parallel(args.device)
+    writes = rank == 0
+    logger = get_logger(output_dir, writes)
+    if mesh is not None:
+        logger.info(f"Rank {rank} of {world}: data-parallel over {mesh}")
+        trainer = build_trainer(config, device=device, mesh=mesh)
+    else:
+        trainer = build_trainer(config, device=device)
     train_set = TokenMelDataset(args.train_dir, config)
     valid_set = (TokenMelDataset(args.valid_dir, config, valid=True)
                  if args.valid_dir else None)
+
+    def valid_batches():
+        it = valid_set.batches(batch_size, shuffle=False, epochs=1)
+        # several ranks: each takes every world-th batch as its own stream
+        # (Trainer.valid assembles the global batches)
+        return itertools.islice(it, rank, None, world) if world > 1 else it
 
     trainer.init_state()
     iteration = 1
@@ -117,17 +140,17 @@ def train(args):
             trainer.save_checkpoint(ckpt)
             logger.info(f"Saved checkpoint to {ckpt}")
             if valid_set:
-                detail = trainer.valid(valid_set.batches(
-                    batch_size, shuffle=False, epochs=1))
+                detail = trainer.valid(valid_batches())
                 check = np.mean(detail[check_loss_kind])
                 if np.mean(best_loss[check_loss_kind]) >= check:
                     best_loss = {k: float(np.mean(v))
                                  for k, v in detail.items()}
                     best_iter = iteration
-                    best_file.write_text(json.dumps(
-                        {"iteration": best_iter,
-                         "check_loss_kind": check_loss_kind,
-                         "loss": best_loss}, indent=1))
+                    if writes:
+                        best_file.write_text(json.dumps(
+                            {"iteration": best_iter,
+                             "check_loss_kind": check_loss_kind,
+                             "loss": best_loss}, indent=1))
                 logger.info(f"Valid {iteration}:" + "".join(
                     f"  {k}: {np.mean(v):.6f}" for k, v in detail.items()))
             t_log = time.time()
@@ -136,18 +159,27 @@ def train(args):
             break
 
     if best_iter > 0:
-        copyfile(str(output_dir / f"iter.{best_iter}"),
-                 str(output_dir / "model.loss.best"))
+        if writes:
+            copyfile(str(output_dir / f"iter.{best_iter}"),
+                     str(output_dir / "model.loss.best"))
         logger.info(f"Best model: iteration {best_iter}")
     else:
         # no validation set: the final state is the best we know of
         final = output_dir / f"iter.{trainer.iteration}"
-        if not final.exists():
+        need = not final.exists()
+        if mesh is not None:
+            # every rank decides before rank 0 may write it
+            from ..parallel import comm
+
+            comm.barrier()
+        if need:
             trainer.save_checkpoint(final)
-        copyfile(str(final), str(output_dir / "model.loss.best"))
+        if writes:
+            copyfile(str(final), str(output_dir / "model.loss.best"))
         logger.info(f"No validation set; model.loss.best = iteration "
                     f"{trainer.iteration}")
     logger.info("Finished")
+    leave_data_parallel(joined)
 
 
 def main(argv=None):

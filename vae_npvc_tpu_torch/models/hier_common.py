@@ -12,6 +12,12 @@ updated state in ``pending_ema`` (a dict by name), and the trainer commits
 them once the step is accepted. A bank that two levels share is updated
 by the first and read updated by the second, as the JAX module's mutable
 variable is.
+
+Data-parallel training (``dp_axis``, a bound data axis; the JAX package's
+GSPMD step reduces over the global batch): every EMA level sums its
+statistics and pools its candidates over the axis (``ops/vq.py``), a plain
+level's perplexity counts every rank's codes, and the root mean squares
+(``z_rms``, ``gst_in_rms``) are the global batch's.
 """
 
 from __future__ import annotations
@@ -24,17 +30,20 @@ from ..nn.gst import StyleTokenLayer
 from ..ops import vq as vq_ops
 from ..ops.losses import log_loss
 from ..ops.upsample import nearest_upsample, nearest_upsample_masked
+from ..parallel.shard import axis_mean
 from .vqvae import Decoder, EmaQuantizer, Encoder
 
 
 class HierVQMixin:
     """Per-level VQ dispatch + masked helpers for hierarchical models.
 
-    Hosts set ``arch``, ``dtype``, ``levels``, ``use_ema``, ``use_gst`` and
-    ``q_args`` (per-level quantizer dicts) and call :meth:`_build_levels`.
+    Hosts set ``arch``, ``dtype``, ``levels``, ``use_ema``, ``use_gst``,
+    ``dp_axis`` and ``q_args`` (per-level quantizer dicts) and call
+    :meth:`_build_levels`.
     """
 
     pending_ema = None
+    dp_axis = None
 
     def _qkey(self, i):
         return i
@@ -121,12 +130,14 @@ class HierVQMixin:
             z_vq, qut, enc, new_state, detail = vq_ops.ema_vq_forward(
                 self._ema_state(name, bank), z, gen if train else None,
                 mu=q.get("mu", 0.9), threshold=q.get("threshold", 1.0),
-                reduction="frame_mean", training=train, update=train)
+                reduction="frame_mean", training=train, update=train,
+                axis_name=self.dp_axis)
             if train:
                 self.pending_ema[name] = new_state
             return z_vq, qut, enc, detail
         return vq_ops.vq_forward(bank, z, normalize=q.get("normalize", False),
-                                 reduction="frame_mean")
+                                 reduction="frame_mean",
+                                 axis_name=self.dp_axis)
 
     def _vq_encode(self, i, z):
         _, bank = self._bank(i)
@@ -149,11 +160,16 @@ class HierVQMixin:
         return gen if level_gens is None else level_gens.get(i, gen)
 
     # -------------------------------------------------------------- helpers
-    @staticmethod
-    def _vq_detail(detail, z, enc):
+    def _rms(self, z):
+        """The root mean square of ``z`` over the batch (over every rank's
+        rows with ``dp_axis``; the shards are equal)."""
+        return torch.sqrt(axis_mean(torch.mean(torch.square(z.float())),
+                                    self.dp_axis))
+
+    def _vq_detail(self, detail, z, enc):
         detail = dict(detail)
         detail["quanti_err"] = enc
-        detail["z_rms"] = torch.sqrt(torch.mean(torch.square(z.float())))
+        detail["z_rms"] = self._rms(z)
         return detail
 
     def _losses(self, xhat, x, qut_losses, enc_losses):

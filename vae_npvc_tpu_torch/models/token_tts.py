@@ -41,6 +41,7 @@ from ..nn.blocks import (Conditions, Conv, ConvResStack, Dense, Embed,
                          sinusoidal_positions)
 from ..nn.gst import MultiHeadedAttention
 from ..nn.rnn import LSTM
+from ..parallel.shard import count_share, local_rows
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -51,8 +52,16 @@ def bernoulli(gen, p, shape, device):
     return torch.rand(shape, generator=gen, device=device) < p
 
 
-def _dropout(gen, h, rate):
-    keep = bernoulli(gen, 1.0 - rate, h.shape, h.device)
+def _mask(gen, p, shape, device, axis_name):
+    """:func:`bernoulli` of this rank's rows of the global batch's mask
+    (``axis_name``: the bound data axis, as JAX draws a sharded batch's
+    masks whole)."""
+    return local_rows(lambda s: bernoulli(gen, p, s, device), shape,
+                      axis_name)
+
+
+def _dropout(gen, h, rate, axis_name=None):
+    keep = _mask(gen, 1.0 - rate, h.shape, h.device, axis_name)
     return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
 
 
@@ -87,6 +96,7 @@ class Tacotron2Net(nn.Module):
         postnet_filts = a("postnet-filts", 5)
         self.r = a("reduction-factor", 2)
         self.dropout = a("dropout-rate", 0.5)
+        self.dp_axis = cfg.get("dp_axis")
 
         self.tok_embed = Embed(a("token_num", 128), embed_dim)
         cin = embed_dim
@@ -114,7 +124,7 @@ class Tacotron2Net(nn.Module):
             mel_dim=mel_dim, r=self.r, cumulate=a("cumulate-att-w", True),
             use_concate=a("use-concate", True),
             zoneout=a("zoneout-rate", 0.1), dropout=self.dropout,
-            dtype=dtype)
+            dtype=dtype, dp_axis=self.dp_axis)
         for j in range(self.postnet_layers):
             last = j == self.postnet_layers - 1
             setattr(self, f"postnet_{j}", Conv(
@@ -145,15 +155,14 @@ class Tacotron2Net(nn.Module):
             h = getattr(self, f"enorm_{j}")(h).to(self.dtype)
             h = F.relu(h)
             if gen is not None and train and self.dropout > 0:
-                h = _dropout(gen, h, self.dropout)
+                h = _dropout(gen, h, self.dropout, self.dp_axis)
         # BiLSTM: a forward pass and an index-flipped backward pass, so a
         # padded batch equals the unpadded rows
         fwd = self.OptimizedLSTMCell_0(h.float())[0]
         t = torch.arange(L, device=h.device)[None, :]
         flip = torch.clamp(tok_lens.long()[:, None] - 1 - t, 0, L - 1)
-        flip = flip[..., None].expand(-1, -1, h.shape[-1])
-        bwd = self.OptimizedLSTMCell_1(torch.gather(h, 1, flip).float())[0]
-        bwd = torch.gather(bwd, 1, flip[..., :bwd.shape[-1]])
+        bwd = self.OptimizedLSTMCell_1(_rows_of(h, flip).float())[0]
+        bwd = _rows_of(bwd, flip)
         hs = torch.cat([fwd, bwd], dim=-1) * tok_mask
         hs = (hs + self._speaker(y, B, hs.dtype)[:, None, :]) * tok_mask
         return hs, self.att_enc_proj(hs), tok_mask[..., 0] > 0
@@ -223,9 +232,11 @@ class Tacotron2Cell(nn.Module):
 
     def __init__(self, enc_dim, dunits, dlayers, prenet_layers, prenet_units,
                  adim, aconv_chans, aconv_filts, mel_dim, r, cumulate,
-                 use_concate, zoneout, dropout, dtype=torch.float32):
+                 use_concate, zoneout, dropout, dtype=torch.float32,
+                 dp_axis=None):
         super().__init__()
         self.dunits, self.dlayers = dunits, dlayers
+        self.dp_axis = dp_axis
         self.prenet_layers, self.mel_dim, self.r = prenet_layers, mel_dim, r
         self.cumulate, self.use_concate = cumulate, use_concate
         self.zoneout, self.dropout, self.dtype = zoneout, dropout, dtype
@@ -252,7 +263,7 @@ class Tacotron2Cell(nn.Module):
         for j in range(self.prenet_layers):
             p = F.relu(getattr(self, f"prenet_{j}")(p))
             if gen is not None and self.dropout > 0:
-                p = _dropout(gen, p, self.dropout)
+                p = _dropout(gen, p, self.dropout, self.dp_axis)
 
         att_prev = carry["att_w_cum"] if self.cumulate else carry["att_w"]
         f = self.att_loc_proj(self.loc_conv(att_prev[..., None]))
@@ -270,8 +281,10 @@ class Tacotron2Cell(nn.Module):
             c_new, h_new = getattr(self, f"lstm_{l}").step((c_old, h_old),
                                                            x)
             if train and gen is not None and self.zoneout > 0:
-                kc = bernoulli(gen, self.zoneout, c_new.shape, c_new.device)
-                kh = bernoulli(gen, self.zoneout, h_new.shape, h_new.device)
+                kc = _mask(gen, self.zoneout, c_new.shape, c_new.device,
+                           self.dp_axis)
+                kh = _mask(gen, self.zoneout, h_new.shape, h_new.device,
+                           self.dp_axis)
                 c_new = torch.where(kc, c_old, c_new)
                 h_new = torch.where(kh, h_old, h_new)
             cs.append(c_new)
@@ -317,6 +330,15 @@ class TransformerBlock(nn.Module):
         return x + h * mask.to(h.dtype)
 
 
+def _rows_of(x, idx):
+    """``x[b, idx[b, t]]`` for (B, L, ...) ``x`` and (B, T) ``idx``: the
+    same values as ``torch.gather`` along dim 1, with a backward that sums
+    repeated rows in a fixed order on the card (``gather``'s backward adds
+    them with atomics, so a step would not repeat bit for bit)."""
+    b = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[b, idx]
+
+
 def length_regulate(enc, durations, max_frames):
     """Expand (B, L, C) token features to (B, T, C) frames by durations:
     frame t takes the token whose cumulative-duration interval holds t
@@ -326,9 +348,7 @@ def length_regulate(enc, durations, max_frames):
     # index of the first token with cum > t
     frame_tok = torch.searchsorted(
         cum, t[None, :].expand(cum.shape[0], -1).contiguous(), right=True)
-    frame_tok = frame_tok.clamp(max=enc.shape[1] - 1)
-    return torch.gather(enc, 1,
-                        frame_tok[:, :, None].expand(-1, -1, enc.shape[2]))
+    return _rows_of(enc, frame_tok.clamp(max=enc.shape[1] - 1))
 
 
 def mel_pitch_proxy(mel):
@@ -362,6 +382,9 @@ class Model(nn.Module):
         a = dict(arch)
         self.arch = a
         self.dtype = dtype
+        # the data axis the training step binds: the losses' denominators
+        # count every rank's frames and tokens (parallel/shard.py)
+        self.dp_axis = a.get("dp_axis")
         self.token_num = a.get("token_num", a.get("z_num", 128))
         self.token_dim = a.get("token_dim", 128)
         self.block_type = a.get("block_type", "conv")
@@ -534,6 +557,15 @@ class Model(nn.Module):
         return (mel, mel_pre, log_dur_pred, pitch_pred, energy_pred,
                 mel_lens, mel_mask)
 
+    def _denominators(self, *counts):
+        """The masked means' denominators, fp32, each floored at 1: the
+        batch's counts, or with ``dp_axis`` this rank's share of the global
+        batch's (``parallel.shard.count_share``: the axis mean of the
+        ranks' losses is then the global batch's masked mean, as JAX's
+        sums over a sharded batch are global)."""
+        return count_share(torch.stack([c.float() for c in counts]),
+                           self.dp_axis).unbind()
+
     def forward(self, tokens, durations, mels, y_idx, tok_lens, mel_lens,
                 train=True, *, gen=None):
         """Training/valid forward: masked frame-mean Gaussian NLL on the
@@ -550,23 +582,23 @@ class Model(nn.Module):
                           use_true_dur=True, target_mel=mels)
 
         mel_mask = length_mask(mel_lens, T)
-        n_frames = torch.clamp(mel_lens.sum(), min=1)
-        x_loss = torch.sum(0.5 * (LOG_2PI + (mels - mel_hat) ** 2)
-                           * mel_mask) / (n_frames * 1.0)
-        x_pre = torch.sum(0.5 * (LOG_2PI + (mels - mel_pre) ** 2)
-                          * mel_mask) / (n_frames * 1.0)
-
         tok_mask = length_mask(tok_lens, tokens.shape[1])[..., 0]
+        fmask = mel_mask[..., 0]
+        n_frames, n_tokens, nf = self._denominators(
+            mel_lens.sum(), tok_mask.sum(), fmask.sum())
+        x_loss = torch.sum(0.5 * (LOG_2PI + (mels - mel_hat) ** 2)
+                           * mel_mask) / n_frames
+        x_pre = torch.sum(0.5 * (LOG_2PI + (mels - mel_pre) ** 2)
+                          * mel_mask) / n_frames
+
         dur_target = torch.log1p(durations.float())
         dur_loss = torch.sum((log_dur_pred - dur_target) ** 2 * tok_mask) \
-            / torch.clamp(tok_mask.sum(), min=1)
+            / n_tokens
 
         loss = x_loss + x_pre + self.dur_weight * dur_loss
         detail = {"X like": x_loss, "X pre like": x_pre,
                   "DUR loss": dur_loss}
         if self.use_variance:
-            fmask = mel_mask[..., 0]
-            nf = torch.clamp(fmask.sum(), min=1)
             p_loss = torch.sum((pitch_pred - mel_pitch_proxy(mels)) ** 2
                                * fmask) / nf
             e_loss = torch.sum((energy_pred - mel_energy(mels)) ** 2
@@ -587,17 +619,17 @@ class Model(nn.Module):
             tokens, y_idx, tok_lens, mels=mels, mel_lens=mel_lens,
             train=train, gen=gen)
         mel_mask = length_mask(mel_lens, T)
-        n_frames = torch.clamp(mel_lens.sum(), min=1)
-        x_loss = torch.sum(0.5 * (LOG_2PI + (mels - mel_hat) ** 2)
-                           * mel_mask) / (n_frames * 1.0)
-        x_pre = torch.sum(0.5 * (LOG_2PI + (mels - mel_pre) ** 2)
-                          * mel_mask) / (n_frames * 1.0)
         fmask = mel_mask[..., 0]
+        n_frames, nf = self._denominators(mel_lens.sum(), fmask.sum())
+        x_loss = torch.sum(0.5 * (LOG_2PI + (mels - mel_hat) ** 2)
+                           * mel_mask) / n_frames
+        x_pre = torch.sum(0.5 * (LOG_2PI + (mels - mel_pre) ** 2)
+                          * mel_mask) / n_frames
         t = torch.arange(T, device=mels.device)[None, :]
         stop_target = (t == (mel_lens.long()[:, None] - 1)).float()
         bce = -(self.bce_pos_weight * stop_target * F.logsigmoid(stop_logits)
                 + (1.0 - stop_target) * F.logsigmoid(-stop_logits))
-        stop_loss = torch.sum(bce * fmask) / torch.clamp(fmask.sum(), min=1)
+        stop_loss = torch.sum(bce * fmask) / nf
         loss = x_loss + x_pre + stop_loss
         detail = {"X like": x_loss, "X pre like": x_pre,
                   "STOP loss": stop_loss, "Total": loss}

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..nn.blocks import Conditions, init_parameters
 from ..ops.losses import gaussian_sample, kl_loss, log_loss
+from ..parallel.shard import local_rows
 from .vqvae import Decoder, Encoder
 
 
@@ -39,6 +40,8 @@ class Model(nn.Module):
                                  normalize=False, dtype=dtype)
         self.z_dim = a.get("z_dim", 128)
         self.kld_weight = a.get("kld_weight", a.get("beta", 1.0))
+        # the data axis the training step binds (parallel/shard.py)
+        self.dp_axis = a.get("dp_axis")
 
     def init_random(self, seed):
         init_parameters(self, seed)
@@ -57,7 +60,14 @@ class Model(nn.Module):
         B, T, _ = x.shape
         y = self._speaker(y_idx)
         mu, logvar = self._posterior(x)
-        z = gaussian_sample(gen, mu, logvar) if train else mu
+        z = mu
+        if train:
+            # the noise of the global batch's rows with ``dp_axis``, as JAX
+            # draws a sharded batch's (gaussian_sample at 0 is the noise)
+            noise = local_rows(lambda s: gaussian_sample(
+                gen, mu.new_zeros(s), mu.new_zeros(s)), mu.shape,
+                self.dp_axis)
+            z = mu + torch.exp(0.5 * logvar) * noise
         xhat = self.decoder(z.to(self.dtype), y).float()
         x_loss = log_loss(xhat, x.float())
         kld = kl_loss(mu, logvar) / (B * T)          # frame-mean KL

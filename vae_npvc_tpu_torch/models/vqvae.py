@@ -301,7 +301,8 @@ class Model(nn.Module):
             return z_vq, qut, enc, detail, new_state if train else None
         return vq_ops.vq_forward(self.quantizer_embedding, z,
                                  normalize=self.embed_norm,
-                                 reduction="frame_mean") + (None,)
+                                 reduction="frame_mean",
+                                 axis_name=self.dp_axis) + (None,)
 
     def _run(self, module, *args):
         """``module(*args)``, recomputed in the backward with ``remat``."""
@@ -321,7 +322,8 @@ class Model(nn.Module):
         z_vq, z_qut_loss, z_enc_loss, vq_detail, self.pending_ema = \
             self._quantize_train(z, train, gen, ema_state)
         if train and self.jitter_p > 0.0:
-            z_vq = jitter_op(gen, z_vq, self.jitter_p)
+            z_vq = jitter_op(gen, z_vq, self.jitter_p,
+                             axis_name=self.dp_axis)
         xhat = self._run(self.decoder, z_vq.to(self.dtype), y).float()
         x_loss = log_loss(xhat, x.float())
         loss = x_loss + z_qut_loss + self.beta * z_enc_loss

@@ -49,6 +49,8 @@ class Model(HierVQMixin, nn.Module):
         self.levels = a.get("levels", 3)
         self.use_gst = a.get("use_gst", True)
         self.use_ema = a.get("use_ema", True)
+        # the data axis the training step binds (parallel/shard.py)
+        self.dp_axis = a.get("dp_axis")
         self.beta = a.get("beta", 0.01)
         self.jitter_p = a.get("jitter_p", 0.0)
         self.gst_scale_penalty = a.get("gst_scale_penalty", 0.0)
@@ -96,7 +98,7 @@ class Model(HierVQMixin, nn.Module):
                 z32 = z_.float()
                 style = self.gst(torch.mean(z32, dim=1))
                 z_vq = style[:, None, :]
-                gst_in_rms = torch.sqrt(torch.mean(torch.square(z32)))
+                gst_in_rms = self._rms(z32)
             else:
                 z_vq, qut, enc, detail = self._quantize(
                     i, z_, train, self._level_gen(gen, level_gens, i))
@@ -104,7 +106,8 @@ class Model(HierVQMixin, nn.Module):
                 enc_losses.append(enc)
                 vq_details.append(self._vq_detail(detail, z_, enc))
                 if train and self.jitter_p > 0.0:
-                    z_vq = jitter_op(gen, z_vq, self.jitter_p)
+                    z_vq = jitter_op(gen, z_vq, self.jitter_p,
+                                     axis_name=self.dp_axis)
             z_vq_levels.append([nearest_upsample(z_vq, t)
                                 for t in time_levels[:i + 1]])
             if i > 0:

@@ -34,6 +34,8 @@ class Model(HierVQMixin, nn.Module):
         self.levels = a.get("levels", 3)
         self.use_gst = a.get("use_gst", True) if self.levels > 1 else False
         self.use_ema = a.get("use_ema", True)
+        # the data axis the training step binds (parallel/shard.py)
+        self.dp_axis = a.get("dp_axis")
         self.use_quantizers = a.get("use_quantizers", True)
         self.use_embeds = a.get("use_embeds", True)
         self.beta = a.get("beta", 0.01)
@@ -92,7 +94,8 @@ class Model(HierVQMixin, nn.Module):
                 enc_losses.append(enc)
                 vq_details.append(self._vq_detail(detail, z, enc))
                 if train and self.jitter_p > 0.0:
-                    z_vq = jitter_op(gen, z_vq, self.jitter_p)
+                    z_vq = jitter_op(gen, z_vq, self.jitter_p,
+                                     axis_name=self.dp_axis)
             z_vq_levels.append(z_vq)
         return z_vq_levels, qut_losses, enc_losses, vq_details
 

@@ -32,6 +32,8 @@ class Model(HierVQMixin, nn.Module):
         self.levels = a.get("levels", 3)
         self.use_gst = a.get("use_gst", True) if self.levels > 1 else False
         self.use_ema = a.get("use_ema", True)
+        # the data axis the training step binds (parallel/shard.py)
+        self.dp_axis = a.get("dp_axis")
         self.beta = a.get("beta", 0.01)
         self.jitter_p = a.get("jitter_p", 0.0)
         self.pooling_last = a.get("pooling_last", True)
@@ -86,7 +88,8 @@ class Model(HierVQMixin, nn.Module):
                 enc_losses.append(enc)
                 vq_details.append(self._vq_detail(detail, z, enc))
                 if train and self.jitter_p > 0.0:
-                    z_vq = jitter_op(gen, z_vq, self.jitter_p)
+                    z_vq = jitter_op(gen, z_vq, self.jitter_p,
+                                     axis_name=self.dp_axis)
             y = getattr(self, f"embeds_{i}")(y_first)[:, None, :]
             level_feats.append(self._level_decode(i, z_vq, y, time))
         fused = torch.cat(level_feats, dim=-1).to(self.dtype)

@@ -56,11 +56,19 @@ def _reduce(loss_elem, reduction, B, T):
     raise ValueError(f"unknown reduction {reduction!r}")
 
 
-def codebook_perplexity(idx, num_codes):
-    """exp(entropy) of the empirical code distribution."""
+def codebook_perplexity(idx, num_codes, axis_name=None):
+    """exp(entropy) of the empirical code distribution; with ``axis_name``
+    (a bound data axis) of the codes of every rank's rows (the counts
+    summed over the axis in one collective)."""
     counts = torch.bincount(idx.reshape(-1).long(), minlength=num_codes) \
         .float()
-    probs = counts / idx.numel()
+    if axis_name is None:
+        probs = counts / idx.numel()
+    else:
+        from ..parallel import comm
+
+        counts = comm.psum_(counts, axis_name)
+        probs = counts / counts.sum()
     return torch.exp(-torch.sum(probs * torch.log(probs + 1e-10)))
 
 
@@ -89,13 +97,14 @@ def sparsity_loss(emb):
 
 
 def vq_forward(emb, z, *, normalize=False, reduction="frame_mean",
-               quantize=True):
+               quantize=True, axis_name=None):
     """Training-time quantization with straight-through gradients.
 
     Returns ``(z_vq, z_qut_loss, z_enc_loss, detail)``: the codebook loss
     mse(e, sg(z)), the commitment loss mse(sg(e), z) (+ the normalization
     loss with ``normalize``), ``z_vq = z + sg(e - z)`` and
-    ``detail['entropy']`` (codebook perplexity).
+    ``detail['entropy']`` (codebook perplexity, over every rank's codes
+    with ``axis_name``).
     """
     B, T, D = z.shape
     if not quantize:
@@ -119,7 +128,7 @@ def vq_forward(emb, z, *, normalize=False, reduction="frame_mean",
     z_enc_loss = _reduce(z_enc_elem, reduction, B, T)
 
     z_vq = z_norm + (z_q - z_norm).detach()
-    detail = {"entropy": codebook_perplexity(idx, emb.shape[0])}
+    detail = {"entropy": codebook_perplexity(idx, emb.shape[0], axis_name)}
     return z_vq.reshape(B, T, D), z_qut_loss, z_enc_loss, detail
 
 

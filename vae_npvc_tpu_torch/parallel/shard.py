@@ -15,6 +15,22 @@ batch; then
 
 The renorm, the clip and the non-finite guard then see the same values on
 every rank and decide the same.
+
+The models keep the global batch's values where a mean of the ranks' means
+would not give them (``dp_axis`` names the bound axis):
+
+- a masked mean over a batch's valid frames or tokens (the synthesizer's
+  losses) divides by :func:`count_share`, so the axis mean of the ranks'
+  losses is the global batch's masked mean however the valid frames fall;
+- a nonlinear function of a batch-wide mean (a root mean square, a code
+  perplexity) takes the mean over the axis first (:func:`axis_mean`);
+- a random draw with one value per row (dropout and zoneout masks, the
+  critic's interpolation weights) is drawn for the global batch on every
+  rank from the same generator and sliced to the rank's rows
+  (:func:`local_rows`).
+
+A batch the axis does not divide runs whole on every rank under an axis of
+one (:func:`bind_data`), so the same code sees its own values there.
 """
 
 from __future__ import annotations
@@ -22,14 +38,16 @@ from __future__ import annotations
 import torch
 
 from . import comm
+from .mesh import Axis
 
 AXIS = "data"
 
 
 def enable_explicit_dp(config):
-    """Config transform: the flat model's EMA quantizer sums its
-    statistics over the ``data`` axis (the ``dp_axis`` arch key, read when
-    the model is built; it must then run inside ``comm.bind``)."""
+    """Config transform: the model reduces over the ``data`` axis where
+    the global batch's values are not the mean of the ranks' (the
+    ``dp_axis`` arch key, read when the model is built; its training and
+    validation forwards must then run inside :func:`bind_data`)."""
     out = dict(config)
     out["dp_axis"] = AXIS
     return out
@@ -46,6 +64,72 @@ def shard_rows(batch, mesh, axis=AXIS):
         return batch, False
     per = B // ax.size
     return tuple(a[ax.index * per:(ax.index + 1) * per] for a in batch), True
+
+
+def bind_data(mesh, split=True, axis=AXIS):
+    """Bind ``axis`` for a step's model calls: ``mesh``'s axis when the
+    ranks split the batch, else an axis of one (every rank holds the whole
+    batch; its collectives return their input)."""
+    ax = mesh.axis(axis)
+    if not split:
+        ax = Axis(axis, 1, 0, [mesh.rank], None, ax.backend)
+    return comm.bind({axis: ax})
+
+
+class _AxisMean(torch.autograd.Function):
+    """The all-reduce mean of a value the ranks replicate downstream; its
+    backward is the axis mean of the cotangents. The trainer averages the
+    ranks' gradients, so each rank's share of ``d loss / d x`` comes back
+    once (``jax.lax.pmean``'s transpose, scaled as ``reduce_gradient``
+    scales it)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        # the Axis itself: a CUDA backward runs in autograd's device
+        # thread, where this thread's names are not bound
+        ctx.axis = comm.axis(axis_name)
+        return comm.pmean(x, ctx.axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.pmean(g, ctx.axis), None
+
+
+def axis_mean(x, axis_name):
+    """``x`` averaged over the bound axis ``axis_name`` (differentiable);
+    ``x`` itself when ``axis_name`` is None."""
+    if axis_name is None:
+        return x
+    return _AxisMean.apply(x, axis_name)
+
+
+def count_share(counts, axis_name):
+    """The denominators of masked means: ``counts`` ((k,) fp32, this
+    rank's valid frames or tokens per loss) floored at 1, or with
+    ``axis_name`` their sum over the axis (one collective) floored at 1
+    and divided by the axis size. A rank's masked sum over its share is
+    then its part of the global batch's masked mean, and the axis mean of
+    the ranks' losses (:func:`reduce_gradient`) is that mean."""
+    if axis_name is None:
+        return counts.clamp_min(1)
+    ax = comm.axis(axis_name)
+    return comm.psum(counts, ax).clamp_min(1) / ax.size
+
+
+def local_rows(draw, shape, axis_name):
+    """This rank's rows of ``draw`` over the global batch: ``draw(shape)``
+    with ``shape[0]`` times the axis size rows, sliced to this rank's
+    ``shape[0]`` (``draw(shape)`` itself on an axis of one or without
+    ``axis_name``). Every rank draws from a generator seeded alike, so the
+    ranks' rows are one process's draw on the global batch."""
+    if axis_name is None:
+        return draw(shape)
+    ax = comm.axis(axis_name)
+    if ax.size == 1:
+        return draw(shape)
+    B = shape[0]
+    whole = draw((B * ax.size,) + tuple(shape[1:]))
+    return whole[ax.index * B:(ax.index + 1) * B]
 
 
 def mean_detail(detail, axis=AXIS):

@@ -1,4 +1,4 @@
-"""WGAN-GP adversarial trainer on one device.
+"""WGAN-GP adversarial trainer, on one device or data-parallel.
 
 Counterpart of ``vae_npvc_tpu/train/gan.py`` (``GanTrainer``): the
 3-phase schedule on the host iteration ``it`` (0 for the first step):
@@ -32,6 +32,16 @@ Checkpoints carry JAX's payload: ``model``, ``discriminator``, ``ema``,
 ``host_iteration`` and ``wn_axis_format``. A basic trainer's checkpoint
 loads with a fresh critic and fresh optimizers (fine-tuning with the
 adversary from a VAE pretrain).
+
+With a ``mesh`` (as JAX's ``GanTrainer(config, mesh)`` shards each batch
+over its ``data`` axis) each rank takes its rows of the global batch; the
+generator's forward sums its EMA statistics and pools its candidates over
+the axis in both steps (the critic step still drops the pending state);
+the critic's and the generator's flat gradients and the detail are
+averaged over the axis; the penalty's ``alpha`` is drawn for the global
+batch on every rank and sliced to the rank's rows. A ``model`` axis
+shards nothing here: its ranks repeat the step, as the JAX GAN step
+replicates its state. Rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ import torch
 
 from ..infer.convert import checkpoint_variables, read_payload
 from ..models.discriminator import Discriminator
+from ..parallel import comm
+from ..parallel.shard import AXIS, local_rows
 from ..utils import msgpack_io
 from ..utils.bridge import (from_jax_variables, optimizer_from_jax,
                             optimizer_to_jax, to_jax_variables)
@@ -81,11 +93,8 @@ class GanTrainer(Trainer):
     supports_steps_per_call = False
 
     def __init__(self, config, device="cuda", seed=None, mesh=None):
-        if mesh is not None:
-            raise ValueError("the WGAN-GP trainer runs in one process (its "
-                             "critic and generator steps are not "
-                             "data-parallel)")
-        super().__init__(config, device=device, seed=seed)
+        super().__init__(config, device=device, seed=seed, mesh=mesh)
+        self.n_model = 1          # the whole parameters on every rank
         if self.grad_accum > 1:
             raise ValueError("grad_accum is not supported by the GAN "
                              "trainer (3-phase step)")
@@ -129,66 +138,79 @@ class GanTrainer(Trainer):
     # ----------------------------------------------------------------- steps
     def _gp(self, x_real, x_fake):
         B = x_real.shape[0]
-        alpha = gp_alpha(self.gen, (B,) + (1,) * (x_real.dim() - 1),
-                         x_real.device)
+        alpha = local_rows(
+            lambda shape: gp_alpha(self.gen, shape, x_real.device),
+            (B,) + (1,) * (x_real.dim() - 1),
+            AXIS if self.mesh is not None else None)
         inter = (alpha * x_real + (1.0 - alpha) * x_fake).requires_grad_(True)
         g, = torch.autograd.grad(self.discriminator(inter).sum(), inter,
                                  create_graph=True)
         gnorm = torch.sqrt(torch.sum(g.reshape(B, -1) ** 2, dim=-1) + 1e-12)
         return torch.mean((gnorm - 1.0) ** 2)
 
-    def _disc_step(self, feats, spks):
+    def _disc_step(self, feats, spks, sharded=False):
         self._reseed()
-        with torch.no_grad():
-            (xhat, _, _), _ = self._forward((feats, spks))
-        # JAX discards the forward's mutable EMA collection here
-        self.model.pending_ema = None
-        x_real, x_fake = feats.float(), xhat.float()
-        D = self.discriminator
-        disc_loss = -D(x_real).mean() + D(x_fake).mean()
-        gp = self._gp(x_real, x_fake)
+        with self._bound(sharded):
+            with torch.no_grad():
+                (xhat, _, _), _ = self._forward((feats, spks))
+            # JAX discards the forward's mutable EMA collection here
+            self.model.pending_ema = None
+            x_real, x_fake = feats.float(), xhat.float()
+            D = self.discriminator
+            disc_loss = -D(x_real).mean() + D(x_fake).mean()
+            gp = self._gp(x_real, x_fake)
         grads = torch.autograd.grad(disc_loss + self.gp_weight * gp,
                                     self.d_params)
         flat_g = torch.cat([g.float().reshape(-1) for g in grads])
+        flat_g, detail = self._reduced(
+            flat_g, {"DISC loss": disc_loss.detach(),
+                     "gradient_penalty": gp.detach()}, sharded)
         update, self.d_opt_state = self.tx_d.update(flat_g, self.d_opt_state,
                                                     self.d_flat)
         with torch.no_grad():
             self.d_flat.add_(update)
-        return {"DISC loss": disc_loss.detach(), "gradient_penalty":
-                gp.detach()}
+        return detail
 
-    def _gen_step(self, feats, spks):
+    def _gen_step(self, feats, spks, sharded=False):
         self._begin_step()
-        (xhat, loss, detail), pending = self._forward((feats, spks))
-        adv = -self.discriminator(xhat.float()).mean()
-        total = loss + self.gamma * adv
-        flat_g = self._flat_grad(total)
+        with self._bound(sharded):
+            (xhat, loss, detail), pending = self._forward((feats, spks))
+            adv = -self.discriminator(xhat.float()).mean()
+            total = loss + self.gamma * adv
+            flat_g = self._flat_grad(total)
         detail = {k: v.detach() for k, v in detail.items()}
         detail["Total"] = total.detach()
         detail["ADV loss"] = adv.detach()
+        flat_g, detail = self._reduced(flat_g, detail, sharded)
         return self._finish_step(flat_g, pending, detail)
 
-    def train_step(self, batch):
-        """One iteration of the schedule on a ``(feats, spks)`` batch;
-        returns the detail of the steps it ran as device scalars."""
-        self._require_state()
-        feats, spks = self._to_device(batch)
+    def _step(self, batch, sharded):
+        """One iteration of the schedule on this rank's rows of a
+        ``(feats, spks)`` batch; returns the detail of the steps it ran as
+        device scalars."""
         it = self._host_iter
         if it <= self.pre_iter:
-            detail = self._train_step((feats, spks))
+            detail = self._train_step(batch, sharded)
         else:
             detail = {}
             if it % self.disc_param["per_iteration"] == 0:
-                detail.update(self._disc_step(feats, spks))
+                detail.update(self._disc_step(*batch, sharded))
             if it % self.gen_param["per_iteration"] == 0:
-                detail.update(self._gen_step(feats, spks))
+                detail.update(self._gen_step(*batch, sharded))
         self._host_iter = it + 1
         return detail
 
     # ------------------------------------------------------------ checkpoint
     def save_checkpoint(self, path):
-        """Write the JAX GAN trainer's payload (msgpack, same trees)."""
+        """Write the JAX GAN trainer's payload (msgpack, same trees). On a
+        mesh rank 0 writes and every rank waits for the write."""
         self._require_state()
+        if self.writes:
+            self._write_checkpoint(path)
+        if self.mesh is not None:
+            comm.barrier()
+
+    def _write_checkpoint(self, path):
         v = to_jax_variables(self.model.state_dict())
         payload = {
             "wn_axis_format": WN_AXIS_FORMAT,

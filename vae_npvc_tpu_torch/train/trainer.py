@@ -35,10 +35,14 @@ They are not the JAX package's draws.
 With a ``mesh`` (``parallel/mesh.py``, one process per rank) the step is
 data-parallel (``parallel/shard.py``): each rank of the ``data`` axis takes
 its rows of the global batch, the flat gradient and the detail are
-averaged over the axis, and the flat EMA codebook sums its statistics and
-pools its candidates over it. A ``model`` axis above 1 splits parameters
-and Adam moments by the shape-generic rule (``parallel/tp.py``): each rank
-updates its slices and all-gathers the whole parameters after the step.
+averaged over the axis, every EMA codebook (the flat one and each level of
+a hierarchy) sums its statistics and pools its candidates over it, and the
+models keep the global batch's masked means, root mean squares and
+per-row draws. The device-resident corpus draws the global batch's windows
+alike on every rank and gathers the rank's rows only. A ``model`` axis
+above 1 splits parameters and Adam moments by the shape-generic rule
+(``parallel/tp.py``): each rank updates its slices and all-gathers the
+whole parameters after the step.
 Checkpoints hold the whole trees in the JAX format; rank 0 writes them and
 every rank waits for the write.
 """
@@ -57,8 +61,8 @@ from ..models.hier_common import HierVQMixin
 from ..models.vqvae import EmaQuantizer
 from ..ops.vq import ema_vq_init
 from ..parallel import comm
-from ..parallel.shard import (AXIS, enable_explicit_dp, mean_detail,
-                              reduce_gradient, shard_rows)
+from ..parallel.shard import (AXIS, bind_data, enable_explicit_dp,
+                              mean_detail, reduce_gradient, shard_rows)
 from ..utils import msgpack_io
 from ..utils.bridge import (from_jax_variables, optimizer_from_jax,
                             optimizer_to_jax, to_jax_variables)
@@ -68,6 +72,11 @@ from .optim import OptState, build_optimizer
 # the iid sampler's stream, apart from the VQ draws' (JAX folds the same
 # constant into its base key)
 IID_SALT = 0x5A5A5A
+
+
+def _stacked(details):
+    """Per-step details stacked: each key with a leading (K,) axis."""
+    return {k: torch.stack([d[k] for d in details]) for k in details[0]}
 
 
 def _select(ok, new, old):
@@ -87,8 +96,8 @@ class Trainer:
 
     def __init__(self, config, device="cuda", seed=None, mesh=None):
         self.config = config
-        # with a mesh the flat EMA quantizer sums its statistics over the
-        # data axis (the other families carry no cross-rank state)
+        # with a mesh the model reduces over the data axis where the global
+        # batch's values are not a mean of the ranks' (parallel/shard.py)
         self.model = build_model(
             config if mesh is None else enable_explicit_dp(config), device)
         self.device = next(self.model.parameters()).device
@@ -105,10 +114,6 @@ class Trainer:
         # a hierarchy takes its EMA states as a dict by name, and draws
         # each level's lazy init and restarts from that level's generator
         self._hier = isinstance(self.model, HierVQMixin)
-        if mesh is not None and self.has_ema and self._hier:
-            raise ValueError("data-parallel training keeps one flat EMA "
-                             "codebook consistent across ranks; the "
-                             "hierarchies' EMA levels are not")
         self.tx = build_optimizer(config)
         self.seed = int(config.get("seed", 777) if seed is None else seed)
         self.gen = torch.Generator(device=self.device)
@@ -238,9 +243,12 @@ class Trainer:
         return local, sharded
 
     def _bound(self, sharded):
-        """The data axis bound for a sharded step's collectives."""
-        return (comm.bind(self.mesh, (AXIS,)) if sharded
-                else contextlib.nullcontext())
+        """The data axis bound around a step's model calls: the mesh's
+        when the ranks split the batch, an axis of one when each holds it
+        whole (no mesh: nothing to bind)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return bind_data(self.mesh, sharded)
 
     def _reduced(self, flat_g, detail, sharded):
         """The sharded step's means over the data axis."""
@@ -249,20 +257,20 @@ class Trainer:
         with comm.bind(self.mesh, (AXIS,)):
             return reduce_gradient(flat_g, detail)
 
-    def _train_step(self, batch):
-        batch, sharded = self.shard_batch(batch)
+    def _train_step(self, batch, sharded):
+        """One optimizer step on this rank's rows (``sharded``: the ranks
+        split the global batch)."""
         self._begin_step()
         with self._bound(sharded):
             flat_g, new_ema, detail = self._loss_and_grad(batch)
         flat_g, detail = self._reduced(flat_g, detail, sharded)
         return self._finish_step(flat_g, new_ema, detail)
 
-    def _train_step_accum(self, batch):
+    def _train_step_accum(self, batch, sharded):
         """One optimizer step from the mean of ``grad_accum`` microbatch
         gradients; the EMA codebook statistics chain through the
         microbatches in order, the detail is their mean."""
         k = self.grad_accum
-        batch, sharded = self.shard_batch(batch)
         B = batch[0].shape[0]
         if B % k != 0:
             raise ValueError(
@@ -331,16 +339,18 @@ class Trainer:
         the token->mel synthesizer. Returns the loss detail as device
         scalars."""
         self._require_state()
-        batch = self._to_device(batch)
+        return self._step(*self.shard_batch(self._to_device(batch)))
+
+    def _step(self, batch, sharded):
+        """One optimizer step on this rank's rows of a global batch."""
         if self.grad_accum > 1:
-            return self._train_step_accum(batch)
-        return self._train_step(batch)
+            return self._train_step_accum(batch, sharded)
+        return self._train_step(batch, sharded)
 
     def train_steps(self, batches):
         """K sequential optimizer steps over a list of K batches; returns
         the detail with a leading (K,) axis per key."""
-        details = [self.train_step(b) for b in batches]
-        return {k: torch.stack([d[k] for d in details]) for k in details[0]}
+        return _stacked([self.train_step(b) for b in batches])
 
     # ------------------------------------------------- device-resident data
     def stage_dataset(self, dataset, batch_size):
@@ -369,6 +379,12 @@ class Trainer:
         frames = torch.arange(self._dev_crop, device=self.device)
         return feats[idx[:, None], starts[:, None] + frames], spk_ids[idx]
 
+    def _window_step(self, idx, starts):
+        """One step on the global batch's windows ``(idx[B], starts[B])``
+        (every rank holds the same): each rank gathers its own rows."""
+        (idx, starts), sharded = self.shard_batch((idx, starts))
+        return self._step(self._gather(idx, starts), sharded)
+
     def _sample_iid(self, step):
         """Step ``step``'s draws ``(idx[B], starts[B])`` (device int64):
         utterances uniform over the corpus, then ``u ~ U[0, 1)`` per row
@@ -392,9 +408,8 @@ class Trainer:
         returns the detail with a leading (K,) axis per key."""
         self._require_corpus()
         self._require_state()
-        details = [self.train_step(self._gather(
-            *self._sample_iid(self._host_iter))) for _ in range(K)]
-        return {k: torch.stack([d[k] for d in details]) for k in details[0]}
+        return _stacked([self._window_step(*self._sample_iid(self._host_iter))
+                         for _ in range(K)])
 
     def train_steps_indices(self, idx, starts):
         """K steps gathering host-chosen windows from the staged corpus.
@@ -405,32 +420,19 @@ class Trainer:
         idx = torch.as_tensor(np.asarray(idx), device=self.device).long()
         starts = torch.as_tensor(np.asarray(starts), device=self.device) \
             .long().clamp(0, feats.shape[1] - self._dev_crop)
-        return self.train_steps([self._gather(ii, ss)
-                                 for ii, ss in zip(idx, starts)])
+        self._require_state()
+        return _stacked([self._window_step(ii, ss)
+                         for ii, ss in zip(idx, starts)])
 
     # ------------------------------------------------------------ validation
     def _valid_detail(self, batch):
-        """The loss detail of one global batch: with a data axis above 1,
-        its largest divisible prefix split over the ranks (the detail
-        averaged over the axis) and the rest whole on every rank, combined
-        by rows (valid batches share one crop, so a batch's detail is a
-        mean over its rows)."""
-        n = self.mesh.shape["data"] if self.mesh is not None else 1
-        if n == 1:
-            return self.model(*batch, False)[2]
-        B = batch[0].shape[0]
-        rem = B % n
-        parts = []
-        if B > rem:
-            local, _ = shard_rows(tuple(a[:B - rem] for a in batch),
-                                  self.mesh)
-            with comm.bind(self.mesh, (AXIS,)):
-                parts.append((B - rem, mean_detail(
-                    self.model(*local, False)[2])))
-        if rem:
-            tail = tuple(a[B - rem:] for a in batch)
-            parts.append((rem, self.model(*tail, False)[2]))
-        return {k: sum(w * d[k] for w, d in parts) / B for k in parts[0][1]}
+        """The loss detail of one global batch: split over the data axis
+        (the detail averaged over it) when the axis divides it, else whole
+        on every rank, as the JAX trainer replicates such a batch."""
+        local, sharded = self.shard_batch(batch)
+        with self._bound(sharded):
+            detail = self.model(*local, False)[2]
+            return mean_detail(detail) if sharded else detail
 
     def valid(self, batches):
         """Loss detail over an iterable of batches, as lists of floats (the
