@@ -344,6 +344,27 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+# spin kernels launched at the start of a profiler window, before the calls
+# it measures, and left out of its events: late in the smoke (after the
+# parallel phase's NCCL and two-rank runs) the H100's profiler drops the
+# first kernels of a window (10 of 50 split calls; a one-call window came
+# back empty, and L2-hot sums read a quarter of their fresh-process value)
+PROFILER_PAD = 64
+
+
+def _profiler_pad(torch):
+    for _ in range(PROFILER_PAD):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def _kernel_events(torch, prof):
+    """The device kernels of a profiler window, without the pad's spins."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name]
+
+
 def timed(torch, fn, arg_sets, iters=50, warmup=3, names=None,
           by_name=None):
     """``(device_ms, events_ms)`` of one ``fn(*args)`` call, averaged over
@@ -407,11 +428,11 @@ def timed(torch, fn, arg_sets, iters=50, warmup=3, names=None,
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            _profiler_pad(torch)
             for i in range(iters):
                 call(i)
             torch.cuda.synchronize()
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = _kernel_events(torch, prof)
         if device:
             break
     check(bool(device), "timed: the profiler recorded no device kernels")
@@ -6160,6 +6181,9 @@ def _rank_seq(torch, root, res):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         counts = _all_counts()
+        if dtype == "float32":
+            pair = _seq_pair_device_ms(torch, lambda: sequence_parallel_infer(
+                cfg, None, x, y, mesh, model=model), ax.index == 0)
         with comm.bind(mesh), torch.inference_mode():
             ids = model.encode(torch.tensor(
                 x[:, ax.index * T:(ax.index + 1) * T], device="cuda"))
@@ -6174,8 +6198,53 @@ def _rank_seq(torch, root, res):
                                      / np.abs(want).max()),
             "finite": bool(np.isfinite(mel).all()),
             "shape_ok": mel.shape == want.shape}
+        if dtype == "float32":
+            out[dtype]["split_pair"] = pair
         del conv, model
     res["seq"] = out
+
+
+SEQ_PAIR_WINDOWS = 3
+
+
+def _seq_pair_device_ms(torch, call, profile_it):
+    """The device ms of K2's split pair in one sequence-parallel
+    ``call()`` on this rank: the summed durations of its
+    ``gn_split_stats_kernel`` and ``gn_split_apply_kernel`` launches, from
+    a torch.profiler window around the call (after ``PROFILER_PAD`` spin
+    kernels). Every rank makes ``SEQ_PAIR_WINDOWS`` calls, since each
+    call's collectives need them all; the rank that ``profile_it`` traces
+    each, and keeps the first window that holds as many of the pair's
+    kernels as the wrappers counted, else fails. Other ranks return
+    None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    found = None
+    for _ in range(SEQ_PAIR_WINDOWS):
+        if not profile_it:
+            call()
+            torch.cuda.synchronize()
+            continue
+        _zero_all_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _profiler_pad(torch)
+            call()
+            torch.cuda.synchronize()
+        counts = _all_counts()
+        want = (counts["group_norm_split_stats"]
+                + counts["group_norm_split_apply"])
+        pair = [e for e in _kernel_events(torch, prof)
+                if "gn_split_stats_kernel" in e.name
+                or "gn_split_apply_kernel" in e.name]
+        if found is None and want and len(pair) == want:
+            found = {"device_ms": sum(e.time_range.elapsed_us()
+                                      for e in pair) / 1e3,
+                     "kernels": len(pair)}
+    if profile_it:
+        check(found is not None, "sequence-parallel infer: no profiler "
+              "window held every launch of the split pair")
+    return found
 
 
 def _rank_pp(torch, root, rank, res):
@@ -6265,7 +6334,8 @@ def _rank_voc(torch, root, rank, res):
 
 def _parallel_ranks(rank, world, root):
     """Two ranks on cuda:0 over gloo: dp2, tp, seq, pp, pwg_dp, the
-    other families' cases (hier_dp, hier_plain_dp, gan_dp, tts_dp, tac2_dp) and
+    other families' cases (hier_dp, hier_plain_dp, gan_dp, tts_dp, tac2_dp,
+    accum_dp) and
     ``bin/train`` device-resident, each checked in the parent against its
     one-process reference."""
     import torch
@@ -6501,6 +6571,9 @@ PAR_REST = {
     "gan_dp": (dict(GAN, pre_iter=1), 16, 4),
     "tts_dp": (dict(TTS), 8, 3),
     "tac2_dp": (dict(TAC2), 4, 2),
+    # the flagship flat EMA model with grad_accum: 2 (each rank takes its
+    # part of each global microbatch; the codebook chains through them)
+    "accum_dp": (dict(FLAGSHIP, **TRAIN, grad_accum=2), 16, 3),
 }
 PAR_TAC2_L, PAR_TAC2_T = 48, 96
 # the two-rank comparisons run in fp32: a rank's half batch and the whole
@@ -6519,6 +6592,8 @@ PAR_REST_LAUNCHES = {
                "fused_group_norm_backward": 20},
     "tts_dp": {"fused_attention": 12, "fused_attention_backward": 12},
     "tac2_dp": {},
+    "accum_dp": {"vq_fused": 2, "fused_group_norm": 40,
+                 "fused_group_norm_backward": 40},
 }
 # the synthesizers' parameters after a few fp32 steps: Adam moves every
 # element by about the learning rate at its first steps whatever the
@@ -6576,7 +6651,7 @@ def _par_rest_launches_want(name):
 def _par_rest_cfg(name, dtype=None):
     cfg, B, _ = PAR_REST[name]
     cfg = dict(cfg, batch_size=B)
-    if name in ("hier_dp", "hier_plain_dp", "gan_dp"):
+    if name in ("hier_dp", "hier_plain_dp", "gan_dp", "accum_dp"):
         cfg["compute_dtype"] = dtype or PAR_REST_DTYPE
     if name == "tac2_dp":
         cfg.update(max_tokens=PAR_TAC2_L, max_frames=PAR_TAC2_T)
@@ -6587,7 +6662,7 @@ def _par_rest_batches(name):
     """The case's global batches (numpy), the same on every rank."""
     cfg, B, steps = PAR_REST[name]
     rng = np.random.default_rng(70 + list(PAR_REST).index(name))
-    if name in ("hier_dp", "hier_plain_dp", "gan_dp"):
+    if name in ("hier_dp", "hier_plain_dp", "gan_dp", "accum_dp"):
         return [(rng.normal(-3.0, 1.5, size=(B, 256, 80)).astype(np.float32),
                  rng.integers(0, cfg["y_num"], size=B).astype(np.int32))
                 for _ in range(steps)]
@@ -6938,16 +7013,17 @@ def _par_cli_rest(torch, root):
 
 
 def _par_dp1_rest(torch):
-    """The EMA hierarchy, the GAN and the synthesizer through the DP
-    trainer over the NCCL group of one (open) against the plain trainer
-    from the same weights on the same batches, in the recipes' dtypes (bf16
-    hierarchy and GAN, fp32 synthesizer), the draws their own: every
-    detail value and parameter equal."""
+    """The EMA hierarchy, the GAN, the synthesizer and the flagship's
+    accumulation step (``grad_accum: 2``) through the DP trainer over the
+    NCCL group of one (open) against the plain trainer from the same
+    weights on the same batches, in the recipes' dtypes (bf16 hierarchy,
+    GAN and flagship, fp32 synthesizer), the draws their own: every detail
+    value and parameter equal."""
     from vae_npvc_tpu_torch.parallel.mesh import make_mesh
     from vae_npvc_tpu_torch.train import build_trainer
 
     out = {}
-    for name in ("hier_dp", "gan_dp", "tts_dp"):
+    for name in ("hier_dp", "gan_dp", "tts_dp", "accum_dp"):
         cfg = _par_rest_cfg(name, dtype="bfloat16")
         trainers = [build_trainer(cfg, device="cuda", **kw)
                     for kw in ({}, {"mesh": make_mesh()})]
@@ -7008,6 +7084,9 @@ def _gn_split_case(torch, C, G, glu, dtype, rng):
                         device=dev)
     halves = [x[:, :Th], x[:, Th:]]
     parts = [group_norm_split_stats(h, G) for h in halves]
+    check(all(torch.equal(p, group_norm_split_stats(h, G))
+              for p, h in zip(parts, halves)),
+          "group_norm_split_stats: two calls on one input differ")
 
     def mean_var(p):
         return torch.stack([p[..., 1], p[..., 2] / p[..., 0]])
@@ -7023,6 +7102,9 @@ def _gn_split_case(torch, C, G, glu, dtype, rng):
     gathered = torch.stack(parts, dim=2)
     got = torch.cat([group_norm_split_apply(h, scale, bias, gathered, G,
                                             glu=glu) for h in halves], dim=1)
+    check(torch.equal(got[:, :Th], group_norm_split_apply(
+        halves[0], scale, bias, gathered, G, glu=glu)),
+        "group_norm_split_apply: two calls on one input differ")
     ref = group_norm_plain(x, scale, bias, G, glu=glu)
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
@@ -7032,9 +7114,21 @@ def _gn_split_case(torch, C, G, glu, dtype, rng):
     check(bool((err <= atol + rtol * ref.float().abs()).all()),
           f"{what}: max err {float(err.max())}")
     h = halves[0]
+    kernels = {
+        "stats": _device_kernels(torch, lambda: group_norm_split_stats(h, G),
+                                 "gn_split_stats_kernel"),
+        "apply": _device_kernels(torch, lambda: group_norm_split_apply(
+            h, scale, bias, gathered, G, glu=glu), "gn_split_apply_kernel")}
+    for part, (names, per_call) in kernels.items():
+        check(len(names) == 1 and per_call == 1, f"{what}: the {part} ran "
+              f"{names}, {per_call} device kernels a call, not one")
     case = {"T_local": Th, "C": C, "G": G, "glu": glu, "dtype": name,
             "ranks": 2, "stats_max_abs_err": stats_err,
-            "apply_max_abs_err": float(err.max())}
+            "apply_max_abs_err": float(err.max()),
+            "device_kernels": {k: v[0] for k, v in kernels.items()},
+            "device_kernels_per_call": {k: v[1] for k, v in
+                                        kernels.items()},
+            "bit_equal_in_two_calls": True}
     n = Th * C
     item = h.element_size()
     # L2-hot (one input) and L2-cold (inputs cycled through 100 MiB of
@@ -7053,6 +7147,13 @@ def _gn_split_case(torch, C, G, glu, dtype, rng):
         torch, lambda a: torch.var_mean(a, dim=-1, correction=0), [(xg,)])
     case["stats_bound_ms"], case["stats_bound_by"] = _bound(
         n * item + 12 * G, 3 * n)
+    # yardsticks on the same L2-cold inputs: PyTorch's one-kernel reduction
+    # over the statistics' bytes, and an elementwise kernel that reads x
+    # and writes its size (the apply's bytes without the GLU)
+    case["sum_ms_l2_cold"], _ = timed(
+        torch, lambda a: a.sum(dtype=torch.float32), l2_cold((h,)))
+    case["mul_ms_l2_cold"], _ = timed(
+        torch, lambda a: a.mul(2), l2_cold((h,)))
     case["apply_ms"], _ = timed(
         torch, lambda a: group_norm_split_apply(a, scale, bias, gathered, G,
                                                 glu=glu), [(h,)])
@@ -7080,12 +7181,86 @@ def _gn_split_case(torch, C, G, glu, dtype, rng):
     return case
 
 
+def _device_kernels(torch, call, what, n=50):
+    """``(distinct names, device kernels per call)`` of ``n`` calls of
+    ``call()`` in one torch.profiler window, after a warm call and
+    ``PROFILER_PAD`` spin kernels (:func:`_profiler_pad`).
+    The kernels whose names hold ``what`` count; any other kernel but the
+    spins fails (a window without device events is taken again, up to
+    three times, and then fails)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _profiler_pad(torch)
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        names = [e.name for e in _kernel_events(torch, prof)]
+        if names:
+            check(all(what in m for m in names),
+                  f"{what}: the calls also ran {sorted(set(names))}")
+            return sorted(set(names)), len(names) / n
+    check(False, f"{what}: the profiler recorded no device kernels")
+
+
+def _gn_split_ragged(torch, rng):
+    """K2's split pair over R = 4 ranks of a (2, PAR_SEQ_T, 1,024) fp32
+    GLU row pair, channels-first, with ragged lengths (6,000 and 3,000
+    frames), so the last rank holds no valid frame of either row: every
+    rank's counts against the plain version, the empty rank's partials
+    (0, 0, 0), the row's output against the plain GroupNorm of the whole
+    rows."""
+    from vae_npvc_tpu_torch.ops.groupnorm import (
+        group_norm_plain, group_norm_split_apply, group_norm_split_stats,
+        group_norm_split_stats_plain)
+
+    dev = torch.device("cuda")
+    B, T, C, G, R = 2, PAR_SEQ_T, 1024, 2, 4
+    x = _channels_first(torch.tensor(rng.normal(0.5, 2.0, size=(B, T, C)),
+                                     dtype=torch.float32, device=dev))
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                        device=dev)
+    lengths = torch.tensor([6000, 3000], dtype=torch.int32, device=dev)
+    Tr = T // R
+    pieces = [(x[:, r * Tr:(r + 1) * Tr],
+               (lengths - r * Tr).clamp(0, Tr).to(torch.int32))
+              for r in range(R)]
+    parts = [group_norm_split_stats(xp, G, n) for xp, n in pieces]
+    for (xp, n), p in zip(pieces, parts):
+        check(torch.equal(p[..., 0], group_norm_split_stats_plain(
+            xp, G, n)[..., 0]), "split R=4: counts differ from the plain "
+              "version")
+    check(torch.equal(parts[-1], torch.zeros_like(parts[-1])),
+          f"split R=4: the rank without a valid frame wrote {parts[-1]}")
+    gathered = torch.stack(parts, dim=2)
+    got = torch.cat([group_norm_split_apply(xp, scale, bias, gathered, G,
+                                            lengths=n, glu=True)
+                     for xp, n in pieces], dim=1)
+    ref = group_norm_plain(x, scale, bias, G, lengths=lengths, glu=True)
+    torch.cuda.synchronize()
+    atol, rtol = K2_TOL["float32"]
+    err = (got - ref).abs()
+    check(bool((err <= atol + rtol * ref.abs()).all()),
+          f"split R=4 ragged: max err {float(err.max())}")
+    return {"B": B, "T": T, "C": C, "G": G, "glu": True, "ranks": R,
+            "lengths": [6000, 3000], "ranks_without_valid_frames": [R - 1],
+            "max_abs_err": float(err.max())}
+
+
 def phase_parallel(torch, root):
     """The parallel slice on the one card: ``dp1`` (NCCL, world size 1;
-    the flagship, then the hierarchy, the GAN and the synthesizer against
-    their plain steps), then dp2/tp/seq/pp/pwg_dp and hier_dp,
-    hier_plain_dp, gan_dp, tts_dp, tac2_dp and device-resident
-    ``bin/train`` on two gloo ranks sharing cuda:0 against one process,
+    the flagship, then the hierarchy, the GAN, the synthesizer and the
+    flagship's accumulation step against their plain steps), then
+    dp2/tp/seq/pp/pwg_dp and hier_dp, hier_plain_dp, gan_dp, tts_dp,
+    tac2_dp, accum_dp and device-resident ``bin/train`` on two gloo ranks
+    sharing cuda:0 against one process, K2's split pair (three timed
+    shapes, then R = 4 ranks with ragged lengths),
     ``dp_serve``, ``train_cli`` and ``cli_dp`` (bin/train, bin/train_tts and
     bin/train_pwg under torchrun's environment). Returns the split entry
     points' launches per GroupNorm of the sequence-parallel run, their
@@ -7111,12 +7286,19 @@ def phase_parallel(torch, root):
     split = [_gn_split_case(torch, 512, 1, False, torch.float32, rng),
              _gn_split_case(torch, 1024, 2, True, torch.float32, rng),
              _gn_split_case(torch, 1024, 2, True, torch.bfloat16, rng)]
+    ragged = _gn_split_ragged(torch, rng)
     seq = ranks[0]["seq"]["float32"]
+    # the split pair's device ms in rank 0's sequence-parallel fp32 infer,
+    # from its profiler trace
+    pair_ms = seq["split_pair"]["device_ms"]
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0,
           "dp1_ms_per_step": dp1["ms"],
           "dp1_plain_ms_per_step": dp1["plain_ms"],
-          "seq_fp32_ms": seq["ms"], "split_cases": split})
+          "seq_fp32_ms": seq["ms"], "seq_fp32_split_pair_device_ms": pair_ms,
+          "seq_fp32_split_pair_kernels": seq["split_pair"]["kernels"],
+          "split_cases": split, "split_ragged_r4": ragged})
     return {"launches": seq["launches"], "split": split, "seq_ms": seq["ms"],
+            "seq_pair_ms": pair_ms,
             "rest": {name: case["launches_per_rank_per_step"]
                      for name, case in rest.items()},
             "dp1_rest": {name: case["launches_per_step"]
@@ -7191,6 +7373,9 @@ def _split_kernel_lines(par):
             "library_ms": main[f"{part}_library_ms"],
             "shape": {k: main[k] for k in keys},
             "seq_infer_ms_per_rank": par["seq_ms"],
+            "seq_infer_split_pair_device_ms": par["seq_pair_ms"],
+            "device_kernels_per_call":
+                main["device_kernels_per_call"][part],
             "other_shapes": [dict({k: c[k] for k in keys},
                                   ms=c[f"{part}_ms"],
                                   ms_l2_cold=c[f"{part}_ms_l2_cold"],

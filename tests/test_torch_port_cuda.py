@@ -419,6 +419,100 @@ def test_groupnorm_split_matches_the_whole_row(dev, dtype, masked, C, G, glu,
                                    rtol=2 ** -6)
 
 
+def _split_stats_f64(x, G, lengths):
+    """(B, G, 3) count, mean and centred sum of squares in float64."""
+    B, T, C = x.shape
+    xf = x.double().reshape(B, T, G, C // G)
+    n = torch.full((B,), T, device=x.device) if lengths is None else lengths
+    m = (torch.arange(T, device=x.device)[None] < n[:, None]).double()
+    m = m[:, :, None, None]
+    cnt = (m.sum(dim=(1, 3)) * (C // G)).expand(B, G)
+    mean = (xf * m).sum(dim=(1, 3)) / cnt.clamp(min=1)
+    m2 = ((xf - mean[:, None, :, None]).square() * m).sum(dim=(1, 3))
+    return cnt, mean, m2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,G,glu", [(256, 1, False), (512, 2, True),
+                                     (512, 2, False)])
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("cf", [False, True])
+@pytest.mark.parametrize("T", [1024, 1003])
+def test_groupnorm_split_pair_against_float64_and_itself(dev, dtype, C, G,
+                                                         glu, R, cf, T):
+    """The one-launch statistics and the streamed apply: B = 3 rows with
+    ragged lengths and one row without a valid frame (so a rank of R = 4
+    holds none of row 1's), T = 1,003 not a multiple of any vector width,
+    both layouts. Each rank's statistics against float64 (counts exact,
+    mean within 1e-5, M2 within 1e-5 of itself), the row's
+    output against the plain GroupNorm of the whole row (K2's tolerances),
+    and two calls of each kernel equal bit for bit."""
+    rng = np.random.default_rng(C + 7 * R + T)
+    B = 3
+    x = torch.tensor(rng.normal(2.0, 3.0, size=(B, T, C)), device=dev) \
+        .to(dtype)
+    if cf:
+        x = _channels_first(x)
+    scale = torch.tensor(rng.normal(1.0, 0.2, size=C), dtype=torch.float32,
+                         device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.2, size=C), dtype=torch.float32,
+                        device=dev)
+    lengths = torch.tensor([T, T * 3 // 5, 0], dtype=torch.int32, device=dev)
+    pieces = _split_row(x, lengths, R)
+    parts = []
+    for xp, n in pieces:
+        p = group_norm_split_stats(xp, G, n)
+        again = group_norm_split_stats(xp, G, n)
+        cnt, mean, m2 = _split_stats_f64(xp, G, n)
+        torch.cuda.synchronize()
+        assert torch.equal(p, again)
+        assert torch.equal(p[..., 0].double(), cnt)
+        torch.testing.assert_close(p[..., 1].double(), mean, atol=1e-5,
+                                   rtol=0)
+        torch.testing.assert_close(p[..., 2].double(), m2, atol=1e-6,
+                                   rtol=1e-5)
+        assert torch.equal(p[2], torch.zeros_like(p[2]))
+        parts.append(p)
+    assert any(float(p[1, :, 0].sum()) == 0 for p in parts) == (R == 4)
+    gathered = torch.stack(parts, dim=2)                 # (B, G, R, 3)
+    outs = []
+    for xp, n in pieces:
+        o = group_norm_split_apply(xp, scale, bias, gathered, G, lengths=n,
+                                   glu=glu)
+        assert torch.equal(o, group_norm_split_apply(
+            xp, scale, bias, gathered, G, lengths=n, glu=glu))
+        assert o.stride(1) == 1 if cf else o.stride(2) == 1
+        outs.append(o)
+    got = torch.cat(outs, dim=1)
+    ref = group_norm_plain(x, scale, bias, G, lengths=lengths, glu=glu)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=2 ** -7,
+                                   rtol=2 ** -6)
+
+
+def test_groupnorm_split_pair_is_one_kernel_each(dev):
+    """One device kernel a call for each entry point, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _channels_first(torch.randn((1, 2048, 1024), device=dev))
+    s, z = torch.ones(1024, device=dev), torch.zeros(1024, device=dev)
+    p = group_norm_split_stats(x, 2)[:, :, None]
+    group_norm_split_apply(x, s, z, p, 2, glu=True)
+    torch.cuda.synchronize()
+    for call in (lambda: group_norm_split_stats(x, 2),
+                 lambda: group_norm_split_apply(x, s, z, p, 2, glu=True)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1, [e.name for e in kernels]
+
+
 def test_groupnorm_split_counts_and_refuses_gradients(dev):
     x = torch.ones((1, 16, 8), device=dev)
     s = torch.ones(8, device=dev)

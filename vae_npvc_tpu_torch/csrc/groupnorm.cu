@@ -65,18 +65,30 @@
 // Split statistics (sequence-parallel inference, where one row's frames
 // lie on several ranks; vae_npvc_tpu/nn/blocks.py `group_norm(seq_axis=)`
 // psums the statistics there). The cluster kernels divide by the row's
-// own count, so a split row takes the streaming route's two halves as
-// entry points of their own: gn_split_stats writes this rank's per-(row,
-// group) (count, mean, centred M2) over its valid frames (gn_stream_stats,
-// then gn_stats_merge, one thread per (row, group), Chan's merge of the
-// chunks in order); the caller gathers every rank's triples and
-// gn_split_apply merges them in rank order with the same Chan merge
-// (merge_stats) in every block before it writes its chunk as
-// gn_fwd_stream_apply does. Never E[x^2] - mean^2. Bound: bytes, one read
-// of x for the statistics and one read plus one write for the apply.
+// own count, so a split row has two entry points of its own, one launch
+// each, designed for Hopper as bandwidth-bound passes (no tensor cores, no
+// TMA, no shared-memory tile). Bound: bytes, one read of x's valid frames
+// for the statistics, one read plus one write of the row for the apply.
+// gn_split_stats (gn_split_stats_kernel) writes this rank's per-(row,
+// group) (count, mean, centred M2) over its valid frames: a grid of about
+// kSplitBlocksPerSm blocks per SM over all (row, group) spans, each block
+// streaming its equal share of the group's valid elements read in place
+// (channels-first: Cg runs of len contiguous frames) with several 16-byte
+// loads in flight a thread; every thread keeps a running triple, the
+// block merges its threads' by Chan's formula in a fixed tree, and the
+// last block of a (row, group) to finish, chosen by a per-(row, group)
+// atomic ticket after a __threadfence, merges the blocks' triples in
+// block order and resets its counter (the caller keeps one zeroed counter
+// buffer per device and stream). gn_split_apply (gn_split_apply_kernel)
+// merges the gathered triples of R ranks in rank order (merge_stats) in
+// every block, then streams x to the output element for element: each
+// output depends on one input (two with the GLU, channels c and c + C/2),
+// so no tile is staged; 16-byte loads in flight, 16-byte stores, about
+// kSplitBlocksPerSm blocks per SM. Never E[x^2] - mean^2.
 //
-// Every sum has a fixed order and no atomics, so two runs give the same
-// bits.
+// Every sum has a fixed order and no atomic adds a value (the split
+// statistics' ticket only picks which block merges), so two runs give the
+// same bits.
 //
 // C interface (loaded with ctypes): gn_forward, gn_backward,
 // gn_split_stats and gn_split_apply return cudaGetLastError(); gn_plan
@@ -88,6 +100,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <mutex>
 
@@ -877,18 +890,255 @@ gn_fwd_stream_apply(const T* __restrict__ x, View xv,
                        bias, out, ov, b, t0);
 }
 
-// Split statistics: one thread per (row, group) merges the row's chunk
-// triples of gn_stream_stats in order into one (count, mean, centred M2)
-// triple, out[(b*G + g)*3 ...], the partials a rank contributes.
-__global__ void gn_stats_merge(const float* __restrict__ part, int B, int G,
-                               int n_chunks, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * G) return;
+// ------------------------------------------------------ split entry points
+// 16-byte loads a thread keeps in flight in the split kernels.
+constexpr int kSplitUnroll = 4;
+// Resident blocks per SM the split kernels' grids aim at; the kernels'
+// __launch_bounds__ ask for as many (at most 64 registers a thread, so
+// that the GLU applies, which take 72 and 102 registers without the bound,
+// keep 4 blocks on an SM).
+constexpr int kSplitBlocksPerSm = 4;
+// Blocks' triples a thread of the merging block loads (P <= this times
+// kThreads).
+constexpr int kSplitMergePer = 4;
+
+// A (count, mean, centred M2) triple.
+struct Moments {
   float n, mean, m2;
-  chan_merge(part + (long long)i * n_chunks * 3, n_chunks, &n, &mean, &m2);
-  out[3 * i] = n;
-  out[3 * i + 1] = mean;
-  out[3 * i + 2] = m2;
+};
+
+// a, then b, by Chan's formula with one division; either may be empty,
+// and an empty a gives b's bits.
+__device__ __forceinline__ Moments chan(const Moments& a, const Moments& b) {
+  if (b.n == 0.f) return a;
+  const float nt = a.n + b.n;
+  const float wb = b.n / nt;
+  const float delta = b.mean - a.mean;
+  Moments r;
+  r.mean = a.mean + delta * wb;
+  r.m2 = a.m2 + (b.m2 + delta * delta * (a.n * wb));
+  r.n = nt;
+  return r;
+}
+
+// Lane 0 gets the merge of the warp's 32 triples in lane order, by a
+// fixed-shape tree (pairs of lanes, then pairs of pairs, ...).
+__device__ __forceinline__ Moments warp_chan(Moments m) {
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    Moments b;
+    b.n = __shfl_down_sync(0xffffffffu, m.n, o);
+    b.mean = __shfl_down_sync(0xffffffffu, m.mean, o);
+    b.m2 = __shfl_down_sync(0xffffffffu, m.m2, o);
+    if ((l & (2 * o - 1)) == 0) m = chan(m, b);
+  }
+  return m;
+}
+
+// Thread 0 gets the merge of the block's kThreads triples in thread
+// order (warp_chan in each warp, then over the warps); ends with a block
+// barrier.
+__device__ __forceinline__ Moments block_chan(Moments m, Moments* s_warp) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  m = warp_chan(m);
+  if (l == 0) s_warp[w] = m;
+  __syncthreads();
+  if (w == 0)
+    m = warp_chan(l < kWarps ? s_warp[l] : Moments{0.f, 0.f, 0.f});
+  __syncthreads();
+  return m;
+}
+
+// One block per (piece p of P, row b, group g). The group's valid elements
+// are runs of contiguous elements: channels-first the Cg channels' first
+// len frames, channels-last the first len frames' Cg channels. Their V-element vectors, numbered run by run, are cut into P
+// equal ranges; a block streams its range, kSplitUnroll 16-byte loads in
+// flight a thread and no shared-memory tile. Each thread folds every
+// batch of loads (two passes in registers) into its running triple, the
+// block merges the threads' triples in thread order and writes one
+// triple to blk; the last of the group's P blocks to finish (a
+// __threadfence, then a ticket from the group's counter) merges the P
+// triples in block order (thread t loads blocks [t*P/kThreads,
+// (t+1)*P/kThreads), at most kSplitMergePer, together, then block_chan),
+// writes part[b, g] and sets the counter back to 0 for the next launch on
+// its stream.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, kSplitBlocksPerSm)
+gn_split_stats_kernel(const T* __restrict__ x, View xv,
+                      const int* __restrict__ lengths, int T_, int C, int G,
+                      int P, float* __restrict__ blk,
+                      unsigned* __restrict__ tickets,
+                      float* __restrict__ part) {
+  __shared__ Moments s_warp[kWarps];
+  __shared__ bool s_last;
+  const int bg = blockIdx.x / P, p = blockIdx.x - bg * P;
+  const int b = bg / G, g = bg - b * G;
+  const int Cg = C / G;
+  const int len = valid_len(lengths, b, T_);
+  const bool cf = xv.cf;
+  const int cols = cf ? len : Cg;
+  const int vpr = (cols + V - 1) / V;
+  const int n_vec = (cf ? Cg : len) * vpr;
+  const int lo = (int)((long long)n_vec * p / P);
+  const int hi = (int)((long long)n_vec * (p + 1) / P);
+  const T* base = x + b * xv.sb + (long long)g * Cg * xv.sc;
+  const long long run = cf ? xv.sc : xv.st;
+  Moments acc = {0.f, 0.f, 0.f};
+  for (int i0 = lo + threadIdx.x; i0 < hi; i0 += kSplitUnroll * kThreads) {
+    Pack<T, V> v[kSplitUnroll];
+    int cnt[kSplitUnroll];
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) {
+      const int i = i0 + u * kThreads;
+      cnt[u] = 0;
+      if (i < hi) {
+        const int r = i / vpr, cv = i - r * vpr;
+        v[u] = ld<T, V>(base + r * run + cv * V);
+        cnt[u] = min(V, cols - cv * V);
+      }
+    }
+    float s = 0.f;
+    int n = 0;
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (j < cnt[u]) s += to_f<T>(v[u].v[j]);
+      n += cnt[u];
+    }
+    const float m = s / (float)n;
+    float q = 0.f;
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u)
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (j < cnt[u]) {
+          const float d = to_f<T>(v[u].v[j]) - m;
+          q += d * d;
+        }
+    acc = chan(acc, Moments{(float)n, m, q});
+  }
+  acc = block_chan(acc, s_warp);
+  if (threadIdx.x == 0) {
+    float* o = blk + ((long long)bg * P + p) * 3;
+    o[0] = acc.n;
+    o[1] = acc.mean;
+    o[2] = acc.m2;
+    __threadfence();
+    s_last = atomicAdd(tickets + bg, 1u) == (unsigned)(P - 1);
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* q = blk + (long long)bg * P * 3;
+  const int k0 = threadIdx.x * P / kThreads;
+  const int nk = (threadIdx.x + 1) * P / kThreads - k0;
+  Moments got[kSplitMergePer];
+#pragma unroll
+  for (int j = 0; j < kSplitMergePer; ++j) {
+    got[j] = Moments{0.f, 0.f, 0.f};
+    if (j < nk) {
+      const float* t = q + 3 * (k0 + j);
+      got[j] = Moments{__ldcg(t), __ldcg(t + 1), __ldcg(t + 2)};
+    }
+  }
+  Moments m = got[0];
+#pragma unroll
+  for (int j = 1; j < kSplitMergePer; ++j) m = chan(m, got[j]);
+  m = block_chan(m, s_warp);
+  if (threadIdx.x == 0) {
+    part[3 * bg] = m.n;
+    part[3 * bg + 1] = m.mean;
+    part[3 * bg + 2] = m.m2;
+    tickets[bg] = 0u;
+  }
+}
+
+// One block per (piece p of P, row b): merges the row's R gathered
+// triples per group in rank order (merge_stats), then streams its range
+// of the row's output vectors (channels-first: V frames of one output
+// channel, channels-last: V channels of one frame), kSplitUnroll of them
+// a thread (half as many with the GLU) with their loads (x at channel c
+// and, with the GLU, c + C/2) in flight together, and writes each with
+// one 16-byte store: the affine, the mask and the GLU of write_fwd,
+// element for element. Frames at or past lengths[b] are written as 0
+// without a load.
+template <typename T, int V, bool GLU>
+__global__ void __launch_bounds__(kThreads, kSplitBlocksPerSm)
+gn_split_apply_kernel(const T* __restrict__ x, View xv,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias,
+                      const int* __restrict__ lengths,
+                      const float* __restrict__ part, int R,
+                      T* __restrict__ out, View ov, int T_, int C, int G,
+                      int P, float eps) {
+  __shared__ float s_mean[kMaxGroups], s_rstd[kMaxGroups];
+  const int b = blockIdx.x / P, p = blockIdx.x - b * P;
+  merge_stats(part, b, G, R, eps, s_mean, s_rstd);
+  const int len = valid_len(lengths, b, T_);
+  const int Cg = C / G, Cout = GLU ? C / 2 : C;
+  const bool cf = xv.cf;
+  const int vpr = cf ? (T_ + V - 1) / V : Cout / V;
+  const int n_vec = (cf ? Cout : T_) * vpr;
+  const int lo = (int)((long long)n_vec * p / P);
+  const int hi = (int)((long long)n_vec * (p + 1) / P);
+  const T* xb = x + b * xv.sb;
+  T* ob = out + b * ov.sb;
+  // kSplitUnroll loads in flight a thread: half as many items with the GLU
+  constexpr int U = GLU ? (kSplitUnroll + 1) / 2 : kSplitUnroll;
+  for (int i0 = lo + threadIdx.x; i0 < hi; i0 += U * kThreads) {
+    Pack<T, V> pa[U], pb[U];
+    int cs[U], ts[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads;
+      cs[u] = 0;
+      ts[u] = T_;   // nothing to write
+      if (i < hi) {
+        const int r = i / vpr, cv = i - r * vpr;
+        cs[u] = cf ? r : cv * V;
+        ts[u] = cf ? cv * V : r;
+        if (ts[u] < len) {
+          const T* at = xb + ts[u] * xv.st + cs[u] * xv.sc;
+          pa[u] = ld<T, V>(at);
+          if (GLU) pb[u] = ld<T, V>(at + Cout * xv.sc);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = cs[u], t = ts[u];
+      if (t >= T_) continue;
+      Pack<T, V> r;
+      if (t >= len) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) r.v[j] = from_f<T>(0.f);
+      } else {
+        Params<V> qa, qb;
+        qa.load(scale, bias, c, cf);
+        if (GLU) qb.load(scale, bias, c + Cout, cf);
+        const int ga = group_of(c, Cg, G), gb = group_of(c + Cout, Cg, G);
+        const float ma = s_mean[ga], ra = s_rstd[ga];
+        const float mb = GLU ? s_mean[gb] : 0.f, rb = GLU ? s_rstd[gb] : 0.f;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float h, y = 0.f;
+          if (!cf || t + j < len) {
+            y = rnd<T>(affine(to_f<T>(pa[u].v[j]), ma, ra, qa.s.v[j],
+                              qa.b.v[j], &h));
+            if (GLU) {
+              const float yb = rnd<T>(affine(to_f<T>(pb[u].v[j]), mb, rb,
+                                             qb.s.v[j], qb.b.v[j], &h));
+              y = rnd<T>(gate_tanh<T>(y)) * rnd<T>(gate_sigmoid<T>(yb));
+            }
+          }
+          r.v[j] = from_f<T>(y);
+        }
+      }
+      st<T, V>(ob + t * ov.st + c * ov.sc, r);
+    }
+  }
 }
 
 // Per-chunk channel partials (scratch rows b*n_chunks + chunk) and the
@@ -1302,56 +1552,40 @@ cudaError_t backward(const void* x, View xv, const float* scale,
                               dscale, dbias, scratch, B, T_, C, G, eps, s);
 }
 
-// Split statistics (a row whose frames lie on several ranks): chunks of
-// the streaming path's size; gn_stream_stats then gn_stats_merge write
-// this rank's (B, G, 3) partials.
+// Blocks per (row, group) of gn_split_stats (per row of gn_split_apply,
+// n_rows = B): kSplitBlocksPerSm blocks per SM over the n_rows rows, but
+// no fewer than one full round of 16-byte loads (kThreads * kSplitUnroll
+// of them) a block over `elems` elements of a row.
+int split_blocks(int n_rows, long long elems, int item, int dev) {
+  const long long want = ((long long)kSplitBlocksPerSm * num_sms(dev)
+                          + n_rows - 1) / n_rows;
+  const long long most = elems * item / (16LL * kThreads * kSplitUnroll);
+  return (int)std::max(1LL, std::min({want, most,
+                                      (long long)kSplitMergePer * kThreads}));
+}
+
+// Split statistics (a row whose frames lie on several ranks): one launch
+// of gn_split_stats_kernel writes this rank's (B, G, 3) partials.
 template <typename T>
 cudaError_t split_stats(const void* x, View xv, const int* lengths,
-                        float* part, float* scratch, int B, int T_, int C,
-                        int G, int dev, cudaStream_t s) {
+                        float* part, float* blk, unsigned* tickets, int B,
+                        int T_, int C, int G, int dev, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  const int frames = stream_frames((long long)C * sizeof(T), 0);
-  if (frames < 0) return cudaErrorInvalidValue;
-  const int chunks = (T_ + frames - 1) / frames;
+  const int P = split_blocks(B * G, (long long)C / G * T_, sizeof(T), dev);
   const bool vec = vec_ok(x, xv, T_, C, V) && (xv.cf || (C / G) % V == 0);
   const T* xt = static_cast<const T*>(x);
-  const size_t tile = (size_t)frames * C * sizeof(T);
-  const dim3 grid(chunks, B);
-  cudaError_t e;
-  if (vec) {
-    if ((e = prepare((const void*)gn_stream_stats<T, V>, dev)) != cudaSuccess)
-      return e;
-    gn_stream_stats<T, V><<<grid, kThreads, tile, s>>>(xt, xv, lengths, T_, C,
-                                                        G, frames, scratch);
-  } else {
-    if ((e = prepare((const void*)gn_stream_stats<T, 1>, dev)) != cudaSuccess)
-      return e;
-    gn_stream_stats<T, 1><<<grid, kThreads, tile, s>>>(xt, xv, lengths, T_, C,
-                                                        G, frames, scratch);
-  }
-  gn_stats_merge<<<(B * G + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      scratch, B, G, chunks, part);
+  const dim3 grid(B * G * P);
+  if (vec)
+    gn_split_stats_kernel<T, V><<<grid, kThreads, 0, s>>>(
+        xt, xv, lengths, T_, C, G, P, blk, tickets, part);
+  else
+    gn_split_stats_kernel<T, 1><<<grid, kThreads, 0, s>>>(
+        xt, xv, lengths, T_, C, G, P, blk, tickets, part);
   return cudaSuccess;
 }
 
-// Apply with the gathered (B, G, R, 3) partials of R ranks: each block
-// merges a row's R triples in rank order (merge_stats), then writes its
-// chunk as the streaming forward does.
-template <typename T, int V, bool GLU>
-cudaError_t run_split_apply(const T* x, View xv, const float* scale,
-                            const float* bias, const int* lengths,
-                            const float* part, int R, T* out, View ov, int B,
-                            int T_, int C, int G, float eps, int frames,
-                            int dev, cudaStream_t s) {
-  cudaError_t e = prepare((const void*)gn_fwd_stream_apply<T, V, GLU>, dev);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T_ + frames - 1) / frames, B);
-  gn_fwd_stream_apply<T, V, GLU><<<grid, kThreads,
-                                   (size_t)frames * C * sizeof(T), s>>>(
-      x, xv, scale, bias, lengths, part, R, out, ov, T_, C, G, frames, eps);
-  return cudaSuccess;
-}
-
+// Apply with the gathered (B, G, R, 3) partials of R ranks: one launch of
+// gn_split_apply_kernel.
 template <typename T>
 cudaError_t split_apply(const void* x, View xv, const float* scale,
                         const float* bias, const int* lengths,
@@ -1359,28 +1593,27 @@ cudaError_t split_apply(const void* x, View xv, const float* scale,
                         int T_, int C, int G, int glu, float eps, int dev,
                         cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  const int frames = stream_frames((long long)C * sizeof(T), 0);
-  if (frames < 0) return cudaErrorInvalidValue;
   const int Cout = glu ? C / 2 : C;
   const bool vec = vec_ok(x, xv, T_, C, V) && vec_ok(out, ov, T_, Cout, V)
+      && xv.cf == ov.cf
       && (xv.cf || ((C / G) % V == 0 && Cout % V == 0));
+  const int P = split_blocks(B, (long long)C * T_, sizeof(T), dev);
+  const dim3 grid(B * P);
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   if (vec && glu)
-    return run_split_apply<T, V, true>(xt, xv, scale, bias, lengths, part, R,
-                                       ot, ov, B, T_, C, G, eps, frames, dev,
-                                       s);
-  if (vec)
-    return run_split_apply<T, V, false>(xt, xv, scale, bias, lengths, part,
-                                        R, ot, ov, B, T_, C, G, eps, frames,
-                                        dev, s);
-  if (glu)
-    return run_split_apply<T, 1, true>(xt, xv, scale, bias, lengths, part, R,
-                                       ot, ov, B, T_, C, G, eps, frames, dev,
-                                       s);
-  return run_split_apply<T, 1, false>(xt, xv, scale, bias, lengths, part, R,
-                                      ot, ov, B, T_, C, G, eps, frames, dev,
-                                      s);
+    gn_split_apply_kernel<T, V, true><<<grid, kThreads, 0, s>>>(
+        xt, xv, scale, bias, lengths, part, R, ot, ov, T_, C, G, P, eps);
+  else if (vec)
+    gn_split_apply_kernel<T, V, false><<<grid, kThreads, 0, s>>>(
+        xt, xv, scale, bias, lengths, part, R, ot, ov, T_, C, G, P, eps);
+  else if (glu)
+    gn_split_apply_kernel<T, 1, true><<<grid, kThreads, 0, s>>>(
+        xt, xv, scale, bias, lengths, part, R, ot, ov, T_, C, G, P, eps);
+  else
+    gn_split_apply_kernel<T, 1, false><<<grid, kThreads, 0, s>>>(
+        xt, xv, scale, bias, lengths, part, R, ot, ov, T_, C, G, P, eps);
+  return cudaSuccess;
 }
 
 View view_of(const long long* strides) {
@@ -1462,29 +1695,35 @@ int gn_backward(const void* x, const long long* x_strides, const float* scale,
 
 // Split statistics, the entry points of a GroupNorm whose rows are spread
 // over ranks (sequence-parallel inference). gn_split_scratch_floats: the
-// fp32 scratch of gn_split_stats (-1: a row too wide). gn_split_stats:
-// this rank's per-(row, group) (count, mean, centred M2) over its valid
-// frames into part (B, G, 3) fp32. gn_split_apply: normalize x with the
-// gathered partials (B, G, R, 3) of R ranks, merged in rank order, then
-// the affine, the mask and the GLU as gn_forward.
-long long gn_split_scratch_floats(int B, int T_, int C, int G, int is_bf16) {
-  const int frames = stream_frames((long long)C * (is_bf16 ? 2 : 4), 0);
-  if (frames < 0) return -1;
-  return 3LL * B * G * ((T_ + frames - 1) / frames);
+// fp32 scratch of gn_split_stats, 3 floats a block (-1: a row too long
+// for 32-bit element indices). gn_split_stats: this rank's per-(row,
+// group) (count, mean, centred M2) over its valid frames into part
+// (B, G, 3) fp32; tickets: B*G unsigned counters, zero before the launch
+// and zero again after it, used by no other stream meanwhile.
+// gn_split_apply: normalize x with the gathered partials (B, G, R, 3) of
+// R ranks, merged in rank order, then the affine, the mask and the GLU as
+// gn_forward.
+long long gn_split_scratch_floats(int B, int T_, int C, int G, int is_bf16,
+                                  int device) {
+  if ((long long)C * T_ >= (1LL << 31)) return -1;
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  const int P = split_blocks(B * G, (long long)C / G * T_, is_bf16 ? 2 : 4,
+                             device);
+  return 3LL * B * G * P;
 }
 
 int gn_split_stats(const void* x, const long long* x_strides,
-                   const int* lengths, float* part, float* scratch, int B,
-                   int T_, int C, int G, int is_bf16, int device,
-                   void* stream) {
+                   const int* lengths, float* part, float* scratch,
+                   unsigned* tickets, int B, int T_, int C, int G,
+                   int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const View xv = view_of(x_strides);
-  err = is_bf16 ? split_stats<__nv_bfloat16>(x, xv, lengths, part, scratch, B,
-                                             T_, C, G, device, s)
-                : split_stats<float>(x, xv, lengths, part, scratch, B, T_, C,
-                                     G, device, s);
+  err = is_bf16 ? split_stats<__nv_bfloat16>(x, xv, lengths, part, scratch,
+                                             tickets, B, T_, C, G, device, s)
+                : split_stats<float>(x, xv, lengths, part, scratch, tickets,
+                                     B, T_, C, G, device, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1495,6 +1734,7 @@ int gn_split_apply(const void* x, const long long* x_strides,
                    const long long* out_strides, int B, int T_, int C, int G,
                    int glu, int is_bf16, float eps, int device,
                    void* stream) {
+  if ((long long)C * T_ >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

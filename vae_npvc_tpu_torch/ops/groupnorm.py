@@ -29,10 +29,13 @@ on several ranks): :func:`group_norm_split_stats` gives this rank's
 per-(row, group) count, mean and centred sum of squares, and
 :func:`group_norm_split_apply` normalizes with every rank's of them merged
 in rank order by Chan's formula, never as E[x^2] - mean^2. On a CUDA
-tensor the two run the streaming entry points of ``csrc/groupnorm.cu``
-(``gn_split_stats``, ``gn_split_apply``) or raise;
+tensor each launches its one kernel of ``csrc/groupnorm.cu``
+(``gn_split_stats``, ``gn_split_apply``) or raises;
 ``group_norm_split_stats.launches`` and ``group_norm_split_apply.launches``
-count them. Gathering the partials over the ranks is the parallel layer's
+count them. The statistics kernel picks the block that merges a (row,
+group) by an atomic ticket; its counters live in one zeroed int32 buffer
+per (device, stream) (:func:`_tickets`), which every launch leaves at 0.
+Gathering the partials over the ranks is the parallel layer's
 (``parallel/halo.psum_group_norm``). Forward only: the split path serves
 inference.
 
@@ -152,9 +155,10 @@ def _lib():
         lib.gn_plan.argtypes = [I, I, I, I, I, I, I]
         lib.gn_plan.restype = I
         lib.gn_max_groups.restype = I
-        lib.gn_split_scratch_floats.argtypes = [I, I, I, I, I]
+        lib.gn_split_scratch_floats.argtypes = [I, I, I, I, I, I]
         lib.gn_split_scratch_floats.restype = ctypes.c_longlong
-        lib.gn_split_stats.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+        lib.gn_split_stats.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
+                                       P]
         lib.gn_split_stats.restype = I
         lib.gn_split_apply.argtypes = [P, P, P, P, P, P, I, P, P, I, I, I,
                                        I, I, I, F, I, P]
@@ -425,30 +429,52 @@ def _split_checked(x, G, what):
     return x.detach()
 
 
+# the split statistics' ticket counters by (device index, stream): zeroed
+# once, left at 0 by every launch; a buffer is never shared by two streams
+_ticket_bufs: dict = {}
+_TICKETS_MIN = 4096
+
+
+def _tickets(device, stream, n):
+    """At least ``n`` zeroed int32 counters for launches on ``stream`` of
+    ``device``: allocated (and zeroed, one fill kernel) on first use and
+    when a launch needs more, reused by every later launch there."""
+    key = (device.index or 0, stream)
+    buf = _ticket_bufs.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, _TICKETS_MIN),), dtype=torch.int32,
+                          device=device)
+        _ticket_bufs[key] = buf
+    return buf
+
+
 def group_norm_split_stats(x, num_groups, lengths=None):
     """This rank's (B, G, 3) partial statistics of ``x`` (fp32 or bf16,
     T or C the unit stride). CPU tensors take the plain version, CUDA
-    tensors the ``gn_split_stats`` kernels."""
+    tensors the ``gn_split_stats`` kernel."""
     if not x.is_cuda:
         return group_norm_split_stats_plain(x, num_groups, lengths)
     B, T, C = x.shape
     G = int(num_groups)
     what = "group_norm_split_stats"
-    dummy = torch.ones((C,), dtype=torch.float32, device=x.device)
+    # no parameters: _checked validates empty stand-ins (no launch)
+    dummy = torch.empty((C,), dtype=torch.float32, device=x.device)
     lib, _, _, lengths = _checked(x, dummy, dummy, G, lengths, False, what)
     x = _split_checked(x, G, what)
     n = lib.gn_split_scratch_floats(B, T, C, G,
-                                    int(x.dtype == torch.bfloat16))
+                                    int(x.dtype == torch.bfloat16),
+                                    x.device.index or 0)
     if n < 0:
-        raise ValueError(f"{what}: a row of {C} channels is too wide")
+        raise ValueError(f"{what}: a row of {T} x {C} elements is too long")
+    stream = _build.stream_of(x)
     scratch = torch.empty((n,), dtype=torch.float32, device=x.device)
+    tickets = _tickets(x.device, stream, B * G)
     part = torch.empty((B, G, 3), dtype=torch.float32, device=x.device)
     code = lib.gn_split_stats(
         x.data_ptr(), _strides(x, what),
         lengths.data_ptr() if lengths is not None else None,
-        part.data_ptr(), scratch.data_ptr(), B, T, C, G,
-        int(x.dtype == torch.bfloat16), x.device.index or 0,
-        _build.stream_of(x))
+        part.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), B, T, C, G,
+        int(x.dtype == torch.bfloat16), x.device.index or 0, stream)
     _build.check(code, lib, "gn_error_string", what)
     group_norm_split_stats.launches += 1
     return part

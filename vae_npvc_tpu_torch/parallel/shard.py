@@ -53,17 +53,29 @@ def enable_explicit_dp(config):
     return out
 
 
-def shard_rows(batch, mesh, axis=AXIS):
-    """``(local batch, sharded)``: this rank's contiguous rows of the
-    global ``batch`` when the axis size divides its rows, else the whole
-    batch on every rank (``sharded`` False: the JAX trainer replicates such
-    a batch)."""
+def shard_rows(batch, mesh, axis=AXIS, micro=1):
+    """``(local batch, sharded)``: this rank's rows of the global
+    ``batch`` cut into ``micro`` equal microbatches, each split over the
+    axis (the JAX trainer's accumulation step reshapes the global batch to
+    (micro, B / micro) and shards each microbatch). The local batch holds
+    this rank's part of microbatch 0, then of microbatch 1, ...: with n
+    ranks, rank r's part of microbatch i is the global rows
+    [i*B/micro + r*B/(micro*n), i*B/micro + (r+1)*B/(micro*n)); with
+    ``micro`` 1 its contiguous B/n rows. When the axis size does not
+    divide a microbatch (or ``micro`` the batch), the whole batch runs on
+    every rank (``sharded`` False: the JAX trainer replicates such a
+    batch, and its math is the global microbatch's either way)."""
     ax = mesh.axis(axis)
     B = batch[0].shape[0]
-    if B % ax.size:
+    if B % micro or (B // micro) % ax.size:
         return batch, False
-    per = B // ax.size
-    return tuple(a[ax.index * per:(ax.index + 1) * per] for a in batch), True
+    per = B // micro // ax.size
+    rows = slice(ax.index * per, (ax.index + 1) * per)
+    if micro == 1:
+        return tuple(a[rows] for a in batch), True
+    return tuple(a.reshape((micro, B // micro) + tuple(a.shape[1:]))[:, rows]
+                 .reshape((micro * per,) + tuple(a.shape[1:]))
+                 for a in batch), True
 
 
 def bind_data(mesh, split=True, axis=AXIS):

@@ -34,10 +34,11 @@ They are not the JAX package's draws.
 
 With a ``mesh`` (``parallel/mesh.py``, one process per rank) the step is
 data-parallel (``parallel/shard.py``): each rank of the ``data`` axis takes
-its rows of the global batch, the flat gradient and the detail are
-averaged over the axis, every EMA codebook (the flat one and each level of
-a hierarchy) sums its statistics and pools its candidates over it, and the
-models keep the global batch's masked means, root mean squares and
+its rows of the global batch (with ``grad_accum``, its part of each
+global microbatch, as JAX shards each microbatch), the flat gradient and
+the detail are averaged over the axis, every EMA codebook (the flat one
+and each level of a hierarchy) sums its statistics and pools its
+candidates over it, and the models keep the global batch's masked means, root mean squares and
 per-row draws. The device-resident corpus draws the global batch's windows
 alike on every rank and gathers the rank's rows only. A ``model`` axis
 above 1 splits parameters and Adam moments by the shape-generic rule
@@ -227,18 +228,23 @@ class Trainer:
         return flat_g, pending, {k: v.detach() for k, v in detail.items()}
 
     # ----------------------------------------------------------- mesh
-    def shard_batch(self, batch):
+    def shard_batch(self, batch, micro=1):
         """``(local batch, sharded)``: this rank's rows of the global
-        batch, or without a mesh the batch itself. A batch the data axis
-        does not divide runs whole on every rank (``sharded`` False), as the
-        JAX trainer replicates it."""
+        batch cut into ``micro`` microbatches (``parallel/shard.shard_rows``:
+        each microbatch split over the data axis, the rank's parts in
+        microbatch order), or without a mesh the batch itself. A batch
+        whose microbatch the data axis does not divide runs whole on every
+        rank (``sharded`` False), as the JAX trainer replicates it."""
         if self.mesh is None:
             return batch, False
-        local, sharded = shard_rows(batch, self.mesh)
+        local, sharded = shard_rows(batch, self.mesh, micro=micro)
         if not sharded and not self._warned_shard:
+            B = batch[0].shape[0]
+            rows = (f"batch size {B}" if micro == 1 else
+                    f"batch size {B} in {micro} microbatches")
             logging.getLogger("vae_npvc_tpu_torch.train").warning(
-                f"batch size {batch[0].shape[0]} not divisible by data-axis "
-                f"size {self.mesh.shape['data']}; replicating this batch")
+                f"{rows} not divisible by data-axis size "
+                f"{self.mesh.shape['data']}; replicating this batch")
             self._warned_shard = True
         return local, sharded
 
@@ -269,7 +275,10 @@ class Trainer:
     def _train_step_accum(self, batch, sharded):
         """One optimizer step from the mean of ``grad_accum`` microbatch
         gradients; the EMA codebook statistics chain through the
-        microbatches in order, the detail is their mean."""
+        microbatches in order, the detail is their mean. ``batch`` holds
+        this rank's part of each global microbatch in order
+        (:meth:`shard_batch` by ``grad_accum``, the one split of every
+        training entry point), so slice i is its part of microbatch i."""
         k = self.grad_accum
         B = batch[0].shape[0]
         if B % k != 0:
@@ -339,7 +348,8 @@ class Trainer:
         the token->mel synthesizer. Returns the loss detail as device
         scalars."""
         self._require_state()
-        return self._step(*self.shard_batch(self._to_device(batch)))
+        return self._step(*self.shard_batch(self._to_device(batch),
+                                            self.grad_accum))
 
     def _step(self, batch, sharded):
         """One optimizer step on this rank's rows of a global batch."""
@@ -382,7 +392,8 @@ class Trainer:
     def _window_step(self, idx, starts):
         """One step on the global batch's windows ``(idx[B], starts[B])``
         (every rank holds the same): each rank gathers its own rows."""
-        (idx, starts), sharded = self.shard_batch((idx, starts))
+        (idx, starts), sharded = self.shard_batch((idx, starts),
+                                                  self.grad_accum)
         return self._step(self._gather(idx, starts), sharded)
 
     def _sample_iid(self, step):
