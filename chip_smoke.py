@@ -1328,14 +1328,18 @@ def phase_serve(torch, root):
         snap = engine.stats_snapshot()
         check(launches["vq_fused"] > 0 and launches["fused_group_norm"] > 0,
               f"the serving path did not launch every kernel: {launches}")
-        # ten requests give a median and a maximum, not a tail percentile
+        # ten requests give a median and a maximum, not a tail percentile;
+        # the engine's histogram gives the median within one bucket (12 %)
+        # of the exact one, the maximum exactly
         emit({"phase": "serve", "requests": len(results),
               "seconds_per_request_min_max": [float(durations[0]),
                                               float(durations[-1])],
               "warmup_s": warm_s, "wall_s": wall_s,
               "requests_per_s": len(results) / wall_s,
               "latency_ms_p50": snap["latency_ms_p50"],
-              "latency_ms_max": float(np.max(engine.latency_ms)),
+              "latency_ms_max": snap["latency_ms_max"],
+              "latency_from": "engine histogram since warm-up, p50 within "
+                              "one 12 % bucket",
               "mean_batch": items / max(calls, 1), "infer_calls": calls,
               "launches": launches})
         phase_profile(torch, engine, wavs[-1])

@@ -363,6 +363,36 @@ def test_wrappers_count_launches(dev):
     assert vq_fused.launches == v0 + 1
 
 
+def test_wrappers_record_spans_when_on(dev):
+    from vae_npvc_tpu_torch.utils import spans
+
+    x = torch.randn((2, 16, 8), device=dev, requires_grad=True)
+    s = torch.ones(8, device=dev)
+    rng = np.random.default_rng(7)
+    z = torch.tensor(rng.normal(size=(1000, 128)), dtype=torch.float32,
+                     device=dev)
+    emb = torch.tensor(rng.normal(size=(512, 128)), dtype=torch.float32,
+                       device=dev)
+    spans.drain()
+    spans.enable(True, device=True)
+    try:
+        with spans.span("step"):
+            fused_group_norm(x, s, s * 0, 1).sum().backward()
+            vq_fused(z, emb, stats=True)
+        torch.cuda.synchronize()
+        got = spans.drain()
+    finally:
+        spans.enable(False)
+    by = {sp.name: sp for sp in got["spans"]}
+    assert set(by) == {"step", "op.gn_fwd", "op.gn_bwd", "op.vq"}
+    # K3 runs on autograd's device thread, under the enabling thread's span
+    assert all(by[n].parent == by["step"].id for n in by if n != "step")
+    ((name, ms, rescored),) = got["device"]
+    assert name == "dev.vq" and ms > 0
+    assert rescored == int(vq_fused.rescored.sum())
+    assert got["drops"] == 0
+
+
 # ------------------------------------------- K2's split statistics
 def _split_row(x, lengths, R):
     """The (B, T, C) row cut into R pieces along T, each with its local

@@ -8,8 +8,10 @@ Endpoints
 ---------
 ``GET  /health``                     liveness + checkpoint iteration
 ``GET  /speakers``                   target-name -> id map
-``GET  /stats``                      request/batching/latency counters
-``GET  /metrics``                    the same, Prometheus text format
+``GET  /stats``                      request/batching counters, p50/p99 of
+                                     request latency and of queue wait
+``GET  /metrics``                    the same, Prometheus text format, with
+                                     both latencies as histograms
 ``POST /convert?target=NAME``        body = WAV file -> converted WAV
 ``POST /convert?target=NAME&mel=1``  -> float32 mel matrix (``.npy`` bytes)
 ``POST /stream?target=NAME&sr=RATE`` body = raw mono PCM (``format=i16``
@@ -158,12 +160,17 @@ def make_handler(engine):
                                    ("infer_items", "counter"),
                                    ("mean_batch", "gauge"),
                                    ("latency_ms_p50", "gauge"),
-                                   ("latency_ms_p99", "gauge")):
+                                   ("latency_ms_p99", "gauge"),
+                                   ("queue_wait_ms_p50", "gauge"),
+                                   ("queue_wait_ms_p99", "gauge")):
                     v = s.get(key)
                     if v is None:
                         continue
                     lines.append(f"# TYPE vae_npvc_{key} {mtype}")
                     lines.append(f"vae_npvc_{key} {_prom_num(v)}")
+                lines += engine.latency.prometheus("vae_npvc_latency_ms")
+                lines += engine.batcher.queue_wait.prometheus(
+                    "vae_npvc_queue_wait_ms")
                 self._send(200, ("\n".join(lines) + "\n").encode(),
                            "text/plain; version=0.0.4")
             else:

@@ -13,7 +13,9 @@ The host loader's batches reach the device through
 sampling gathers the host loader's windows there, ``iid`` draws them there
 (``Trainer.train_steps_device``). ``--profile_dir`` traces one log
 interval with ``torch.profiler`` once two steps are done and writes a
-Chrome trace into the directory.
+Chrome trace into the directory, with the port's spans of that interval
+(``utils/spans.py``: the trainer's phases, the kernels' wrappers) on the
+same clock.
 
 Under torchrun (``WORLD_SIZE`` in the environment, even 1) every process
 joins the default group (NCCL on the GPU, gloo with ``--device cpu``,
@@ -98,28 +100,41 @@ def flat_mean_log(train_log):
 
 def start_profiler(device):
     """A running ``torch.profiler`` of the host and, on a CUDA device, of
-    the device's kernels."""
+    the device's kernels; the span recorder on beside it."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ..utils import spans
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
+    spans.drain()
     prof.start()
+    spans.enable(True)
     return prof
 
 
 def stop_profiler(prof, device, profile_dir, iteration):
-    """Wait for the device, stop ``prof`` and write its Chrome trace into
-    ``profile_dir``; returns the trace's path."""
+    """Wait for the device, stop ``prof`` and the span recorder and write
+    the Chrome trace, with the spans as ``ph: "X"`` events on the
+    profiler's clock, into ``profile_dir``; returns the trace's path."""
     import torch
+
+    from ..utils import spans
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    spans.enable(False)
     prof.stop()
     path = Path(profile_dir) / f"trace_iter{iteration}.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    trace["traceEvents"] += spans.chrome_events(
+        spans.drain()["spans"], trace.get("baseTimeNanoseconds", 0),
+        os.getpid())
+    path.write_text(json.dumps(trace))
     return path
 
 

@@ -31,7 +31,9 @@ caller masks.
   The wrapper saves q, k, v, ``o`` and the fp32 log-sum-exp (B*H, T); the
   backward recomputes ``p`` and never stores a (T, T) array.
   ``fused_attention.launches`` counts forward launches,
-  ``fused_attention_backward.launches`` backward launches.
+  ``fused_attention_backward.launches`` backward launches. With the span
+  recorder on (``utils/spans.py``) each CUDA call is an ``op.attn_fwd``
+  or ``op.attn_bwd`` span.
 
 The kernels read their tensors by stride (last dimension contiguous,
 16-byte aligned, strides multiples of 8 elements), so the (B, H, T, d) views
@@ -47,6 +49,7 @@ import math
 
 import torch
 
+from ..utils import spans
 from . import _build
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -164,20 +167,22 @@ def _forward(q, k, v, lengths, scale):
     """``(o, lse)`` without autograd: plain on the CPU, the kernel on CUDA."""
     if not q.is_cuda:
         return attention_plain(q, k, v, lengths, scale)
-    lib, lengths = _checked(q, k, v, lengths, "fused_attention")
-    B, H, T, d = q.shape
-    q, k, v = (_strided(t.detach()) for t in (q, k, v))
-    o = torch.empty_like(q)
-    lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    code = lib.attn_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), lengths.data_ptr() if lengths is not None else None,
-        _strides(q, k, v, o), B, H, T, d, float(scale),
-        int(q.dtype == torch.bfloat16), q.device.index or 0,
-        _build.stream_of(q))
-    _build.check(code, lib, "attn_error_string", "fused_attention")
-    fused_attention.launches += 1
-    return o, lse
+    with spans.span("op.attn_fwd"):
+        lib, lengths = _checked(q, k, v, lengths, "fused_attention")
+        B, H, T, d = q.shape
+        q, k, v = (_strided(t.detach()) for t in (q, k, v))
+        o = torch.empty_like(q)
+        lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+        code = lib.attn_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(),
+            lengths.data_ptr() if lengths is not None else None,
+            _strides(q, k, v, o), B, H, T, d, float(scale),
+            int(q.dtype == torch.bfloat16), q.device.index or 0,
+            _build.stream_of(q))
+        _build.check(code, lib, "attn_error_string", "fused_attention")
+        fused_attention.launches += 1
+        return o, lse
 
 
 def fused_attention_backward(q, k, v, o, lse, do, lengths=None, *,
@@ -190,30 +195,32 @@ def fused_attention_backward(q, k, v, o, lse, do, lengths=None, *,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
         return attention_backward_plain(q, k, v, o, lse, do, lengths, scale)
-    lib, lengths = _checked(q, k, v, lengths, "fused_attention_backward")
-    B, H, T, d = q.shape
-    if o.shape != q.shape or do.shape != q.shape or not do.is_cuda \
-            or lse.shape != (B * H, T):
-        raise ValueError(
-            f"o {tuple(o.shape)}, cotangent {tuple(do.shape)} on "
-            f"{do.device} or lse {tuple(lse.shape)} do not match q "
-            f"{tuple(q.shape)}")
-    q, k, v, o, do = (_strided(t.detach().to(q.dtype))
-                      for t in (q, k, v, o, do))
-    lse = lse.detach().float().contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
-    code = lib.attn_backward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(),
-        lengths.data_ptr() if lengths is not None else None,
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        _strides(q, k, v, o, do, dq, dk, dv), B, H, T, d, float(scale),
-        int(q.dtype == torch.bfloat16), q.device.index or 0,
-        _build.stream_of(q))
-    _build.check(code, lib, "attn_error_string", "fused_attention_backward")
-    fused_attention_backward.launches += 1
-    return dq, dk, dv
+    with spans.span("op.attn_bwd"):
+        lib, lengths = _checked(q, k, v, lengths, "fused_attention_backward")
+        B, H, T, d = q.shape
+        if o.shape != q.shape or do.shape != q.shape or not do.is_cuda \
+                or lse.shape != (B * H, T):
+            raise ValueError(
+                f"o {tuple(o.shape)}, cotangent {tuple(do.shape)} on "
+                f"{do.device} or lse {tuple(lse.shape)} do not match q "
+                f"{tuple(q.shape)}")
+        q, k, v, o, do = (_strided(t.detach().to(q.dtype))
+                          for t in (q, k, v, o, do))
+        lse = lse.detach().float().contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty_like(lse)
+        code = lib.attn_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(),
+            lengths.data_ptr() if lengths is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            _strides(q, k, v, o, do, dq, dk, dv), B, H, T, d, float(scale),
+            int(q.dtype == torch.bfloat16), q.device.index or 0,
+            _build.stream_of(q))
+        _build.check(code, lib, "attn_error_string",
+                     "fused_attention_backward")
+        fused_attention_backward.launches += 1
+        return dq, dk, dv
 
 
 fused_attention_backward.launches = 0

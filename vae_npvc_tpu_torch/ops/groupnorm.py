@@ -22,7 +22,10 @@ beyond them.
   and lengths, not the output: the backward recomputes the statistics.
   Inference and training take the one operator.
   ``fused_group_norm.launches`` counts forward launches,
-  ``fused_group_norm_backward.launches`` backward launches.
+  ``fused_group_norm_backward.launches`` backward launches. With the span
+  recorder on (``utils/spans.py``) each CUDA call is an ``op.gn_fwd`` or
+  ``op.gn_bwd`` span (``op.gn_split_stats``, ``op.gn_split_apply`` for the
+  split pair below).
 
 Split statistics (sequence-parallel inference, where a row's frames lie
 on several ranks): :func:`group_norm_split_stats` gives this rank's
@@ -60,6 +63,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import spans
 from . import _build
 
 
@@ -278,30 +282,32 @@ def fused_group_norm_backward(x, scale, bias, g, num_groups, eps=1e-5, *,
     if not x.is_cuda:
         return group_norm_backward_plain(x, scale, bias, g, num_groups, eps,
                                          lengths, glu)
-    B, T, C = x.shape
-    G = int(num_groups)
-    what = "fused_group_norm_backward"
-    lib, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
-                                         what)
-    if g.shape != (B, T, C // 2 if glu else C) or not g.is_cuda:
-        raise ValueError(f"cotangent of shape {tuple(g.shape)} on {g.device} "
-                         f"does not match x {tuple(x.shape)} glu={glu}")
-    x, g = x.detach(), g.detach().to(x.dtype)
-    dx = _like_x(x, C)
-    dscale = torch.empty((C,), dtype=torch.float32, device=x.device)
-    dbias = torch.empty((C,), dtype=torch.float32, device=x.device)
-    scratch = _scratch(lib, x, G, glu, True, what)
-    code = lib.gn_backward(
-        x.data_ptr(), _strides(x, what), scale.data_ptr(), bias.data_ptr(),
-        g.data_ptr(), _strides(g, what),
-        lengths.data_ptr() if lengths is not None else None,
-        dx.data_ptr(), _strides(dx, what), dscale.data_ptr(),
-        dbias.data_ptr(), scratch.data_ptr(), B, T, C, G, int(bool(glu)),
-        int(x.dtype == torch.bfloat16), float(eps), x.device.index or 0,
-        _build.stream_of(x))
-    _build.check(code, lib, "gn_error_string", what)
-    fused_group_norm_backward.launches += 1
-    return dx, dscale, dbias
+    with spans.span("op.gn_bwd"):
+        B, T, C = x.shape
+        G = int(num_groups)
+        what = "fused_group_norm_backward"
+        lib, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
+                                             what)
+        if g.shape != (B, T, C // 2 if glu else C) or not g.is_cuda:
+            raise ValueError(f"cotangent of shape {tuple(g.shape)} on "
+                             f"{g.device} does not match x {tuple(x.shape)} "
+                             f"glu={glu}")
+        x, g = x.detach(), g.detach().to(x.dtype)
+        dx = _like_x(x, C)
+        dscale = torch.empty((C,), dtype=torch.float32, device=x.device)
+        dbias = torch.empty((C,), dtype=torch.float32, device=x.device)
+        scratch = _scratch(lib, x, G, glu, True, what)
+        code = lib.gn_backward(
+            x.data_ptr(), _strides(x, what), scale.data_ptr(), bias.data_ptr(),
+            g.data_ptr(), _strides(g, what),
+            lengths.data_ptr() if lengths is not None else None,
+            dx.data_ptr(), _strides(dx, what), dscale.data_ptr(),
+            dbias.data_ptr(), scratch.data_ptr(), B, T, C, G, int(bool(glu)),
+            int(x.dtype == torch.bfloat16), float(eps), x.device.index or 0,
+            _build.stream_of(x))
+        _build.check(code, lib, "gn_error_string", what)
+        fused_group_norm_backward.launches += 1
+        return dx, dscale, dbias
 
 
 fused_group_norm_backward.launches = 0
@@ -317,7 +323,8 @@ def _group_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 @_group_norm_op.register_kernel("cuda")
 def _group_norm_cuda(x, scale, bias, lengths, num_groups, eps, glu):
-    return _forward(x, scale, bias, num_groups, eps, lengths, glu)
+    with spans.span("op.gn_fwd"):
+        return _forward(x, scale, bias, num_groups, eps, lengths, glu)
 
 
 @_group_norm_op.register_fake
@@ -454,30 +461,32 @@ def group_norm_split_stats(x, num_groups, lengths=None):
     tensors the ``gn_split_stats`` kernel."""
     if not x.is_cuda:
         return group_norm_split_stats_plain(x, num_groups, lengths)
-    B, T, C = x.shape
-    G = int(num_groups)
-    what = "group_norm_split_stats"
-    # no parameters: _checked validates empty stand-ins (no launch)
-    dummy = torch.empty((C,), dtype=torch.float32, device=x.device)
-    lib, _, _, lengths = _checked(x, dummy, dummy, G, lengths, False, what)
-    x = _split_checked(x, G, what)
-    n = lib.gn_split_scratch_floats(B, T, C, G,
-                                    int(x.dtype == torch.bfloat16),
-                                    x.device.index or 0)
-    if n < 0:
-        raise ValueError(f"{what}: a row of {T} x {C} elements is too long")
-    stream = _build.stream_of(x)
-    scratch = torch.empty((n,), dtype=torch.float32, device=x.device)
-    tickets = _tickets(x.device, stream, B * G)
-    part = torch.empty((B, G, 3), dtype=torch.float32, device=x.device)
-    code = lib.gn_split_stats(
-        x.data_ptr(), _strides(x, what),
-        lengths.data_ptr() if lengths is not None else None,
-        part.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), B, T, C, G,
-        int(x.dtype == torch.bfloat16), x.device.index or 0, stream)
-    _build.check(code, lib, "gn_error_string", what)
-    group_norm_split_stats.launches += 1
-    return part
+    with spans.span("op.gn_split_stats"):
+        B, T, C = x.shape
+        G = int(num_groups)
+        what = "group_norm_split_stats"
+        # no parameters: _checked validates empty stand-ins (no launch)
+        dummy = torch.empty((C,), dtype=torch.float32, device=x.device)
+        lib, _, _, lengths = _checked(x, dummy, dummy, G, lengths, False, what)
+        x = _split_checked(x, G, what)
+        n = lib.gn_split_scratch_floats(B, T, C, G,
+                                        int(x.dtype == torch.bfloat16),
+                                        x.device.index or 0)
+        if n < 0:
+            raise ValueError(f"{what}: a row of {T} x {C} elements is too "
+                             "long")
+        stream = _build.stream_of(x)
+        scratch = torch.empty((n,), dtype=torch.float32, device=x.device)
+        tickets = _tickets(x.device, stream, B * G)
+        part = torch.empty((B, G, 3), dtype=torch.float32, device=x.device)
+        code = lib.gn_split_stats(
+            x.data_ptr(), _strides(x, what),
+            lengths.data_ptr() if lengths is not None else None,
+            part.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), B, T, C,
+            G, int(x.dtype == torch.bfloat16), x.device.index or 0, stream)
+        _build.check(code, lib, "gn_error_string", what)
+        group_norm_split_stats.launches += 1
+        return part
 
 
 group_norm_split_stats.launches = 0
@@ -491,28 +500,29 @@ def group_norm_split_apply(x, scale, bias, part, num_groups, eps=1e-5,
     if not x.is_cuda:
         return group_norm_split_apply_plain(x, scale, bias, part, num_groups,
                                             eps, lengths, glu)
-    B, T, C = x.shape
-    G = int(num_groups)
-    what = "group_norm_split_apply"
-    lib, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
-                                         what)
-    x = _split_checked(x, G, what)
-    if part.shape[:2] != (B, G) or part.shape[3] != 3 or not part.is_cuda:
-        raise ValueError(f"{what}: partials of shape {tuple(part.shape)} on "
-                         f"{part.device}, expected ({B}, {G}, R, 3) on "
-                         "the card")
-    part = part.to(torch.float32).contiguous()
-    out = _like_x(x, C // 2 if glu else C)
-    code = lib.gn_split_apply(
-        x.data_ptr(), _strides(x, what), scale.data_ptr(), bias.data_ptr(),
-        lengths.data_ptr() if lengths is not None else None,
-        part.data_ptr(), int(part.shape[2]), out.data_ptr(),
-        _strides(out, what), B, T, C, G, int(bool(glu)),
-        int(x.dtype == torch.bfloat16), float(eps), x.device.index or 0,
-        _build.stream_of(x))
-    _build.check(code, lib, "gn_error_string", what)
-    group_norm_split_apply.launches += 1
-    return out
+    with spans.span("op.gn_split_apply"):
+        B, T, C = x.shape
+        G = int(num_groups)
+        what = "group_norm_split_apply"
+        lib, scale, bias, lengths = _checked(x, scale, bias, G, lengths, glu,
+                                             what)
+        x = _split_checked(x, G, what)
+        if part.shape[:2] != (B, G) or part.shape[3] != 3 or not part.is_cuda:
+            raise ValueError(f"{what}: partials of shape "
+                             f"{tuple(part.shape)} on {part.device}, expected "
+                             f"({B}, {G}, R, 3) on the card")
+        part = part.to(torch.float32).contiguous()
+        out = _like_x(x, C // 2 if glu else C)
+        code = lib.gn_split_apply(
+            x.data_ptr(), _strides(x, what), scale.data_ptr(), bias.data_ptr(),
+            lengths.data_ptr() if lengths is not None else None,
+            part.data_ptr(), int(part.shape[2]), out.data_ptr(),
+            _strides(out, what), B, T, C, G, int(bool(glu)),
+            int(x.dtype == torch.bfloat16), float(eps), x.device.index or 0,
+            _build.stream_of(x))
+        _build.check(code, lib, "gn_error_string", what)
+        group_norm_split_apply.launches += 1
+        return out
 
 
 group_norm_split_apply.launches = 0

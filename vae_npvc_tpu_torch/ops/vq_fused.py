@@ -10,7 +10,10 @@ the lowest index, ``z_q = emb[idx]``, and per-code ``batch_sum (K, D)`` /
   kernel's oracle).
 - :func:`vq_fused` is the wrapper: a CPU tensor takes the plain version; a
   CUDA tensor launches the kernel of ``csrc/vq.cu`` or raises.
-  ``vq_fused.launches`` counts wrapper calls that launched it.
+  ``vq_fused.launches`` counts wrapper calls that launched it. With the
+  span recorder on (``utils/spans.py``) a call is an ``op.vq`` span, and
+  with its device spans on the launch is a ``dev.vq`` CUDA-event span
+  that keeps the call's ``rescored`` buffer.
 - :func:`nearest_code` is the ids mode behind the same rule, registered as
   the operator ``vae_npvc_torch::nearest_code`` (``torch.library``): its
   CPU implementation is the plain version, its CUDA implementation the
@@ -35,6 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import spans
 from . import _build
 
 
@@ -127,42 +131,45 @@ def vq_fused(z_flat, emb, *, stats=True):
     """
     if not z_flat.is_cuda:
         return vq_fused_plain(z_flat, emb, stats=stats)
-    if z_flat.dtype != torch.float32 or emb.dtype != torch.float32:
-        raise TypeError("vq_fused takes fp32 z and codebook, got "
-                        f"{z_flat.dtype} and {emb.dtype}")
-    N, D = z_flat.shape
-    K = emb.shape[0]
-    if emb.shape != (K, D) or not emb.is_cuda:
-        raise ValueError(f"codebook must be a CUDA ({K}, {D}) tensor")
-    if N < 1 or K < 1:
-        raise ValueError(f"empty input: N={N}, K={K}")
-    lib = _lib()
-    dev = z_flat.device
-    cr, _, n_res = _plan(lib, N, K, D, dev.index or 0)
-    if cr == 0:
-        raise ValueError(f"a ({K}, {D}) codebook does not fit the kernel's "
-                         "shared memory")
-    z_flat = z_flat.contiguous()
-    emb = emb.contiguous()
-    idx = torch.empty((N,), dtype=torch.int32, device=dev)
-    rescored = torch.empty((2, n_res // 2), dtype=torch.int32, device=dev)
-    z_q = bsum = belem = None
-    if stats:
-        z_q = torch.empty((N, D), dtype=torch.float32, device=dev)
-        bsum = torch.empty((K, D), dtype=torch.float32, device=dev)
-        belem = torch.empty((K,), dtype=torch.float32, device=dev)
+    with spans.span("op.vq"):
+        if z_flat.dtype != torch.float32 or emb.dtype != torch.float32:
+            raise TypeError("vq_fused takes fp32 z and codebook, got "
+                            f"{z_flat.dtype} and {emb.dtype}")
+        N, D = z_flat.shape
+        K = emb.shape[0]
+        if emb.shape != (K, D) or not emb.is_cuda:
+            raise ValueError(f"codebook must be a CUDA ({K}, {D}) tensor")
+        if N < 1 or K < 1:
+            raise ValueError(f"empty input: N={N}, K={K}")
+        lib = _lib()
+        dev = z_flat.device
+        cr, _, n_res = _plan(lib, N, K, D, dev.index or 0)
+        if cr == 0:
+            raise ValueError(f"a ({K}, {D}) codebook does not fit the "
+                             "kernel's shared memory")
+        z_flat = z_flat.contiguous()
+        emb = emb.contiguous()
+        idx = torch.empty((N,), dtype=torch.int32, device=dev)
+        rescored = torch.empty((2, n_res // 2), dtype=torch.int32, device=dev)
+        z_q = bsum = belem = None
+        if stats:
+            z_q = torch.empty((N, D), dtype=torch.float32, device=dev)
+            bsum = torch.empty((K, D), dtype=torch.float32, device=dev)
+            belem = torch.empty((K,), dtype=torch.float32, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    code = lib.vq_fused_launch(
-        z_flat.data_ptr(), emb.data_ptr(), N, K, D, idx.data_ptr(), ptr(z_q),
-        ptr(bsum), ptr(belem), rescored.data_ptr(), dev.index or 0,
-        _build.stream_of(z_flat))
-    _build.check(code, lib, "vq_error_string", "vq_fused")
-    vq_fused.launches += 1
-    vq_fused.rescored = rescored
-    return VqOut(idx, z_q, bsum, belem)
+        # the call's device time and, summed when drained, its re-scored rows
+        with spans.device_span("dev.vq", rescored):
+            code = lib.vq_fused_launch(
+                z_flat.data_ptr(), emb.data_ptr(), N, K, D, idx.data_ptr(),
+                ptr(z_q), ptr(bsum), ptr(belem), rescored.data_ptr(),
+                dev.index or 0, _build.stream_of(z_flat))
+        _build.check(code, lib, "vq_error_string", "vq_fused")
+        vq_fused.launches += 1
+        vq_fused.rescored = rescored
+        return VqOut(idx, z_q, bsum, belem)
 
 
 vq_fused.launches = 0

@@ -19,10 +19,16 @@ retry on another device. ``data_parallel=True`` serves the live model over
 every visible card (``parallel/mesh.data_mesh``): one replica per card,
 each coalesced batch padded to a multiple of the card count and split
 along B (``Converter(mesh=...)``).
+
+Two latency histograms are always counted (:class:`LogHistogram`): each
+request's, from ``convert``'s entry to its result, and each request's
+wait in the batcher's queue, from ``submit`` to the moment the worker
+takes its group.
 """
 
 from __future__ import annotations
 
+import bisect
 import logging
 import queue
 import threading
@@ -51,15 +57,77 @@ DEFAULT_FEATURE = {
 }
 
 
+class LogHistogram:
+    """Counts of millisecond values in fixed log-spaced buckets:
+    :data:`PER_DECADE` a decade from :data:`LO` to :data:`HI` ms, one below
+    and one above. Quantiles interpolate within a bucket, so they lie
+    within one bucket's width (12 %) of the values' own; thread-safe."""
+
+    PER_DECADE = 20
+    LO, HI = 1e-2, 1e6
+
+    def __init__(self):
+        n = round(np.log10(self.HI / self.LO)) * self.PER_DECADE
+        # upper edges of buckets 0..n-1; bucket n holds what passes HI
+        self.edges = (self.LO * 10.0 ** (np.arange(n + 1) / self.PER_DECADE)
+                      ).tolist()
+        self._lock = threading.Lock()
+        self.clear()
+
+    def clear(self):
+        with self._lock:
+            self.counts = [0] * (len(self.edges) + 1)
+            self.count, self.sum = 0, 0.0
+            self.min = self.max = None
+
+    def add(self, ms):
+        ms = float(ms)
+        with self._lock:
+            self.counts[bisect.bisect_left(self.edges, ms)] += 1
+            self.count += 1
+            self.sum += ms
+            self.min = ms if self.min is None else min(self.min, ms)
+            self.max = ms if self.max is None else max(self.max, ms)
+
+    def quantile(self, q):
+        """The ``q`` quantile (0..1) as ``numpy.percentile`` places it in
+        the values, within their bucket; None when empty."""
+        with self._lock:
+            if not self.count:
+                return None
+            rank, seen = q * (self.count - 1), 0
+            for i, c in enumerate(self.counts):
+                if c and seen + c > rank:
+                    lo = self.edges[i - 1] if i else self.min
+                    hi = self.edges[i] if i < len(self.edges) else self.max
+                    lo, hi = max(lo, self.min), min(hi, self.max)
+                    return lo + (hi - lo) * min(1.0, (rank - seen + 0.5) / c)
+                seen += c
+            return self.max
+
+    def prometheus(self, name):
+        """The Prometheus text lines of a histogram ``name``."""
+        with self._lock:
+            lines, seen = [f"# TYPE {name} histogram"], 0
+            for edge, c in zip(self.edges, self.counts):
+                seen += c
+                lines.append(f'{name}_bucket{{le="{edge:.6g}"}} {seen}')
+            lines += [f'{name}_bucket{{le="+Inf"}} {self.count}',
+                      f"{name}_sum {self.sum!r}", f"{name}_count {self.count}"]
+        return lines
+
+
 class _InferBatcher:
     """Coalesces concurrent same-bucket requests into one batched call.
 
     One worker thread drains a queue of ``(feats (T_pad, D), length,
-    target, Future)`` items, groups them by padded length, waits up to
-    ``window_ms`` for more (stopping at ``max_batch``), pads the batch axis
-    to the next power of two (first item repeated; rows are independent)
-    and runs ``runner(feats, targets, lengths)`` once per group. The single
-    worker also serializes device calls.
+    target, Future, submitted)`` items, groups them by padded length, waits
+    up to ``window_ms`` for more (stopping at ``max_batch``), pads the batch
+    axis to the next power of two (first item repeated; rows are
+    independent) and runs ``runner(feats, targets, lengths)`` once per
+    group. The single worker also serializes device calls. ``queue_wait``
+    counts each item's wait from ``submit`` to the moment the worker takes
+    its group.
     """
 
     def __init__(self, runner, max_batch: int = 8, window_ms: float = 5.0,
@@ -76,13 +144,14 @@ class _InferBatcher:
         self._q: queue.Queue = queue.Queue()
         self.calls = 0                       # batched device calls
         self.items = 0                       # requests served
+        self.queue_wait = LogHistogram()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="vae-npvc-infer-batcher")
         self._thread.start()
 
     def submit(self, feats, length, target) -> Future:
         fut: Future = Future()
-        self._q.put((feats, int(length), int(target), fut))
+        self._q.put((feats, int(length), int(target), fut, time.monotonic()))
         return fut
 
     def close(self):
@@ -118,6 +187,7 @@ class _InferBatcher:
             if item is None:
                 return
             group = self._take_group(item)
+            self._count_waits(group)
             B = len(group)
             m = self.pad_multiple
             B_pad = min(-(-(1 << (B - 1).bit_length()) // m) * m,
@@ -138,6 +208,11 @@ class _InferBatcher:
             self.items += B
             for b, g in enumerate(group):
                 g[3].set_result(np.asarray(out[b]))
+
+    def _count_waits(self, group):
+        taken = time.monotonic()
+        for g in group:
+            self.queue_wait.add((taken - g[4]) * 1e3)
 
 
 class ConversionEngine:
@@ -248,7 +323,7 @@ class ConversionEngine:
                                      pad_multiple=pad_multiple)
         self._stats_lock = threading.Lock()
         self.n_requests = 0
-        self.latency_ms: list = []           # rolling (last 1024)
+        self.latency = LogHistogram()        # ms, convert's entry to result
 
     # ------------------------------------------------------------ helpers
     def close(self):
@@ -319,11 +394,9 @@ class ConversionEngine:
         return cmvn_mod.apply(out[:T_out], self.stats, reverse=True)
 
     def _count_request(self, t0):
+        self.latency.add((time.monotonic() - t0) * 1e3)
         with self._stats_lock:
             self.n_requests += 1
-            self.latency_ms.append((time.monotonic() - t0) * 1e3)
-            if len(self.latency_ms) > 1024:
-                del self.latency_ms[:512]
 
     # ------------------------------------------------------------ pipeline
     def convert(self, wav, sr, target, *, return_mel=False):
@@ -398,25 +471,30 @@ class ConversionEngine:
                                     np.full((B,), T_pad, np.int32))
         with self._stats_lock:       # warmup doesn't count as traffic
             self.n_requests = 0
-            self.latency_ms.clear()
+        self.latency.clear()
+        self.batcher.queue_wait.clear()
         logger.info("warmup done: %d bucket(s)", len(pads))
 
     def stats_snapshot(self):
+        """Counters, and quantiles of the latency histograms since the
+        warm-up (None before a request)."""
+        wait = self.batcher.queue_wait
         with self._stats_lock:
-            lat = np.asarray(self.latency_ms, np.float64)
-            return {
-                "requests": self.n_requests,
-                "infer_calls": self.batcher.calls,
-                "infer_items": self.batcher.items,
-                "mean_batch": (self.batcher.items / self.batcher.calls
-                               if self.batcher.calls else 0.0),
-                "latency_ms_p50": float(np.percentile(lat, 50)) if lat.size
-                else None,
-                "latency_ms_p99": float(np.percentile(lat, 99)) if lat.size
-                else None,
-                "iteration": self.iteration,
-                "vocoder": self.vocoder,
-            }
+            requests = self.n_requests
+        return {
+            "requests": requests,
+            "infer_calls": self.batcher.calls,
+            "infer_items": self.batcher.items,
+            "mean_batch": (self.batcher.items / self.batcher.calls
+                           if self.batcher.calls else 0.0),
+            "latency_ms_p50": self.latency.quantile(0.5),
+            "latency_ms_p99": self.latency.quantile(0.99),
+            "latency_ms_max": self.latency.max,
+            "queue_wait_ms_p50": wait.quantile(0.5),
+            "queue_wait_ms_p99": wait.quantile(0.99),
+            "iteration": self.iteration,
+            "vocoder": self.vocoder,
+        }
 
 
 class _JPWG:

@@ -46,6 +46,12 @@ above 1 splits parameters and Adam moments by the shape-generic rule
 whole parameters after the step.
 Checkpoints hold the whole trees in the JAX format; rank 0 writes them and
 every rank waits for the write.
+
+With the span recorder on (``utils/spans.py``) a call records
+``train.call``, each optimizer step ``train.step`` and within it
+``step.gather``, ``step.forward`` and ``step.backward`` (once a
+microbatch) and ``step.update``; the stacking of the details is
+``train.stack``.
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ from ..ops.vq import ema_vq_init
 from ..parallel import comm
 from ..parallel.shard import (AXIS, bind_data, enable_explicit_dp,
                               mean_detail, reduce_gradient, shard_rows)
-from ..utils import msgpack_io
+from ..utils import msgpack_io, spans
 from ..utils.bridge import (from_jax_variables, optimizer_from_jax,
                             optimizer_to_jax, to_jax_variables)
 from ..utils.migrate import WN_AXIS_FORMAT, maybe_migrate_model
@@ -77,7 +83,8 @@ IID_SALT = 0x5A5A5A
 
 def _stacked(details):
     """Per-step details stacked: each key with a leading (K,) axis."""
-    return {k: torch.stack([d[k] for d in details]) for k in details[0]}
+    with spans.span("train.stack"):
+        return {k: torch.stack([d[k] for d in details]) for k in details[0]}
 
 
 def _select(ok, new, old):
@@ -210,15 +217,17 @@ class Trainer:
             kwargs = {"ema_state": ema, "level_gens": self.level_gens}
         elif self.has_ema:
             kwargs = {"ema_state": None if ema is None else ema["quantizer"]}
-        out = self.model(*batch, True, gen=self.gen, **kwargs)
+        with spans.span("step.forward"):
+            out = self.model(*batch, True, gen=self.gen, **kwargs)
         pending = self.model.pending_ema if self.has_ema else None
         if pending is not None and not self._hier:
             pending = {"quantizer": pending}
         return out, pending
 
     def _flat_grad(self, loss):
-        grads = torch.autograd.grad(loss, self.params)
-        return torch.cat([g.float().reshape(-1) for g in grads])
+        with spans.span("step.backward"):
+            grads = torch.autograd.grad(loss, self.params)
+            return torch.cat([g.float().reshape(-1) for g in grads])
 
     def _loss_and_grad(self, batch, ema=None):
         """Flat gradient, the pending EMA states (by name) and the detail
@@ -305,38 +314,39 @@ class Trainer:
         update is of this rank's slices (the gradient reduce-scattered, the
         norm summed over the axis), then the whole parameters are
         gathered."""
-        params = self._opt_vector()
-        if self._tp is None:
-            grad_sq = torch.sum(flat_g * flat_g)
-            update, opt_state = self.tx.update(flat_g, self.opt_state,
-                                               params)
-        else:
-            with comm.bind(self.mesh, ("model",)):
-                flat_g = self._tp.reduce_scatter(flat_g)
-                grad_sq = self._tp.sq_norm(flat_g)
-            update, opt_state = self.tx.update(flat_g, self.opt_state,
-                                               params, torch.sqrt(grad_sq))
-        new_params = params + update
-        if self.skip_nonfinite:
-            ok = torch.isfinite(grad_sq)
-            new_params = torch.where(ok, new_params, params)
-            opt_state = _select(ok, opt_state, self.opt_state)
-            if new_ema is not None:
-                new_ema = {n: _select(ok, s, self.ema[n].state())
-                           for n, s in new_ema.items()}
-            detail["skipped_nonfinite"] = 1.0 - ok.float()
-        with torch.no_grad():
+        with spans.span("step.update"):
+            params = self._opt_vector()
             if self._tp is None:
-                self.flat.copy_(new_params)
+                grad_sq = torch.sum(flat_g * flat_g)
+                update, opt_state = self.tx.update(flat_g, self.opt_state,
+                                                   params)
             else:
                 with comm.bind(self.mesh, ("model",)):
-                    self._tp.gather(new_params, self.flat)
-        self.opt_state = opt_state
-        for n, s in (new_ema or {}).items():
-            self.ema[n].set_state(s)
-        self._count_step()
-        detail["grad_norm"] = torch.sqrt(grad_sq)
-        return detail
+                    flat_g = self._tp.reduce_scatter(flat_g)
+                    grad_sq = self._tp.sq_norm(flat_g)
+                update, opt_state = self.tx.update(flat_g, self.opt_state,
+                                                   params, torch.sqrt(grad_sq))
+            new_params = params + update
+            if self.skip_nonfinite:
+                ok = torch.isfinite(grad_sq)
+                new_params = torch.where(ok, new_params, params)
+                opt_state = _select(ok, opt_state, self.opt_state)
+                if new_ema is not None:
+                    new_ema = {n: _select(ok, s, self.ema[n].state())
+                               for n, s in new_ema.items()}
+                detail["skipped_nonfinite"] = 1.0 - ok.float()
+            with torch.no_grad():
+                if self._tp is None:
+                    self.flat.copy_(new_params)
+                else:
+                    with comm.bind(self.mesh, ("model",)):
+                        self._tp.gather(new_params, self.flat)
+            self.opt_state = opt_state
+            for n, s in (new_ema or {}).items():
+                self.ema[n].set_state(s)
+            self._count_step()
+            detail["grad_norm"] = torch.sqrt(grad_sq)
+            return detail
 
     def _count_step(self):
         self._host_iter += 1
@@ -348,8 +358,9 @@ class Trainer:
         the token->mel synthesizer. Returns the loss detail as device
         scalars."""
         self._require_state()
-        return self._step(*self.shard_batch(self._to_device(batch),
-                                            self.grad_accum))
+        with spans.span("train.step"):
+            return self._step(*self.shard_batch(self._to_device(batch),
+                                                self.grad_accum))
 
     def _step(self, batch, sharded):
         """One optimizer step on this rank's rows of a global batch."""
@@ -360,7 +371,8 @@ class Trainer:
     def train_steps(self, batches):
         """K sequential optimizer steps over a list of K batches; returns
         the detail with a leading (K,) axis per key."""
-        return _stacked([self.train_step(b) for b in batches])
+        with spans.span("train.call"):
+            return _stacked([self.train_step(b) for b in batches])
 
     # ------------------------------------------------- device-resident data
     def stage_dataset(self, dataset, batch_size):
@@ -386,15 +398,18 @@ class Trainer:
         """The ``(feats[B, crop, D], spks[B])`` batch of the staged
         corpus's windows ``(idx[B], starts[B])`` (device tensors)."""
         feats, _, spk_ids = self._dev_corpus
-        frames = torch.arange(self._dev_crop, device=self.device)
-        return feats[idx[:, None], starts[:, None] + frames], spk_ids[idx]
+        with spans.span("step.gather"):
+            frames = torch.arange(self._dev_crop, device=self.device)
+            return feats[idx[:, None], starts[:, None] + frames], \
+                spk_ids[idx]
 
     def _window_step(self, idx, starts):
         """One step on the global batch's windows ``(idx[B], starts[B])``
         (every rank holds the same): each rank gathers its own rows."""
-        (idx, starts), sharded = self.shard_batch((idx, starts),
-                                                  self.grad_accum)
-        return self._step(self._gather(idx, starts), sharded)
+        with spans.span("train.step"):
+            (idx, starts), sharded = self.shard_batch((idx, starts),
+                                                      self.grad_accum)
+            return self._step(self._gather(idx, starts), sharded)
 
     def _sample_iid(self, step):
         """Step ``step``'s draws ``(idx[B], starts[B])`` (device int64):
@@ -419,21 +434,23 @@ class Trainer:
         returns the detail with a leading (K,) axis per key."""
         self._require_corpus()
         self._require_state()
-        return _stacked([self._window_step(*self._sample_iid(self._host_iter))
-                         for _ in range(K)])
+        with spans.span("train.call"):
+            return _stacked([self._window_step(
+                *self._sample_iid(self._host_iter)) for _ in range(K)])
 
     def train_steps_indices(self, idx, starts):
         """K steps gathering host-chosen windows from the staged corpus.
         ``idx``/``starts`` are (K, B) int arrays from
         :func:`..data.dataset.index_iterator`."""
         self._require_corpus()
-        feats = self._dev_corpus[0]
-        idx = torch.as_tensor(np.asarray(idx), device=self.device).long()
-        starts = torch.as_tensor(np.asarray(starts), device=self.device) \
-            .long().clamp(0, feats.shape[1] - self._dev_crop)
         self._require_state()
-        return _stacked([self._window_step(ii, ss)
-                         for ii, ss in zip(idx, starts)])
+        with spans.span("train.call"):
+            feats = self._dev_corpus[0]
+            idx = torch.as_tensor(np.asarray(idx), device=self.device).long()
+            starts = torch.as_tensor(np.asarray(starts), device=self.device) \
+                .long().clamp(0, feats.shape[1] - self._dev_crop)
+            return _stacked([self._window_step(ii, ss)
+                             for ii, ss in zip(idx, starts)])
 
     # ------------------------------------------------------------ validation
     def _valid_detail(self, batch):
