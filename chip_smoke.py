@@ -22,8 +22,11 @@ of the full-width model in fp32 on the card against the CPU
 (``grad_fp32``), the port's ``Trainer`` against the committed JAX training
 fixture (``train_golden``), and some twenty optimizer steps of the recipe's
 model at its step shape (B = 128, T = 256, bf16) through ``Trainer`` on a
-synthetic corpus staged on the device (``train``), with the launch counts
-of the three kernels read per step. Then the token->mel synthesizer: the
+synthetic corpus staged on the device (``train``: the first step eager,
+the second captured as a CUDA graph, the rest replayed), with the three
+kernels' wrapper calls of the steps that call them and the kernels of a
+replayed step against an eager one's, read on the device. Then the
+token->mel synthesizer: the
 port against the committed JAX fixture of a small transformer model
 (``tts_golden``), and the recipe's transformer synthesizer
 (``egs/aishell3/vc2/conf/train_token_tts_transformer.yaml`` widths, fp32,
@@ -35,7 +38,8 @@ per step. Then the hierarchical VQ-VAE of
 committed JAX fixture of a small vqvae2 (``hier_golden``), every gradient
 at full width in fp32 against the CPU (``hier_grad_fp32``), sixteen bf16
 optimizer steps at B = 96, T = 256 on a synthetic corpus staged on the
-device with the launch counts per step (``hier_train``), a
+device with the launch counts per step that calls the wrappers and a
+replayed step's kernels against an eager one's (``hier_train``), a
 ``ConversionEngine`` on the trained checkpoint answering eight requests
 (``hier_serve``), and vqvae2a / vqvae2b at test width against the CPU
 (``hier_small``). The trained flagship and vqvae2 checkpoints go through
@@ -94,8 +98,10 @@ and one HTTP ``/convert`` (``gan``); the Gaussian VAE against its fixture
 (``trainer_rest``): on a Kaldi dir of 256 utterances of 1-10 s written as
 compressed CM arks, ``bin/train`` with the flagship at B = 128, T = 256,
 bf16: ``device_resident_sampling: iid`` for 16 steps with
-``--profile_dir`` (K1/K2/K3 launches per step, the trace's kernels, every
-crop drawn on the card against the Python reads from disk) and a run
+``--profile_dir`` (K1/K2/K3 launches per step that calls the wrappers, one
+capture and 15 replays, the trace's kernels, every crop drawn on the card,
+gathered again from the staged corpus, against the Python reads from
+disk) and a run
 resumed from ``iter.8`` drawing the same windows; the host loader with the
 native C++ ark loader through ``prefetch_to_device`` for 8 steps (every
 native batch against the Python reads), the loader's frames/s; and
@@ -1810,6 +1816,50 @@ def _profiled(torch, fn, by_operator=True):
             "aten_copy_calls": copies}
 
 
+STEP_KERNEL_CLASSES = ("vq_fused", "fused_group_norm",
+                       "fused_group_norm_backward")
+
+
+def _step_kernels(torch, step):
+    """The device kernels of K1, K2 and K3 (:func:`_kernel_class`) one call
+    of ``step()`` ran, by class, read from a torch.profiler window after
+    ``PROFILER_PAD`` spin kernels: a step replayed from a CUDA graph calls
+    no wrapper, so its kernels are counted on the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _profiler_pad(torch)
+        step()
+        torch.cuda.synchronize()
+    counts = collections.Counter(_kernel_class(e.name)
+                                 for e in _kernel_events(torch, prof))
+    return {k: counts[k] for k in STEP_KERNEL_CLASSES}
+
+
+def _replayed_kernels(torch, tr, step, what):
+    """:func:`_step_kernels` of a step run eager and of one replayed from
+    ``tr``'s CUDA graph (eager too where the trainer takes no graph), which
+    must be equal: the replay runs the hand-written kernels the eager
+    step's wrappers launch. A pair of windows that differ is taken again,
+    up to three times (the profiler may drop a window's first kernels),
+    and then fails. Returns the last pair."""
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
+    for _ in range(3):
+        with Trainer.eager_steps():
+            eager = _step_kernels(torch, step)
+        r0 = Trainer.graph_replays
+        replayed = _step_kernels(torch, step)
+        check((Trainer.graph_replays > r0) == tr._graphed(),
+              f"{what}: {Trainer.graph_replays - r0} steps replayed")
+        if all(eager.values()) and replayed == eager:
+            break
+    check(all(eager.values()) and replayed == eager,
+          f"{what}: kernels of a replayed step {replayed}, of an eager step "
+          f"{eager}")
+    return {"eager": eager, "replayed": replayed}
+
+
 def phase_profile(torch, engine, wav):
     """Where the time goes: one batched model call at the first bucket
     (B=8, T=256) and one whole 4 s request (front-end, model, Griffin-Lim)
@@ -2067,9 +2117,12 @@ def phase_train(torch, keep):
     """The recipe's model at full width, bf16, B = 128, T = 256 through
     ``Trainer`` on a synthetic corpus staged on the device: the lazy
     codebook init and ``TRAIN_STEPS`` optimizer steps in the recipe's
-    chunks of 8, with the kernels' launch counts, a save/load round trip
-    and one profiled step. The checkpoint is copied to ``keep``. Returns
-    the launch counts of the run."""
+    chunks of 8 (the first eager, the second captured as a CUDA graph, the
+    rest replayed), with the kernels' launch counts of the steps that call
+    the wrappers, a save/load round trip, one profiled step and the
+    K1/K2/K3 kernels of a replayed step against an eager one's. The
+    checkpoint is copied to ``keep``. Returns the launch counts of the
+    run."""
     from vae_npvc_tpu_torch.data.dataset import (UttMelSpkDataset,
                                                  batch_iterator,
                                                  index_iterator)
@@ -2077,6 +2130,7 @@ def phase_train(torch, keep):
                                                   fused_group_norm_backward)
     from vae_npvc_tpu_torch.ops.vq_fused import vq_fused
     from vae_npvc_tpu_torch.train import build_trainer
+    from vae_npvc_tpu_torch.train.trainer import Trainer
 
     cfg = dict(FLAGSHIP, **TRAIN)
     B, T = cfg["batch_size"], cfg["crop_length"]
@@ -2109,6 +2163,7 @@ def phase_train(torch, keep):
                                     epochs=1))]
         held_x_like = []
         details, times, done = [], [], 0
+        c0, r0 = Trainer.graph_captures, Trainer.graph_replays
         while done < TRAIN_STEPS:
             k = min(cfg["steps_per_call"], TRAIN_STEPS - done)
             idx, starts = chunk(k)
@@ -2127,6 +2182,7 @@ def phase_train(torch, keep):
                     "fused_group_norm": fused_group_norm.launches,
                     "fused_group_norm_backward":
                         fused_group_norm_backward.launches}
+        graphs = (Trainer.graph_captures - c0, Trainer.graph_replays - r0)
         peak_bytes = torch.cuda.max_memory_allocated()
         detail = {k: torch.cat([d[k] for d in details]).float().cpu().numpy()
                   for k in details[0]}
@@ -2142,8 +2198,15 @@ def phase_train(torch, keep):
               f"{held_x_like[1]} did not fall")
         per_step = {"vq_fused": 1, "fused_group_norm": 20,
                     "fused_group_norm_backward": 20}
-        check(launches == {k: v * TRAIN_STEPS for k, v in per_step.items()},
-              f"train: launches {launches} over {TRAIN_STEPS} steps")
+        # the first step runs eager, the second is captured and every later
+        # one replayed; the wrappers count the eager steps' and the
+        # capture's calls
+        check(graphs == ((1, TRAIN_STEPS - 1) if tr._graphed() else (0, 0)),
+              f"train: captures, replays {graphs}")
+        called = TRAIN_STEPS - graphs[1] + graphs[0]
+        check(launches == {k: v * called for k, v in per_step.items()},
+              f"train: launches {launches} over {called} steps that called "
+              "the wrappers")
 
         # save -> load into a second trainer -> the same next step
         ckpt = root / f"iter.{TRAIN_STEPS}"
@@ -2161,6 +2224,8 @@ def phase_train(torch, keep):
         idx, starts = chunk(1)
         profile = _profiled(
             torch, lambda: tr.train_steps_indices(idx, starts))
+        kernels = _replayed_kernels(
+            torch, tr, lambda: tr.train_steps_indices(*chunk(1)), "train")
     # steady state: the chunks after the first (which holds the lazy init
     # and cuDNN's algorithm selection)
     steady_ms = sum(ms for ms, _ in times[1:]) / sum(k for _, k in times[1:])
@@ -2179,6 +2244,8 @@ def phase_train(torch, keep):
           "usage_first_last": [float(detail["usage"][0]),
                                float(detail["usage"][-1])],
           "launches": launches, "launches_per_step": per_step,
+          "graph_captures_replays": list(graphs),
+          "kernels_of_one_step": kernels,
           "next_step_total": a, "next_step_total_after_load": b,
           "one_step_profile": profile})
     return launches
@@ -2751,6 +2818,7 @@ def _hier_train(torch, root):
                                                  index_iterator)
     from vae_npvc_tpu_torch.ops import vq as vq_ops
     from vae_npvc_tpu_torch.train import build_trainer
+    from vae_npvc_tpu_torch.train.trainer import Trainer
 
     cfg = dict(HIER)
     B, T = cfg["batch_size"], cfg["crop_length"]
@@ -2772,6 +2840,7 @@ def _hier_train(torch, root):
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     held_x_like, details, times, done = [], [], [], 0
+    c0, r0 = Trainer.graph_captures, Trainer.graph_replays
     while done < HIER_STEPS:
         k = min(cfg["steps_per_call"], HIER_STEPS - done)
         idx, starts = chunk(k)
@@ -2788,6 +2857,7 @@ def _hier_train(torch, root):
             for name, fn in _counters().items():
                 fn.launches = counts[name]
     launches = _read_counts()
+    graphs = (Trainer.graph_captures - c0, Trainer.graph_replays - r0)
     peak_bytes = torch.cuda.max_memory_allocated()
     detail = {k: torch.cat([d[k] for d in details]).float().cpu().numpy()
               for k in details[0]}
@@ -2799,16 +2869,24 @@ def _hier_train(torch, root):
     check(held_x_like[1] < held_x_like[0],
           f"hier: X like of a fixed batch {held_x_like[0]} -> "
           f"{held_x_like[1]} did not fall")
-    check(launches == {k: v * HIER_STEPS
+    # the first step eager, the second captured, the rest replayed: the
+    # wrappers count the eager step's and the capture's calls
+    check(graphs == ((1, HIER_STEPS - 1) if tr._graphed() else (0, 0)),
+          f"hier: captures, replays {graphs}")
+    called = HIER_STEPS - graphs[1] + graphs[0]
+    check(launches == {k: v * called
                        for k, v in HIER_STEP_LAUNCHES.items()},
-          f"hier: launches {launches} over {HIER_STEPS} steps")
+          f"hier: launches {launches} over {called} steps that called the "
+          "wrappers")
 
-    # one more step with every K1 call recorded (not counted or timed)
+    # one more step with every K1 call recorded (not counted or timed),
+    # eager: a step replayed from the trainer's CUDA graph calls no wrapper
     calls = []
     original = vq_ops.nearest_code
     vq_ops.nearest_code = _record_k1_calls(torch, calls)
     try:
-        tr.train_steps_indices(*chunk(1))
+        with Trainer.eager_steps():
+            tr.train_steps_indices(*chunk(1))
     finally:
         vq_ops.nearest_code = original
     check([c["N"] for c in calls] == [B * T // 4, B * T],
@@ -2831,6 +2909,8 @@ def _hier_train(torch, root):
     del other
     idx, starts = chunk(1)
     profile = _profiled(torch, lambda: tr.train_steps_indices(idx, starts))
+    kernels = _replayed_kernels(
+        torch, tr, lambda: tr.train_steps_indices(*chunk(1)), "hier")
     steady_ms = sum(ms for ms, _ in times[1:]) / sum(k for _, k in times[1:])
     emit({"phase": "hier_train", "config": "train_vqvae2.yaml",
           "steps": HIER_STEPS, "B": B, "T": T,
@@ -2847,6 +2927,8 @@ def _hier_train(torch, root):
           "grad_norm_first_last": [float(detail["grad_norm"][0]),
                                    float(detail["grad_norm"][-1])],
           "launches": launches, "launches_per_step": HIER_STEP_LAUNCHES,
+          "graph_captures_replays": list(graphs),
+          "kernels_of_one_step": kernels,
           "k1_calls_of_one_step": calls,
           "next_step_total": b, "next_step_total_after_load": a,
           "one_step_profile": profile})
@@ -5659,15 +5741,18 @@ def phase_trainer_rest(torch, root, bundle, smi):
     B = 128, T = 256) through ``bin/train --device cuda`` on a Kaldi dir
     of ``REST_UTTS`` utterances of 1-10 s as CM arks: (a) ``iid`` sampling
     on the staged corpus, ``steps_per_call: 8``, ``REST_STEPS`` steps with
-    ``--profile_dir`` (per-step K1/K2/K3 launches, the trace names their
-    kernels, every drawn crop against ``get_at`` from disk), then a run
-    resumed from ``iter.8`` drawing what the uninterrupted one drew; (b)
+    ``--profile_dir`` (one step eager, one captured as a CUDA graph and
+    the rest replayed; the K1/K2/K3 launches of the steps that call the
+    wrappers; the trace names their kernels; every drawn crop, gathered
+    again from the staged corpus after the run, against ``get_at`` from
+    disk), then a run resumed from ``iter.8`` drawing what the
+    uninterrupted one drew; (b)
     the host loader with ``use_native_loader`` through
     ``prefetch_to_device``, every native batch against the Python reads;
     the loader's frames/s beside both runs' training frames/s; (c)
     ``bin/doctor --config --bundle --json`` with the model probe's K1/K2
-    launches. Returns the launches per step of (a) and (b) and the
-    doctor's."""
+    launches. Returns the launches per step of (a) (of its steps that call
+    the wrappers) and (b) and the doctor's."""
     import contextlib
 
     from vae_npvc_tpu_torch.bin import doctor
@@ -5702,41 +5787,65 @@ def phase_trainer_rest(torch, root, bundle, smi):
 
     def run(conf_path, out, *extra):
         _zero_counts()
+        c0, r0 = Trainer.graph_captures, Trainer.graph_replays
         t0 = time.perf_counter()
         train_cli.main(["-c", str(conf_path), "--train_dir", str(corpus),
                         "--output_dir", str(out), *extra])
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, _read_counts()
+        return time.perf_counter() - t0, _read_counts(), \
+            (Trainer.graph_captures - c0, Trainer.graph_replays - r0)
 
-    def per_step(counts, steps, what):
-        want = {k: v * steps for k, v in REST_STEP_LAUNCHES.items()}
+    def per_step(counts, steps, graphs, want_graphs, what):
+        """Launches per step of a run whose (captures, replays) must read
+        ``want_graphs``: a replayed step calls no wrapper, so the wrappers
+        count the eager steps' and the captures' calls."""
+        check(graphs == want_graphs, f"trainer_rest: {what}: captures, "
+                                     f"replays {graphs}, want {want_graphs}")
+        called = steps - graphs[1] + graphs[0]
+        want = {k: v * called for k, v in REST_STEP_LAUNCHES.items()}
         check(counts == want, f"trainer_rest: {what}: launches {counts} "
-                              f"over {steps} steps, want {want}")
-        return {k: v // steps for k, v in counts.items()}
+                              f"over {called} steps that called the "
+                              f"wrappers, want {want}")
+        return {k: v // called for k, v in counts.items()}
 
-    # (a) iid sampling, with the draws and the gathered crops recorded
-    draws, crops = [], []
+    # (a) iid sampling, with the draws and the trainer that staged the
+    # corpus recorded: a step replayed from its CUDA graph runs no Python,
+    # so the crops are gathered again from the staged corpus after the run
+    draws, staged = [], []
     orig_sample = _record_method(
         Trainer, "_sample_iid", draws,
         lambda a, o: (a[0], o[0].clone(), o[1].clone()))
-    orig_gather = _record_method(Trainer, "_gather", crops,
-                                 lambda a, o: o[0].clone())
+    orig_stage = Trainer.stage_dataset
+
+    def staging(self, *args, **kw):
+        staged.append(self)
+        return orig_stage(self, *args, **kw)
+
+    Trainer.stage_dataset = staging
     try:
         iid = conf("iid")
-        full_s, counts = run(iid, root / "iid", "--profile_dir",
-                             str(root / "trace"))
-        iid_per_step = per_step(counts, REST_STEPS, "iid run")
-        full_draws, full_crops = list(draws), list(crops)
+        full_s, counts, graphs = run(iid, root / "iid", "--profile_dir",
+                                     str(root / "trace"))
+        # the first step eager, the second captured, the rest replayed
+        iid_per_step = per_step(counts, REST_STEPS, graphs,
+                                (1, REST_STEPS - 1), "iid run")
+        iid_graphs = graphs
+        full_draws = list(draws)
+        check(len(staged) == 1, f"trainer_rest: {len(staged)} stagings")
+        full_crops = [staged[0]._gather(i, s)[0].clone()
+                      for _, i, s in full_draws]
         draws.clear()
-        crops.clear()
+        staged.clear()
         # logged every 4 steps: steps 13-16 are a window past the staging
-        resume_s, counts = run(conf("iid_resumed", iters_per_log=4),
-                               root / "iid_resumed", "--checkpoint",
-                               str(root / "iid" / "iter.8"))
-        per_step(counts, REST_STEPS - 8, "resumed iid run")
+        resume_s, counts, graphs = run(conf("iid_resumed", iters_per_log=4),
+                                       root / "iid_resumed", "--checkpoint",
+                                       str(root / "iid" / "iter.8"))
+        per_step(counts, REST_STEPS - 8, graphs, (1, REST_STEPS - 8 - 1),
+                 "resumed iid run")
+        staged.clear()
     finally:
         Trainer._sample_iid = orig_sample
-        Trainer._gather = orig_gather
+        Trainer.stage_dataset = orig_stage
     check([d[0] for d in full_draws] == list(range(REST_STEPS)),
           f"trainer_rest: draws of steps {[d[0] for d in full_draws]}")
     check([d[0] for d in draws] == list(range(8, REST_STEPS)),
@@ -5779,13 +5888,15 @@ def phase_trainer_rest(torch, root, bundle, smi):
         lambda a, o: (np.asarray(a[0]).copy(), np.asarray(a[1]).copy(),
                       o.copy()))
     try:
-        host_s, counts = run(
+        host_s, counts, graphs = run(
             conf("host", device_resident=False, use_native_loader=True,
                  max_iter=REST_HOST_STEPS, iters_per_log=4,
                  iters_per_checkpoint=REST_HOST_STEPS), root / "host")
     finally:
         NativeArkLoader.load_batch = orig_load
-    host_per_step = per_step(counts, REST_HOST_STEPS, "host-loader run")
+    # host batches: every step eager
+    host_per_step = per_step(counts, REST_HOST_STEPS, graphs, (0, 0),
+                             "host-loader run")
     check(len(loads) >= REST_HOST_STEPS,
           f"trainer_rest: {len(loads)} native batches for "
           f"{REST_HOST_STEPS} steps")
@@ -5839,6 +5950,7 @@ def phase_trainer_rest(torch, root, bundle, smi):
           "iid": {"steps": REST_STEPS, "wall_s": full_s,
                   "resumed_wall_s": resume_s,
                   "launches_per_step": iid_per_step,
+                  "graph_captures_replays": list(iid_graphs),
                   "frames_per_s_steps_1_8": rows[0]["frames_per_sec"],
                   "frames_per_s_9_16_profiled": rows[1]["frames_per_sec"],
                   "frames_per_s_resumed_9_12_13_16":

@@ -7,6 +7,8 @@ configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1556,3 +1558,210 @@ def test_dp_step_at_world_size_one_equals_the_plain_step(nccl_mesh, family,
     a, b = plain.model.state_dict(), dp.model.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert torch.equal(plain.opt_state.mu, dp.opt_state.mu)
+
+
+# ------------------------------------------- the windowed step as a graph
+def _graph_flat_config():
+    """A reduced flat EMA VQ-VAE in bf16: the flagship's 512 codes over
+    fewer rows than codes, so every step restarts codes (from candidates
+    tiled with noise)."""
+    enc = {"in_channels": [16], "out_channels": [64], "kernel_size": 3,
+           "downsample_scales": [1], "z_channels": 32, "dilation": False,
+           "stack_kernel_size": 3, "stack_layers": 1, "stacks": [2],
+           "use_weight_norm": True}
+    dec = {"in_channels": [32], "out_channels": [64], "cond_channels": 16,
+           "skip_channels": 16, "final_channels": 16, "kernel_size": 3,
+           "upsample_scales": [1], "dilation": False, "stack_kernel_size": 3,
+           "stacks": [2], "use_weight_norm": True}
+    return {"model_type": "vae_npvc.model.vqvae", "seed": 5, "y_dim": 16,
+            "y_num": 4, "z_dim": 32, "z_num": 512, "use_ema": True,
+            "beta": 0.01, "mu": 0.9, "jitter_p": 0.0, "optim_type": "Adam",
+            "learning_rate": 1e-3, "max_grad_norm": 10, "crop_length": 32,
+            "lr_scheduler": "StepLR",
+            "lr_param": {"step_size": 6, "gamma": 0.5},
+            "compute_dtype": "bfloat16", "encoder": enc, "decoder": dec}
+
+
+class _GraphCorpus:
+    """Twelve utterances of ``D`` channels; frame 3 of utterance 0 is
+    infinite, so a step that takes its first window is skipped."""
+
+    def __init__(self, D, crop):
+        self.D, self.crop_length = D, crop
+
+    def padded_arrays(self):
+        rng = np.random.default_rng(11)
+        n = rng.integers(self.crop_length, 3 * self.crop_length, size=12)
+        feats = rng.normal(size=(12, int(n.max()), self.D)) \
+            .astype(np.float32)
+        feats[0, 3, 1] = np.inf
+        return feats, n.astype(np.int32), \
+            (np.arange(12) % 4).astype(np.int32)
+
+
+def _graph_windows(rng, n_steps, B, bad_step):
+    """(idx, starts) of ``n_steps`` steps of B distinct utterances, none
+    of them the infinite one but at ``bad_step`` (its first window)."""
+    idx = np.stack([1 + rng.permutation(11)[:B] for _ in range(n_steps)])
+    starts = rng.integers(0, 8, size=idx.shape)
+    idx[bad_step, 0], starts[bad_step, 0] = 0, 0
+    return idx, starts
+
+
+def _bits(t):
+    t = t.detach()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _state(tr):
+    """Every tensor the step updates, by name."""
+    out = {"flat": tr.flat}
+    out.update({f"opt.{k}": v for k, v in tr.opt_state._asdict().items()
+                if v is not None})
+    for n, q in tr.ema.items():
+        out.update({f"{n}.{k}": v for k, v in q.state()._asdict().items()})
+    return out
+
+
+def _largest_gap(a, b):
+    """(name, largest |a - b|) over two dicts of tensors."""
+    gaps = {k: float((a[k].double() - b[k].double()).abs().nan_to_num(
+        float("inf")).max()) for k in a}
+    name = max(gaps, key=gaps.get)
+    return name, gaps[name]
+
+
+def _graph_plain_hier_config():
+    """The hierarchy with plain normalized codebooks (the recipe's
+    vqvae2): the codebooks renormalized before each step, the code
+    perplexity counted on the device."""
+    cfg = dict(_hier_config(), use_ema=False)
+    for i in (0, 1):
+        cfg[f"quantizer.{i}"] = {"z_dim": 8, "z_num": 16, "normalize": True}
+    return cfg
+
+
+@pytest.mark.parametrize("family", ["flat", "hierarchy", "plain_hierarchy"])
+def test_graphed_windowed_step_equals_the_eager_step(dev, family,
+                                                     monkeypatch):
+    """16 windowed steps replayed from a CUDA graph equal the eager steps
+    bit for bit: parameters, Adam's state, the EMA codebooks and every
+    detail value, through the lazy init (step 0, eager on both), code
+    restarts and a step the guard skips (the plain hierarchy: its
+    codebooks renormalized each step, no EMA state). The first step runs
+    eager, the second captures: 1 capture, 15 replays. The kernel wrappers
+    count the calls of the eager step and of the capture, as many a step
+    as the eager trainer's, and none of a replay. Re-staging the corpus
+    captures again; so does ``init_state``, whose next step runs the lazy
+    init inside the graph. cuDNN takes its
+    deterministic algorithms (its default weight gradients add with
+    atomics)."""
+    from vae_npvc_tpu_torch.train import build_trainer
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+    from vae_npvc_tpu_torch.utils import spans
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    if family == "flat":
+        cfg, B = _graph_flat_config(), 8
+        D = cfg["encoder"]["in_channels"][0]
+    else:
+        cfg = (_hier_config() if family == "hierarchy"
+               else _graph_plain_hier_config())
+        cfg, B = dict(cfg, crop_length=64), 8
+        D = cfg["encoder.0"]["in_channels"][0]
+    corpus = _GraphCorpus(D, cfg["crop_length"])
+    eager, graphed = (build_trainer(cfg, device="cuda") for _ in range(2))
+    assert graphed._graphed()
+    with Trainer.eager_steps():         # the eager reference's steps
+        assert not eager._graphed()
+    if family == "hierarchy":
+        assert graphed.level_gens
+    if family == "plain_hierarchy":
+        assert graphed._renorm is not None and not graphed.has_ema
+
+    def start():
+        for tr in (eager, graphed):
+            tr.init_state()
+            tr.stage_dataset(corpus, B)
+        with torch.no_grad():   # the same weights, whatever the init rounds
+            graphed.flat.copy_(eager.flat)
+
+    def run(idx, starts, calls):
+        """Both trainers through the calls; returns the details."""
+        fns = (vq_fused, fused_group_norm, fused_group_norm_backward)
+        out = []
+        for tr in (eager, graphed):
+            before = [f.launches for f in fns]
+            c0, r0 = Trainer.graph_captures, Trainer.graph_replays
+            got, at = [], 0
+            with (Trainer.eager_steps() if tr is eager
+                  else contextlib.nullcontext()):
+                for k in calls:
+                    got.append(tr.train_steps_indices(idx[at:at + k],
+                                                      starts[at:at + k]))
+                    at += k
+            torch.cuda.synchronize()
+            # the steps that called the wrappers: the eager ones and the
+            # captures
+            called = sum(calls) - (Trainer.graph_replays - r0) \
+                + (Trainer.graph_captures - c0)
+            out.append((got, [f.launches - b for f, b in zip(fns, before)],
+                        called))
+        (want, n_eager, s_eager), (got, n_graphed, s_graphed) = out
+        assert s_eager == sum(calls) and s_graphed < s_eager
+        assert n_eager[0] > 0 and [n * s_graphed for n in n_eager] == \
+            [n * s_eager for n in n_graphed], (n_eager, n_graphed)
+        for w, g in zip(want, got):
+            assert set(w) == set(g)
+            for k in w:
+                assert torch.equal(_bits(w[k]), _bits(g[k])), \
+                    (k, w[k], g[k])
+        a, b = _state(eager), _state(graphed)
+        assert all(torch.equal(_bits(a[k]), _bits(b[k])) for k in a), \
+            _largest_gap(a, b)
+        return [d for c in want for d in
+                ({k: v[i] for k, v in c.items()}
+                 for i in range(len(c["grad_norm"])))]
+
+    rng = np.random.default_rng(3)
+    start()
+    c0, r0 = Trainer.graph_captures, Trainer.graph_replays
+    idx, starts = _graph_windows(rng, 16, B, bad_step=5)
+    spans.drain()
+    spans.enable(True, device=True)
+    try:
+        steps = run(idx, starts, [1, 1, 6, 8])
+        torch.cuda.synchronize()
+        rec = spans.drain()
+    finally:
+        spans.enable(False)
+    assert (Trainer.graph_captures - c0, Trainer.graph_replays - r0) == \
+        (1, 15)
+    assert [float(s["skipped_nonfinite"]) for s in steps] == \
+        [float(i == 5) for i in range(16)]
+    if family == "flat":
+        # fewer rows than codes: codes restart on every step after the init
+        assert all(float(s["usage"]) < cfg["z_num"] for s in steps[1:])
+    names = [s.name for s in rec["spans"]]
+    # the eager reference's 16 steps, the graphed trainer's eager step and
+    # its capture run the Python step; each replay is one span
+    assert names.count("step.replay") == 15
+    assert names.count("step.update") == 16 + 2
+    # K1's timing events: none recorded while capturing
+    n_vq = {"flat": 1, "hierarchy": 2, "plain_hierarchy": 2}[family]
+    assert len(rec["device"]) == (16 + 1) * n_vq
+
+    # a re-staged corpus: the graph is dropped and captured again
+    for tr in (eager, graphed):
+        tr.stage_dataset(corpus, B)
+    idx, starts = _graph_windows(rng, 3, B, bad_step=1)
+    run(idx, starts, [3])
+    assert (Trainer.graph_captures - c0, Trainer.graph_replays - r0) == \
+        (2, 18)
+
+    # a fresh state: the lazy init runs inside the captured step
+    start()
+    idx, starts = _graph_windows(rng, 2, B, bad_step=1)
+    run(idx, starts, [2])
+    assert (Trainer.graph_captures - c0, Trainer.graph_replays - r0) == \
+        (3, 20)

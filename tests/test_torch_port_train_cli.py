@@ -144,6 +144,8 @@ def test_train_cli_runs_and_resumes(tmp_path, data_dirs, device_resident):
     log = (full / "train.log").read_text()
     assert "Iter 6:" in log and "Valid 6:" in log and "Finished" in log
     assert ("Device-resident corpus" in log) == device_resident
+    # the CPU replays no step from a CUDA graph
+    assert log.count("0% of steps replayed") == 3
 
     # a run stopped at 3 is bit-equal to the first half of the full run;
     # resumed with --checkpoint auto it carries on to 6

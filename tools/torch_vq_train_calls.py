@@ -6,7 +6,8 @@
 Runs ``chip_smoke.py``'s ``train`` phase (the flagship flat VQ-VAE, bf16,
 B = 128, T = 256, 20 steps on a synthetic corpus) with the port imported
 from ``--root`` (default: this checkout), and wraps ``vq_fused`` as the
-model calls it. For each call it prints one JSON line: the mode, the rows
+model calls it, every step eager (no CUDA graph). For each call it prints
+one JSON line: the mode, the rows
 the kernel re-scored in exact fp32 and of those the rows re-scored over
 every code (where the tree's kernel reports them), the rows whose two best
 fp64 distances lie within the kernel's margin, the largest fp64 distance a
@@ -77,12 +78,16 @@ def main(argv=None):
         return out
 
     vq_mod.vq_fused = checked
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
     cs.emit = lambda obj: print(json.dumps({
         "held_batch_x_like_after_first_chunk_and_last":
             obj.get("held_batch_x_like_after_first_chunk_and_last")}),
         flush=True)
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        # every step eager: a step replayed from a CUDA graph calls no
+        # wrapper, and a captured one cannot read its tensors on the host
+        with tempfile.TemporaryDirectory() as tmp, Trainer.eager_steps():
             cs.phase_train(torch, Path(tmp) / "trained.msgpack")
     except RuntimeError as e:
         print(json.dumps({"train_failed": str(e)}), flush=True)

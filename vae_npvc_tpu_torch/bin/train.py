@@ -11,7 +11,9 @@ The host loader's batches reach the device through
 ``data.dataset.prefetch_to_device`` (``prefetch_factor`` batches ahead).
 ``device_resident: true`` stages the corpus on the device: ``epoch``
 sampling gathers the host loader's windows there, ``iid`` draws them there
-(``Trainer.train_steps_device``). ``--profile_dir`` traces one log
+(``Trainer.train_steps_device``); on the GPU those windowed steps are
+replayed from a CUDA graph, and each log line gives the share of its
+interval's steps that were. ``--profile_dir`` traces one log
 interval with ``torch.profiler`` once two steps are done and writes a
 Chrome trace into the directory, with the port's spans of that interval
 (``utils/spans.py``: the trainer's phases, the kernels' wrappers) on the
@@ -318,6 +320,8 @@ def train(args):
             logger.warning(f"Could not parse {best_file}; best tracking "
                            "restarts from this run")
     t_log = time.time()
+    # steps replayed from a captured CUDA graph (train/trainer.py)
+    replayed = getattr(type(trainer), "graph_replays", 0)
     frames_per_batch = train_batch * train_set.crop_length
 
     profile_dir = getattr(args, "profile_dir", None)
@@ -392,6 +396,10 @@ def train(args):
             for k, v in host_log.items():
                 mseg += f"  {k}: {v:.6f}"
             mseg += f"  |  {fps:,.0f} frames/s"
+            now = getattr(type(trainer), "graph_replays", 0)
+            mseg += (f"  |  {(now - replayed) / iters_per_log:.0%} of steps "
+                     "replayed")
+            replayed = now
             logger.info(mseg)
             with open(output_dir / "metrics.jsonl" if writes
                       else os.devnull, "a") as mf:

@@ -60,8 +60,13 @@ def codebook_perplexity(idx, num_codes, axis_name=None):
     """exp(entropy) of the empirical code distribution; with ``axis_name``
     (a bound data axis) of the codes of every rank's rows (the counts
     summed over the axis in one collective)."""
-    counts = torch.bincount(idx.reshape(-1).long(), minlength=num_codes) \
-        .float()
+    # one count a code with no read on the host (a CUDA bincount sizes its
+    # output from the largest id, read back), so a captured step can hold
+    # it; whole counts are exact in float32 in any order of addition
+    ids = idx.reshape(-1).long()
+    counts = torch.zeros((num_codes,), dtype=torch.float32,
+                         device=idx.device).index_add_(
+        0, ids, torch.ones_like(ids, dtype=torch.float32))
     if axis_name is None:
         probs = counts / idx.numel()
     else:

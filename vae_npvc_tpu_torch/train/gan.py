@@ -91,6 +91,8 @@ class GanTrainer(Trainer):
     # the critic/generator alternation is per-iteration host control flow
     # with phase-dependent detail keys: bin/train runs single steps
     supports_steps_per_call = False
+    # nor is it captured as a CUDA graph
+    supports_graphs = False
 
     def __init__(self, config, device="cuda", seed=None, mesh=None):
         super().__init__(config, device=device, seed=seed, mesh=mesh)

@@ -47,10 +47,31 @@ whole parameters after the step.
 Checkpoints hold the whole trees in the JAX format; rank 0 writes them and
 every rank waits for the write.
 
+On a CUDA device without a mesh, the windowed step (the staged corpus's
+windows, :meth:`Trainer.train_steps_indices` and
+:meth:`Trainer.train_steps_device`) is replayed as a CUDA graph: a window
+shape's first step runs eager, its second captures :meth:`Trainer._step`
+(gather, forward, gradient, update) into one graph with a private memory
+pool, and every step then copies its windows into the graph's static
+inputs, reseeds the step's generators on the host (they are registered
+with the graph, so a replay draws what the eager step draws) and replays
+it. The state the step updates is written in place (parameters, Adam's
+state, the EMA codebooks), so one capture serves every later step;
+staging a corpus, :meth:`Trainer.init_state` and
+:meth:`Trainer.load_checkpoint` drop the graphs. Host batches, a mesh,
+the CPU and a trainer whose step is host control flow
+(``supports_graphs`` False) stay eager, and so does every step inside
+``with Trainer.eager_steps():`` (to see each kernel wrapper's calls, or
+as an eager reference). ``Trainer.graph_captures`` and
+``Trainer.graph_replays`` count the mechanism's use. The kernel wrappers'
+``.launches`` count their calls: an eager step's and a capture's, and
+none of a replay, which calls no Python.
+
 With the span recorder on (``utils/spans.py``) a call records
 ``train.call``, each optimizer step ``train.step`` and within it
 ``step.gather``, ``step.forward`` and ``step.backward`` (once a
-microbatch) and ``step.update``; the stacking of the details is
+microbatch) and ``step.update`` (of a graphed step at its capture only,
+each replay ``step.replay``); the stacking of the details is
 ``train.stack``.
 """
 
@@ -87,6 +108,13 @@ def _stacked(details):
         return {k: torch.stack([d[k] for d in details]) for k in details[0]}
 
 
+class _StepGraph:
+    """One captured windowed step: the graph and its static inputs and
+    outputs."""
+
+    __slots__ = ("graph", "idx", "starts", "detail")
+
+
 def _select(ok, new, old):
     """``new`` where the 0-d bool ``ok`` holds, else ``old``, leaf by leaf
     (``None`` leaves pass through)."""
@@ -101,6 +129,14 @@ class Trainer:
     # bin/train may hand it chunks of K steps (``steps_per_call``) and the
     # device-resident corpus
     supports_steps_per_call = True
+    # its windowed step may be captured and replayed as a CUDA graph
+    supports_graphs = True
+
+    # windowed steps captured as CUDA graphs, and steps replayed from them
+    graph_captures = 0
+    graph_replays = 0
+    # set inside :meth:`eager_steps`
+    _eager_only = False
 
     def __init__(self, config, device="cuda", seed=None, mesh=None):
         self.config = config
@@ -141,6 +177,10 @@ class Trainer:
         self._dev_corpus = None
         self._dev_batch = None
         self.sample_gen = torch.Generator(device=self.device)
+        self._graphs = {}         # window shape -> _StepGraph
+        self._warm = set()        # window shapes that ran one eager step
+        self._pool = None         # the graphs' private memory pool
+        self._capturing = False
 
     # ------------------------------------------------------------------ init
     def _flatten_parameters(self):
@@ -159,6 +199,7 @@ class Trainer:
         """Seeded random parameters, a fresh EMA codebook and optimizer
         state at step 0. ``example_batch`` is accepted for the JAX
         trainer's signature; the port's shapes come from the config."""
+        self._drop_graphs()
         self.model.init_random(self.seed)
         for q in self.ema.values():
             q.set_state(ema_vq_init(*q.emb.shape, device=self.device))
@@ -200,7 +241,8 @@ class Trainer:
                 g.manual_seed((step_seed * 1_000_033 + i + 1) % (1 << 63))
 
     def _begin_step(self):
-        self._reseed()
+        if not self._capturing:     # a replay is reseeded before it runs
+            self._reseed()
         if self._renorm is not None:
             self._renorm(self.model)
 
@@ -341,7 +383,11 @@ class Trainer:
                 else:
                     with comm.bind(self.mesh, ("model",)):
                         self._tp.gather(new_params, self.flat)
-            self.opt_state = opt_state
+                # in place, so that a captured step updates the state the
+                # next replay reads
+                for old, new in zip(self.opt_state, opt_state):
+                    if old is not None:
+                        old.copy_(new)
             for n, s in (new_ema or {}).items():
                 self.ema[n].set_state(s)
             self._count_step()
@@ -382,6 +428,7 @@ class Trainer:
         there, so at most indices cross to the device per step. Returns the
         staged feature bytes."""
         feats, n_frames, spk_ids = dataset.padded_arrays()
+        self._drop_graphs()
         self._dev_corpus = (
             torch.as_tensor(feats, device=self.device),
             torch.as_tensor(n_frames, device=self.device),
@@ -407,9 +454,85 @@ class Trainer:
         """One step on the global batch's windows ``(idx[B], starts[B])``
         (every rank holds the same): each rank gathers its own rows."""
         with spans.span("train.step"):
+            if self._graphed():
+                return self._graph_step(idx, starts)
             (idx, starts), sharded = self.shard_batch((idx, starts),
                                                       self.grad_accum)
             return self._step(self._gather(idx, starts), sharded)
+
+    # ----------------------------------------------------------- CUDA graphs
+    @staticmethod
+    @contextlib.contextmanager
+    def eager_steps():
+        """Every trainer's windowed steps run eager inside the block, so
+        that each kernel wrapper sees every call (recording a step's calls,
+        an eager reference beside a graphed trainer). The graphs captured
+        before are kept: the state they read is written in place."""
+        before = Trainer._eager_only
+        Trainer._eager_only = True
+        try:
+            yield
+        finally:
+            Trainer._eager_only = before
+
+    def _graphed(self):
+        """Whether the windowed step is replayed as a CUDA graph: a CUDA
+        device and no mesh (gloo's host transport cannot be captured),
+        outside :meth:`eager_steps`."""
+        return (self.supports_graphs and not Trainer._eager_only
+                and self.mesh is None and self.device.type == "cuda")
+
+    def _drop_graphs(self):
+        """Forget the captured steps: they read the staged corpus and the
+        training state by address."""
+        self._graphs.clear()
+        self._pool = None
+
+    def _graph_step(self, idx, starts):
+        """One windowed step replayed from its shape's graph. The shape's
+        first step runs eager (it builds the kernels and sets up the
+        libraries' workspaces); the next one captures the graph."""
+        key = tuple(idx.shape)
+        g = self._graphs.get(key)
+        if g is None:
+            if key not in self._warm:
+                detail = self._step(self._gather(idx, starts), False)
+                self._warm.add(key)
+                return detail
+            g = self._graphs[key] = self._capture(idx, starts)
+        g.idx.copy_(idx)
+        g.starts.copy_(starts)
+        self._reseed()
+        with spans.span("step.replay"):
+            g.graph.replay()
+        self._count_step()
+        Trainer.graph_replays += 1
+        # the graph's outputs are overwritten by its next replay
+        return {k: v.clone() for k, v in g.detail.items()}
+
+    def _capture(self, idx, starts):
+        """Capture :meth:`_step` on the windows held in new static
+        buffers. Nothing runs: the host iteration is left as it was (the
+        kernel wrappers count the calls the capture made)."""
+        g = _StepGraph()
+        g.idx, g.starts = idx.clone(), starts.clone()
+        g.graph = torch.cuda.CUDAGraph()
+        # the lazy init's and the restarts' draws: a replay takes the
+        # generators' seeds and offsets as they are when it is launched
+        for gen in (self.gen, *(self.level_gens or {}).values()):
+            g.graph.register_generator_state(gen)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        it = self._host_iter
+        self._capturing = True
+        try:
+            with torch.cuda.graph(g.graph, pool=self._pool):
+                g.detail = self._step(self._gather(g.idx, g.starts), False)
+        finally:
+            self._capturing = False
+            self._host_iter = it
+        Trainer.graph_captures += 1
+        return g
 
     def _sample_iid(self, step):
         """Step ``step``'s draws ``(idx[B], starts[B])`` (device int64):
@@ -606,6 +729,7 @@ class Trainer:
         migration re-decomposed a layer. Returns the stored iteration."""
         if self.flat is None:
             self.init_state(example_batch)
+        self._drop_graphs()
         payload = read_payload(path)
         model, migrated = maybe_migrate_model(
             payload, to_jax_variables(self.model.state_dict())["params"])

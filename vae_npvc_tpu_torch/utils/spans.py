@@ -19,7 +19,8 @@ not grow.
 :func:`device_span` (on only with ``enable(True, device=True)``, and only
 for a CUDA tensor) records a pair of timing events on the current stream
 around its block, from a pool of reused events, and keeps a small device
-tensor to be read later; it never synchronizes. :func:`drain` returns the
+tensor to be read later; it never synchronizes. While the stream is being
+captured into a CUDA graph it records nothing. :func:`drain` returns the
 host spans, each device span's ``(name, ms, value)`` (the kept tensor's
 sum) and the drop count, and empties the buffers. Its caller synchronizes
 the device first.
@@ -163,7 +164,10 @@ class Recorder:
         """A context manager recording CUDA events around its block on
         the current stream of ``tensor``'s device, keeping ``tensor`` (a
         small counter the block fills) to be summed at :meth:`drain`."""
-        if not self.device_on or not tensor.is_cuda:
+        if not self.device_on or not tensor.is_cuda \
+                or torch.cuda.is_current_stream_capturing():
+            # a captured launch records no event: the graph's replays run
+            # without the host
             return OFF
         return _DeviceOpen(self, name, tensor, tensor.device.index)
 
