@@ -7,79 +7,37 @@ For each seed, in one process: the program's readings (a run of the cell
 with a window of no length: set-up, then the output check), and on the
 first ``--control-seeds`` seeds the control's (the plain reference
 computed in the next lower precision in the program's place, held
-against the reference) and each planted fault's (:data:`FAULTS`, a run
-with the fault under the timed path). One JSON line per seed and side.
+against the reference) and each planted fault's (the ``FAULTS`` of the
+cell's kind, a run with the fault under the timed path). One JSON line
+per seed and side.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib
 import json
 import sys
 
-import torch
-
 from benchmark import harness
 
-# the faults each kind of cell can have (the exchange between chips is
-# absent from every one-chip cell)
-FAULTS = {"train": ["state_unchanged", "half_batch"]}
 
-
-@contextlib.contextmanager
-def _patched(owner, name, make):
-    orig = getattr(owner, name)
-    setattr(owner, name, make(orig))
-    try:
-        yield
-    finally:
-        setattr(owner, name, orig)
-
-
-def fault(name):
-    """A context that plants fault ``name`` under the timed path."""
-    from vae_npvc_tpu_torch.train.trainer import Trainer
-
-    if name == "state_unchanged":
-        def make(orig):
-            def frozen(self, flat_g, new_ema, detail):
-                flat, opt = self.flat.clone(), self.opt_state
-                ema = {n: tuple(t.clone() for t in q.state())
-                       for n, q in self.ema.items()}
-                out = orig(self, flat_g, new_ema, detail)
-                with torch.no_grad():
-                    self.flat.copy_(flat)
-                self.opt_state = opt
-                for n, s in ema.items():
-                    self.ema[n].set_state(s)
-                return out
-            return frozen
-        return _patched(Trainer, "_finish_step", make)
-    if name == "half_batch":
-        def make(orig):
-            def half(self, idx, starts):
-                x, s = orig(self, idx, starts)
-                return x[:x.shape[0] // 2], s[:s.shape[0] // 2]
-            return half
-        return _patched(Trainer, "_gather", make)
-    raise ValueError(f"unknown fault {name!r}")
+def fault(name, kind):
+    """A context that plants fault ``name`` of the traffic kind ``kind``
+    under the timed path."""
+    return harness.kind(kind).fault(name)
 
 
 def readings(workload, seed, side, device="cuda", config_override=None):
     """The numbers the check compares, for one seed and side (``program``,
     ``control`` or a fault's name)."""
+    _, config, traffic, _ = harness.cell(harness.load_spec(), workload)
+    config, traffic = harness.overridden(config, traffic, config_override)
     if side == "control":
-        spec = harness.load_spec()
-        _, config, traffic, _ = harness.cell(spec, workload)
-        over = config_override or {}
-        config = {k: (dict(v, **over.get(k, {})) if isinstance(v, dict)
-                      else v) for k, v in config.items()}
-        traffic = dict(traffic, **over.get("traffic", {}))
-        kind = importlib.import_module(f"benchmark.kinds.{traffic['kind']}")
-        return kind.control_readings(config, traffic, seed, device)
-    cm = contextlib.nullcontext() if side == "program" else fault(side)
+        return harness.kind(traffic["kind"]).control_readings(
+            config, traffic, seed, device)
+    cm = (contextlib.nullcontext() if side == "program"
+          else fault(side, traffic["kind"]))
     with cm:
         res = harness.run_cell(workload, seed, 0, 0, device=device,
                                config_override=config_override)
@@ -96,9 +54,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     spec = harness.load_spec()
     _, _, traffic, limits = harness.cell(spec, args.workload)
+    faults = harness.kind(traffic["kind"]).FAULTS
     out = open(args.out, "a") if args.out else None
     for n, seed in enumerate(args.seeds):
-        sides = ["program"] + (["control", *FAULTS[traffic["kind"]]]
+        sides = ["program"] + (["control", *faults]
                                if n < args.control_seeds else [])
         for side in sides:
             r = readings(args.workload, seed, side, args.device)

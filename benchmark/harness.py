@@ -2,20 +2,30 @@
 the per-layer metrics, check the output and build the result's line.
 
 Everything that belongs to one cell lives in files of its own, found by
-the names in ``BENCHMARK.json``:
+the names in ``BENCHMARK.json``, so that a cell, of a kind the benchmark
+has or of a new one, is new files and new entries only:
 
 - ``configs/<config>.json``: the recipe as it is run (``recipe``), its
   source, the keys cut from it and the sizes assumed;
 - ``traffic/<traffic>.json``: the mix's parameters, with ``kind`` naming
   the driver (``kinds/<kind>.py``) that generates and runs it;
+- ``kinds/<kind>.py``, once for each kind: ``run`` (one run of a cell),
+  ``control_readings`` (the control's readings), ``FAULTS`` (the names of
+  the faults a cell of the kind can have) and ``fault(name)`` (a context
+  that plants one under the timed path);
 - ``metrics/<metric>.py``: a ``read(rec)`` that returns the metric from
   the run's records, or None where the cell has nothing to read;
 - ``limits/<workload>.json``: the limit of each number the output check
-  compares.
+  compares;
+- ``tests/tiny/<config>.json``: the configuration at tiny widths, for the
+  CPU tests: ``recipe`` and ``traffic`` overrides, and under ``sound``
+  further overrides under which a run on the CPU with no fault is held
+  to the cell's limits (the train kind's: float32).
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import importlib.util
 import json
@@ -46,6 +56,32 @@ def cell(spec, workload):
                          .read_text())
     limits = json.loads((BENCH / "limits" / f"{workload}.json").read_text())
     return w, config, traffic, limits
+
+
+def overridden(config, traffic, over=None):
+    """``config`` and ``traffic`` with the keys of ``over`` (which maps
+    ``recipe``, ``vocoder`` or ``traffic`` to keys that replace the
+    file's) in place."""
+    over = over or {}
+    config = {k: (dict(v, **over.get(k, {})) if isinstance(v, dict) else v)
+              for k, v in config.items()}
+    return config, dict(traffic, **over.get("traffic", {}))
+
+
+def kind(name):
+    """The module of the traffic kind ``name`` (``kinds/<name>.py``)."""
+    return importlib.import_module(f"benchmark.kinds.{name}")
+
+
+@contextlib.contextmanager
+def patched(owner, name, make):
+    """``owner.name`` replaced by ``make(owner.name)`` inside the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
 
 
 def metrics_of(spec, workload, trace):
@@ -93,20 +129,16 @@ def run_cell(workload, seed, seconds, trace, *, device="cuda", spec=None,
              config_override=None, started=None):
     """Run one cell and return the result's dict (not yet printed).
 
-    ``config_override`` maps ``recipe``, ``vocoder`` or ``traffic`` to
-    keys that replace the file's (tests run tiny models on the CPU through
-    it); ``started`` is the process's start on the host's ``time.time()``
-    clock, which ``setup_s`` counts from."""
+    ``config_override`` goes to :func:`overridden` (tests run tiny models
+    on the CPU through it); ``started`` is the process's start on the
+    host's ``time.time()`` clock, which ``setup_s`` counts from."""
     spec = spec or load_spec()
     w, config, traffic, limits = cell(spec, workload)
-    over = config_override or {}
-    config = {k: (dict(v, **over.get(k, {})) if isinstance(v, dict) else v)
-              for k, v in config.items()}
-    traffic = dict(traffic, **over.get("traffic", {}))
-    driver = importlib.import_module(f"benchmark.kinds.{traffic['kind']}")
-    out = driver.run(config=config, traffic=traffic, seed=int(seed),
-                     seconds=float(seconds), trace=bool(trace),
-                     device=device, started=started, chips=w["chips"])
+    config, traffic = overridden(config, traffic, config_override)
+    out = kind(traffic["kind"]).run(
+        config=config, traffic=traffic, seed=int(seed),
+        seconds=float(seconds), trace=bool(trace), device=device,
+        started=started, chips=w["chips"])
     metrics = {}
     for m in metrics_of(spec, workload, trace):
         if trace:

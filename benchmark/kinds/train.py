@@ -16,7 +16,9 @@ window then calls ``train_steps_indices`` with further chunks until
 seconds. With ``--trace`` a slice of ``trace_chunks`` chunks, started
 ``trace_at`` of the way into the window, runs under the profiler; a slice
 that lost kernel events is taken again at the next chunk, up to
-``trace_tries`` times.
+``trace_tries`` times. What a whole slice holds is read in set-up: one
+eager step under the profiler counts the ``gn_*`` and ``vq_*`` kernels a
+step launches, which a step replayed from its CUDA graph launches too.
 
 Once the window has closed and the peak memory is read, the trainer is
 freed and the plain reference (``reference/vqvae.py``, float32) takes the
@@ -36,11 +38,53 @@ import time
 import numpy as np
 import torch
 
-from .. import data, device_info, yardstick
+from .. import data, device_info, harness, yardstick
 from ..reference import vqvae as ref
 
 GN = re.compile(r"\bgn_")
 VQ = re.compile(r"\bvq_")
+
+# the faults a training cell can have (the exchange between chips is
+# absent from every one-chip cell)
+FAULTS = ("state_unchanged", "half_batch")
+
+
+def _state(tr):
+    """Every tensor of the trainer's training state: the flat parameters,
+    Adam's moments and counts, each EMA codebook's buffers."""
+    return [tr.flat, *(t for t in tr.opt_state if t is not None),
+            *(t for q in tr.ema.values() for t in q.state())]
+
+
+def fault(name):
+    """A context that plants fault ``name`` under the timed path.
+
+    ``state_unchanged``: each step writes the training state it began
+    with back in place (``copy_``), so that the state stays frozen in an
+    eager step and in a CUDA graph captured under the patch.
+    ``half_batch``: each step takes the first half of its windows' rows.
+    """
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
+    if name == "state_unchanged":
+        def make(orig):
+            def frozen(self, flat_g, new_ema, detail):
+                before = [t.clone() for t in _state(self)]
+                out = orig(self, flat_g, new_ema, detail)
+                with torch.no_grad():
+                    for t, b in zip(_state(self), before):
+                        t.copy_(b)
+                return out
+            return frozen
+        return harness.patched(Trainer, "_finish_step", make)
+    if name == "half_batch":
+        def make(orig):
+            def half(self, idx, starts):
+                x, s = orig(self, idx, starts)
+                return x[:x.shape[0] // 2], s[:s.shape[0] // 2]
+            return half
+        return harness.patched(Trainer, "_gather", make)
+    raise ValueError(f"unknown fault {name!r}")
 
 
 def windows(rng, n_frames, n_steps, B, crop):
@@ -272,7 +316,9 @@ def control_readings(config, traffic, seed, device):
 
 
 def _launches():
-    """The program's counters of K1, K2 and K3 wrapper calls."""
+    """The program's counters of K1, K2 and K3 wrapper calls (an eager
+    step's; none of a replayed one): ``tools/torch_span_breakdown.py``
+    holds its slices to them."""
     from vae_npvc_tpu_torch.ops import groupnorm, vq_fused
 
     return {"gn": getattr(groupnorm.fused_group_norm, "launches", 0)
@@ -280,17 +326,37 @@ def _launches():
             "vq": getattr(vq_fused.vq_fused, "launches", 0)}
 
 
-def shortfall(sl, calls):
+def kernel_counts(sl):
+    """The ``gn_*`` (K2, K3) and ``vq_*`` (K1) kernels of a traced slice."""
+    return {"gn": len(sl.kernels(GN)), "vq": len(sl.kernels(VQ))}
+
+
+def step_kernels(tr, window, tries):
+    """:func:`kernel_counts` of one eager step on ``window`` (``(idx[1, B],
+    starts[1, B])``), read on the device: what every step launches, also
+    one replayed from its graph, which calls no kernel wrapper. A slice
+    that lost a launch's kernel is taken again, up to ``tries`` times."""
+    from vae_npvc_tpu_torch.train.trainer import Trainer
+
+    from .. import trace as tracing
+
+    with Trainer.eager_steps():
+        for _ in range(tries):
+            sl = tracing.traced(lambda: tr.train_steps_indices(*window))
+            if not sl.lost:
+                break
+    return kernel_counts(sl)
+
+
+def shortfall(sl, expected):
     """Why a traced slice is incomplete, or None: a launch with no kernel
-    in the trace, or fewer ``gn_*``/``vq_*`` kernels than the wrappers
-    made calls (each call launches one or more; a name the trace does not
-    hold at all is left to the reader, which then returns nothing)."""
+    in the trace, or fewer ``gn_*``/``vq_*`` kernels than ``expected``
+    (the slice's steps times :func:`step_kernels`)."""
     if sl.lost:
         return f"{sl.lost} of {sl.launched} launches without a kernel"
-    for key, pattern in (("gn", GN), ("vq", VQ)):
-        n = len(sl.kernels(pattern))
-        if 0 < n < calls[key]:
-            return f"{n} {key} kernels for {calls[key]} calls"
+    for key, n in kernel_counts(sl).items():
+        if n < expected[key]:
+            return f"{n} {key} kernels for {expected[key]} expected"
     return None
 
 
@@ -310,6 +376,8 @@ def run(*, config, traffic, seed, seconds, trace, device, started, chips):
         from .. import trace as tracing
 
         tracing.warm()
+        per_step = step_kernels(tr, tuple(a[:1] for a in chunks[0]),
+                                traffic["trace_tries"])
     if cuda:
         torch.cuda.synchronize()
         setup_peak = torch.cuda.max_memory_allocated()
@@ -332,16 +400,17 @@ def run(*, config, traffic, seed, seconds, trace, device, started, chips):
     while time.perf_counter() - t0 < seconds:
         if trace and sliced is None and tries < traffic["trace_tries"] \
                 and time.perf_counter() - t0 >= traffic["trace_at"] * seconds:
-            n0, s0, calls0 = steps, time.perf_counter(), _launches()
+            n0, s0 = steps, time.perf_counter()
             sl = tracing.traced(
                 lambda: [chunk() for _ in range(traffic["trace_chunks"])])
-            calls = {k: v - calls0[k] for k, v in _launches().items()}
             tries += 1
             traced_steps += steps - n0
             traced_s += time.perf_counter() - s0
-            why = shortfall(sl, calls)
+            expected = {k: v * (steps - n0) for k, v in per_step.items()}
+            why = shortfall(sl, expected)
             traces.append({"launched": sl.launched, "lost": sl.lost,
-                           "calls": calls, "retaken": why})
+                           "kernels": kernel_counts(sl),
+                           "expected": expected, "retaken": why})
             if why is None:
                 sliced, sliced_steps = sl, steps - n0
             continue
